@@ -1,4 +1,5 @@
-"""strawboat_tpu_torch: the strawboat resident serving path on PyTorch + CUDA.
+"""strawboat_tpu_torch: strawboat's resident serving path and file scan on
+PyTorch + CUDA.
 
 A port of ``strawboat_tpu`` (JAX/Pallas, the reference) to torch tensors,
 with the reference's Pallas kernels rewritten by hand in CUDA C++ for the
@@ -7,7 +8,8 @@ NVIDIA H100.  Every entry that puts data on a device takes an explicit
 
 The package imports ``torch`` and never JAX.  From ``strawboat_tpu`` it
 imports only the host modules that load neither JAX nor pyarrow
-(``errors``, ``constants``, ``util.bits``, ``native``).  pyarrow is imported
+(``errors``, ``constants``, ``meta``, ``util.bits``, ``util.env``,
+``util.hybrid_rle``, ``util.roaring``, ``native``).  pyarrow is imported
 lazily, only by the ``pa.Table`` front of ``make_resident`` and by
 ``to_arrow``.
 """

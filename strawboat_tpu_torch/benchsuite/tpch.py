@@ -1,4 +1,4 @@
-"""TPC-H lineitem, Q1 and Q6 for the resident serving path.
+"""TPC-H lineitem, Q1 and Q6 for the resident path and the file scan.
 
 Counterpart of ``strawboat_tpu/benchsuite/tpch.py``.  The generator is the
 reference's numpy body and returns numpy columns (no pyarrow needed); the
@@ -13,8 +13,11 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+import torch
+
 from ..exec.expr import col
 from ..exec.query import Query
+from ..exec.resident import ResidentTable
 
 ROWS_PER_SF = 6_000_000
 EPOCH_DAYS = 2557  # 1992-01-01 .. 1998-12-31
@@ -41,6 +44,17 @@ Q1_Q6_COLUMNS = (
     "l_tax",
     "l_returnflag",
     "l_linestatus",
+    "l_shipdate",
+)
+# the integer columns the port's writer and scan handle (the string
+# columns wait for the binary codecs)
+INT_COLUMNS = (
+    "l_orderkey",
+    "l_suppkey",
+    "l_quantity",
+    "l_extendedprice",
+    "l_discount",
+    "l_tax",
     "l_shipdate",
 )
 
@@ -83,14 +97,36 @@ def generate_lineitem(
 # Q6: revenue from discounted small shipments in 1994
 
 
-def q6(rt):
-    """TPC-H Q6 over a resident lineitem: shipdate in [1994, 1995), discount
-    in [5, 7] hundredths, quantity < 24; sum(extendedprice * discount)."""
-    return rt.filter_sum(
-        {"l_shipdate": (731, 1096), "l_discount": (5, 8), "l_quantity": (None, 24)},
-        value="l_extendedprice",
-        product_with="l_discount",
-    )
+def write_lineitem(path, cols: Dict[str, np.ndarray], max_page_size: int = 65536, options=None):
+    """Write the integer lineitem columns through the port's writer (codecs
+    as the ``STRAWBOAT_*_COMPRESSION`` flags force them) → column metas."""
+    from ..codecs import WriteOptions
+    from ..write import write_file
+
+    options = options or WriteOptions(max_page_size=max_page_size)
+    return write_file(path, {k: cols[k] for k in INT_COLUMNS}, options=options)
+
+
+def q6(table):
+    """TPC-H Q6: shipdate in [1994, 1995), discount in [5, 7] hundredths,
+    quantity < 24; sum(extendedprice * discount) as an int64 scalar.
+
+    A resident table runs its fused ``filter_sum``; a scanned
+    ``DeviceTable`` runs a few torch ops (compare, ``where``, product,
+    ``sum`` in int64), as the reference's ``q6(table)`` does."""
+    if isinstance(table, ResidentTable):
+        return table.filter_sum(
+            {"l_shipdate": (731, 1096), "l_discount": (5, 8), "l_quantity": (None, 24)},
+            value="l_extendedprice",
+            product_with="l_discount",
+        )
+    sd = table["l_shipdate"].values
+    disc = table["l_discount"].values
+    qty = table["l_quantity"].values
+    ep = table["l_extendedprice"].values
+    m = (sd >= 731) & (sd < 1096) & (disc >= 5) & (disc <= 7) & (qty < 24)
+    prod = ep.to(torch.int64) * disc.to(torch.int64)
+    return torch.where(m, prod, 0).sum(dtype=torch.int64)
 
 
 def q6_numpy_reference(cols: Dict[str, np.ndarray]) -> int:

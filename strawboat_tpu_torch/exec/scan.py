@@ -1,23 +1,63 @@
-"""Decoded device columns: ``DeviceColumn`` / ``DeviceTable``.
+"""Device scan: host page planning, decode on the device.
 
-Counterpart of the container half of ``strawboat_tpu/exec/scan.py``.  The
-reference keeps a host copy of f64 columns (``host_exact``) because the TPU
-stores f64 as a float32 pair; float64 is native on the GPU, so the port
+Counterpart of ``strawboat_tpu/exec/scan.py``: ``DeviceColumn`` /
+``DeviceTable`` and, for flat integer and date32 columns, ``scan_file``.
+The reference keeps a host copy of f64 columns (``host_exact``) because the
+TPU stores f64 as a float32 pair; float64 is native on the GPU, so the port
 does not.
 
 ``dtype`` is the arrow type the column came from: a ``pa.DataType``, or its
-alias string (``"int64"``, ``"string"``) when the table was built without
+alias string (``"int64"``, ``"date32"``) when the table was built without
 pyarrow.  String/binary columns ride as dictionary codes; ``dictionary`` is
 then the host numpy object array of the dictionary's values.
+
+Scanned values keep the column's width.  Unsigned columns follow
+``device.py``: uint8 stays ``torch.uint8``, uint16/32/64 travel as the
+signed torch type of the same width holding the same bits
+(:func:`host_values` views them back); date32 is int32 days.
+
+The scan plans pages on the host (headers, block widths, dictionaries) and
+decodes on the device with one launch per group: uniform-width bit-packed
+pages and dictionary index subpages of one width run kernel K3
+(``kernels/bitunpack.py``); pages whose blocks mix widths run the varwidth
+decoder; RLE / ONE_VALUE / FREQ / other DICT pages decode page by page in
+torch ops; raw pages (NONE, and LZ4 / Zstd / Snappy through
+``strawboat_tpu.native``) decode on the host and upload once per run.
 """
 
 from __future__ import annotations
 
+from collections import defaultdict
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from strawboat_tpu import native
+from strawboat_tpu.constants import Compression
+from strawboat_tpu.errors import NotYetImplementedError, OutOfSpecError
+from strawboat_tpu.meta import ColumnMeta
+
+from ..codecs import decompress_raw, read_header
+from ..codecs.integer import parse_dict_values, parse_freq, parse_one_value, parse_rle
+from ..device import as_device
+from ..kernels.decode import (
+    bitunpack_natural_device,
+    bitunpack_varwidth_device,
+    delta_bitunpack_device,
+    dict_gather_device,
+    freq_scatter_device,
+    one_value_device,
+    low32,
+    prefix_sum_u32,
+    rle_expand_device,
+)
+from ..read.levels import read_validity
+from ..read.reader import infer_schema, read_meta
+from ..schema import FLAT_INT_TYPES, Field
+
+_SCAN_TODO = "ROADMAP.md 'Modules to port': scan_file, what is left"
 
 
 @dataclass
@@ -47,7 +87,7 @@ class DeviceTable:
         sel = None if mask is None else np.flatnonzero(mask.cpu().numpy())
         arrays = {}
         for name, c in self.columns.items():
-            vals = c.values.cpu().numpy()
+            vals = host_values(c)
             validity = None if c.validity is None else c.validity.cpu().numpy()
             if sel is not None:
                 vals = vals[sel]
@@ -103,3 +143,482 @@ def to_pa_array(vals: np.ndarray, null_mask, dtype, dictionary=None):
             storage = pa.int32() if t.bit_width == 32 else pa.int64()
             arr = arr.cast(storage).cast(t)
     return arr
+
+
+def host_values(c: DeviceColumn) -> np.ndarray:
+    """A column's values on the host, unsigned alias types viewed back
+    from their signed device view."""
+    vals = c.values.cpu().numpy()
+    storage = FLAT_INT_TYPES.get(c.dtype) if isinstance(c.dtype, str) else None
+    if storage is not None and vals.dtype.itemsize == np.dtype(storage).itemsize:
+        vals = vals.view(storage)
+    return vals
+
+
+# ---------------------------------------------------------------------------
+# host → device
+
+
+def _torch_view(arr: np.ndarray) -> np.ndarray:
+    """uint16/32/64 → the signed numpy view torch takes (uint8 stays)."""
+    if arr.dtype.kind == "u" and arr.dtype.itemsize > 1:
+        return arr.view(f"<i{arr.dtype.itemsize}")
+    return arr
+
+
+def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    arr = _torch_view(np.ascontiguousarray(arr))
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    return torch.from_numpy(arr).to(device)
+
+
+def _torch_dtype(np_dtype: np.dtype) -> torch.dtype:
+    return torch.from_numpy(_torch_view(np.zeros(0, np_dtype))).dtype
+
+
+def _from_u32(vals: torch.Tensor, np_dtype: np.dtype) -> torch.Tensor:
+    """int32-viewed u32 values of a bit-packed page → the column's type
+    (only 4-byte columns are bit-packed: the writer's gate)."""
+    if np_dtype.itemsize != 4:
+        raise OutOfSpecError(f"bit-packed page in a column of {np_dtype}")
+    return vals.view(_torch_dtype(np_dtype))
+
+
+# ---------------------------------------------------------------------------
+# page planning (reference scan.py:329-508)
+
+
+def _block_widths(buf, body: int, n_blocks: int) -> np.ndarray:
+    """The bit width of each block of a bit-packed page.  A page whose
+    blocks all share the first block's width is recognized from a strided
+    view of the header bytes (if every header at that stride holds the
+    same width, the walk would visit exactly those); others walk the
+    headers (``native.bp_walk`` in C or, without the native library, a
+    Python loop over a bytes copy of the page)."""
+    if n_blocks == 0:
+        return np.zeros(0, dtype=np.uint8)
+    if body >= len(buf):
+        raise OutOfSpecError("bitpacked page truncated")
+    nb0 = int(buf[body])
+    stride = 1 + nb0 * 16
+    if body + n_blocks * stride <= len(buf):
+        heads = np.frombuffer(buf, np.uint8, n_blocks * stride, body)[::stride]
+        if (heads == nb0).all():
+            return heads.copy()
+    if native.available():
+        nbs, end = native.bp_walk(buf, body, n_blocks)
+        if end > len(buf):
+            raise OutOfSpecError("bitpacked page truncated")
+        return nbs
+    # bp_walk's Python fallback indexes the ndarray; a loop over a bytes
+    # copy walks the dict file's 1.4 M mixed-width blocks in 0.19 s instead
+    # of 0.41 s on an H100 machine's host (PERF.md, Findings)
+    data = bytes(buf[body:])
+    nbs = bytearray(n_blocks)
+    p = 0
+    try:
+        for i in range(n_blocks):
+            nbs[i] = data[p]
+            p += 1 + data[p] * 16
+    except IndexError:
+        raise OutOfSpecError("bitpacked page truncated") from None
+    if p > len(data):
+        raise OutOfSpecError("bitpacked page truncated")
+    return np.frombuffer(nbs, dtype=np.uint8)
+
+
+def _parse_bp_page(buf, body: int, length: int):
+    """A bit-packed page (or index subpage) →
+    ``("uniform", words (n_blocks, 4b) u32, n_blocks, b)`` when every block
+    has one non-zero width, ``("varwidth", words (n, bmax*4) u32
+    zero-padded per block, n_blocks, widths (n,) int32, bmax)`` when the
+    widths mix, or None when every block is 0 bits wide.  The reference
+    takes the varwidth path only with the native header walk; the port
+    always does."""
+    n_blocks = (length + 127) // 128
+    widths = _block_widths(buf, body, n_blocks).astype(np.int32)
+    bmax = int(widths.max()) if n_blocks else 0
+    if bmax == 0:
+        return None
+    if bmax > 32:
+        raise OutOfSpecError(f"bit-packed block of width {bmax}")
+    if (widths == bmax).all():
+        stride = 1 + bmax * 16
+        body_arr = np.frombuffer(buf, np.uint8, n_blocks * stride, body)
+        words = body_arr.reshape(n_blocks, stride)[:, 1:].copy().view(np.uint32)
+        return "uniform", words, n_blocks, bmax
+    offs = np.zeros(n_blocks + 1, dtype=np.int64)
+    np.cumsum(1 + widths.astype(np.int64) * 16, out=offs[1:])
+    offs += body
+    words = np.zeros((n_blocks, bmax * 4), dtype=np.uint32)
+    u8 = words.view(np.uint8)
+    for w in np.unique(widths):
+        w = int(w)
+        if w == 0:
+            continue
+        sel = np.flatnonzero(widths == w)
+        u8[sel, : w * 16] = buf[offs[sel][:, None] + 1 + np.arange(w * 16)]
+    return "varwidth", words, n_blocks, widths, bmax
+
+
+def _repeat_per_page(per_page, slot_sizes, total: int, device) -> torch.Tensor:
+    """One int64 value per page (a sequence or a tensor) → one per slot
+    of the group."""
+    return torch.repeat_interleave(
+        torch.as_tensor(per_page, dtype=torch.int64, device=device),
+        torch.as_tensor(np.asarray(slot_sizes, dtype=np.int64), device=device),
+        output_size=total,
+    )
+
+
+def _restart_per_page(dec: torch.Tensor, slot_sizes, device) -> torch.Tensor:
+    """Delta pages of a group: a prefix sum mod 2^32 that restarts at each
+    page (the delta carries within a page only).  int32 bits out."""
+    g = prefix_sum_u32(dec)
+    starts = np.cumsum(slot_sizes)[:-1]
+    base = torch.zeros(len(slot_sizes), dtype=torch.int64, device=device)
+    if len(starts):
+        base[1:] = g[torch.as_tensor(starts - 1, device=device)]
+    return low32(g - _repeat_per_page(base, slot_sizes, len(dec), device))
+
+
+def _gather_dicts(codes: torch.Tensor, dicts, slot_sizes, np_dtype, device) -> torch.Tensor:
+    """Codes of a group's pages → values, each page through its own
+    dictionary: all dictionaries go up concatenated and each page's codes
+    are shifted by its dictionary's base.  Codes are checked against their
+    page's dictionary size before the gather."""
+    total = len(codes)
+    sizes = [len(d) for d in dicts]
+    bases = np.zeros(len(dicts), dtype=np.int64)
+    bases[1:] = np.cumsum(sizes[:-1])
+    codes = codes.to(torch.int64) & 0xFFFFFFFF
+    if bool((codes >= _repeat_per_page(sizes, slot_sizes, total, device)).any()):
+        raise OutOfSpecError("dictionary code out of range")
+    all_dict = _to_device(np.concatenate(dicts).astype(np_dtype, copy=False), device)
+    return dict_gather_device(codes + _repeat_per_page(bases, slot_sizes, total, device), all_dict)
+
+
+def _k3_groups(k3_jobs) -> Dict:
+    """The scan's K3 launches: uniform-width jobs grouped by (codec, b).
+    Bit-packed pages group by codec and width, DICT pages (codec DICT) by
+    the width of their index subpage.
+
+    k3_jobs: (idx, codec, words (n_blocks, 4b) u32, n_blocks, b,
+    dictionary or None)."""
+    groups = defaultdict(list)
+    for job in k3_jobs:
+        groups[(job[1], job[4])].append(job)
+    return groups
+
+
+def _decode_k3_groups(k3_jobs, np_dtype, device, group_arrays, page_ref) -> None:
+    """ONE K3 launch per group over the concatenated words of its pages,
+    copied to the device once; delta pages then restart their prefix sum
+    per page, DICT pages gather through their own dictionaries.  Fills
+    ``group_arrays`` {key: values} and ``page_ref`` {idx: (key, offset,
+    slots)}."""
+    for gkey, jobs in _k3_groups(k3_jobs).items():
+        codec, b = gkey
+        words = _to_device(np.concatenate([j[2] for j in jobs]), device)
+        dec = bitunpack_natural_device(words, b)
+        slot_sizes = [j[3] * 128 for j in jobs]
+        if codec == Compression.DELTA_BITPACKING:
+            dec = _restart_per_page(dec, slot_sizes, device)
+        if codec == Compression.DICT:
+            dec = _gather_dicts(dec, [j[5] for j in jobs], slot_sizes, np_dtype, device)
+        else:
+            dec = _from_u32(dec, np_dtype)
+        group_arrays[gkey] = dec
+        _index_pages(gkey, [j[0] for j in jobs], slot_sizes, page_ref)
+
+
+def _decode_varwidth_groups(bpv_jobs, np_dtype, device, group_arrays, page_ref) -> None:
+    """Pages whose blocks mix widths: one varwidth decode per (kind,
+    delta?) group, the widths riding as data.
+
+    bpv_jobs: (idx, kind, words, n_blocks, widths, bmax, length, is_delta,
+    dictionary or None); kind is "bpv" (a bit-packed page) or "dictv" (a
+    DICT page's index subpage)."""
+    groups = defaultdict(list)
+    for job in bpv_jobs:
+        groups[(job[1], job[7])].append(job)
+    for gkey, jobs in groups.items():
+        kind, is_delta = gkey
+        bmax = max(j[5] for j in jobs)
+        # each page's words at its own widest block, zero-padded to the group's
+        words = np.zeros((sum(j[3] for j in jobs), bmax * 4), dtype=np.uint32)
+        row = 0
+        for j in jobs:
+            words[row : row + j[3], : j[2].shape[1]] = j[2]
+            row += j[3]
+        widths = np.concatenate([j[4] for j in jobs])
+        dec = bitunpack_varwidth_device(
+            _to_device(words, device), _to_device(widths, device), bmax
+        ).reshape(-1)
+        slot_sizes = [j[3] * 128 for j in jobs]
+        if is_delta:
+            dec = _restart_per_page(dec, slot_sizes, device)
+        if kind == "dictv":
+            dec = _gather_dicts(dec, [j[8] for j in jobs], slot_sizes, np_dtype, device)
+        else:
+            dec = _from_u32(dec, np_dtype)
+        group_arrays[gkey] = dec
+        _index_pages(gkey, [j[0] for j in jobs], slot_sizes, page_ref)
+
+
+def _index_pages(gkey, idxs, slot_sizes, page_ref) -> None:
+    off = 0
+    for idx, n in zip(idxs, slot_sizes):
+        page_ref[idx] = (gkey, off, n)
+        off += n
+
+
+# ---------------------------------------------------------------------------
+# one structured page on the device (reference scan.py:203-326)
+
+
+def _decode_structured_to_device(buf, pos: int, length: int, np_dtype: np.dtype, device):
+    """Decode one integer page at ``pos`` → (values on ``device`` in the
+    column's torch type, end position).  Subpages (DICT indices, FREQ
+    exceptions) recurse."""
+    codec, csize, _usize, body = read_header(buf, pos)
+    end = body + csize
+    if end > len(buf):
+        raise OutOfSpecError("integer page truncated")
+    if codec.raw_mode:
+        nbytes = length * np_dtype.itemsize
+        (raw,) = decompress_raw(codec, [buf[body:end]], [nbytes])
+        return _to_device(np.frombuffer(raw, np_dtype, length), device), end
+    if codec == Compression.ONE_VALUE:
+        value = _to_device(parse_one_value(buf, body, np_dtype), device)
+        return one_value_device(value, length), end
+    if codec == Compression.RLE:
+        counts, values = parse_rle(buf, body, length, np_dtype)
+        return rle_expand_device(
+            _to_device(counts.astype(np.int64), device), _to_device(values, device), length
+        ), end
+    if codec == Compression.DICT:
+        codes, ipos = _decode_structured_to_device(buf, body, length, np.dtype(np.uint32), device)
+        dvals = parse_dict_values(buf, ipos, np_dtype)
+        return _gather_dicts(codes, [dvals], [length], np_dtype, device), end
+    if codec == Compression.FREQ:
+        top, positions, p = parse_freq(buf, body, np_dtype)
+        exceptions, _ = _decode_structured_to_device(buf, p, len(positions), np_dtype, device)
+        return freq_scatter_device(
+            _to_device(top, device), _to_device(positions.astype(np.int64), device),
+            exceptions, length,
+        ), end
+    if codec in (Compression.BITPACKING, Compression.DELTA_BITPACKING):
+        delta = codec == Compression.DELTA_BITPACKING
+        parsed = _parse_bp_page(buf, body, length)
+        if parsed is None:  # every block 0 bits wide
+            out = torch.zeros(((length + 127) // 128) * 128, dtype=torch.int32, device=device)
+        elif parsed[0] == "uniform":
+            words, b = _to_device(parsed[1], device), parsed[3]
+            out = delta_bitunpack_device(words, b) if delta else bitunpack_natural_device(words, b)
+        else:
+            _kind, words, _n, widths, bmax = parsed
+            out = bitunpack_varwidth_device(
+                _to_device(words, device), _to_device(widths, device), bmax
+            ).reshape(-1)
+            if delta:
+                out = low32(prefix_sum_u32(out))
+        return _from_u32(out[:length], np_dtype), end
+    raise NotYetImplementedError(f"device decode of {codec.name} integer pages ({_SCAN_TODO})")
+
+
+# ---------------------------------------------------------------------------
+# one column (reference decode_column_pages_device, scan.py:594)
+
+
+def _plan_pages(file_bytes: np.ndarray, meta: ColumnMeta, nullable: bool):
+    """→ [(length, validity or None, page bytes, position after the
+    validity prelude)] for every page of the column."""
+    plans = []
+    pos = meta.offset
+    for page in meta.pages:
+        buf = file_bytes[pos : pos + page.length]
+        if len(buf) != page.length:
+            raise OutOfSpecError("page past the end of the file")
+        length = page.num_values
+        validity, p = read_validity(buf, 0, length) if nullable else (None, 0)
+        plans.append((length, validity, buf, p))
+        pos += page.length
+    return plans
+
+
+def _sort_jobs(plans, np_dtype):
+    """Split pages into raw pages (decoded on the host), K3 jobs (uniform
+    BP pages and DICT pages with a uniform BP index subpage), and
+    mixed-width pages; the rest decode one by one."""
+    raw_jobs = defaultdict(list)  # codec → [(idx, body bytes, nbytes)]
+    k3_jobs, bpv_jobs = [], []
+    for idx, (length, _v, buf, p) in enumerate(plans):
+        codec, csize, _us, body = read_header(buf, p)
+        if codec.raw_mode:
+            raw_jobs[codec].append((idx, buf[body : body + csize], length * np_dtype.itemsize))
+        elif codec in (Compression.BITPACKING, Compression.DELTA_BITPACKING):
+            parsed = _parse_bp_page(buf, body, length)
+            if parsed is None:
+                continue
+            if parsed[0] == "uniform":
+                k3_jobs.append((idx, codec, *parsed[1:], None))
+            else:
+                is_delta = codec == Compression.DELTA_BITPACKING
+                bpv_jobs.append((idx, "bpv", *parsed[1:], length, is_delta, None))
+        elif codec == Compression.DICT:
+            icodec, icsize, _ius, ibody = read_header(buf, body)
+            if icodec not in (Compression.BITPACKING, Compression.DELTA_BITPACKING):
+                continue
+            parsed = _parse_bp_page(buf, ibody, length)
+            if parsed is None:
+                continue
+            dvals = parse_dict_values(buf, ibody + icsize, np_dtype)
+            is_delta = icodec == Compression.DELTA_BITPACKING
+            if parsed[0] == "uniform" and not is_delta:
+                k3_jobs.append((idx, Compression.DICT, *parsed[1:], dvals))
+            else:
+                # delta codes take the varwidth decoder, as in the reference
+                words, n_blocks, bmax = parsed[1], parsed[2], parsed[-1]
+                if parsed[0] == "varwidth":
+                    widths = parsed[3]
+                else:
+                    widths = np.full(n_blocks, bmax, np.int32)
+                bpv_jobs.append(
+                    (idx, "dictv", words, n_blocks, widths, bmax, length, is_delta, dvals)
+                )
+    return raw_jobs, k3_jobs, bpv_jobs
+
+
+def decode_column_pages_device(
+    file_bytes: np.ndarray, meta: ColumnMeta, field: Field, device
+) -> DeviceColumn:
+    """Decode every page of a flat integer column onto ``device``."""
+    if not field.is_flat_int:
+        raise NotYetImplementedError(
+            f"scan of column {field.name!r} of type {field.dtype} ({_SCAN_TODO})"
+        )
+    dev = as_device(device)
+    np_dtype = np.dtype(FLAT_INT_TYPES[field.dtype])
+    plans = _plan_pages(file_bytes, meta, field.nullable)
+    raw_jobs, k3_jobs, bpv_jobs = _sort_jobs(plans, np_dtype)
+
+    raw_host = {}
+    for codec, jobs in raw_jobs.items():
+        outs = decompress_raw(codec, [j[1] for j in jobs], [j[2] for j in jobs])
+        for (idx, _b, _n), out in zip(jobs, outs):
+            raw_host[idx] = np.frombuffer(out, np_dtype)
+    group_arrays: Dict = {}
+    page_ref: Dict = {}
+    if k3_jobs:
+        _decode_k3_groups(k3_jobs, np_dtype, dev, group_arrays, page_ref)
+    if bpv_jobs:
+        _decode_varwidth_groups(bpv_jobs, np_dtype, dev, group_arrays, page_ref)
+
+    # assembly in page order: runs of host pages go up in one copy, group
+    # slices that continue each other merge into one slice
+    # tensors, or [gkey, offset, n_values, ends on a full page] slices
+    parts: List[Any] = []
+    host_run: List[np.ndarray] = []
+
+    def flush_host():
+        if host_run:
+            parts.append(_to_device(np.concatenate(host_run), dev))
+            host_run.clear()
+
+    for idx, (length, _v, buf, p) in enumerate(plans):
+        if idx in page_ref:
+            flush_host()
+            gkey, off, slots = page_ref[idx]
+            last = parts[-1] if parts else None
+            if isinstance(last, list) and last[0] == gkey and last[3] and last[1] + last[2] == off:
+                last[2] += length
+                last[3] = length == slots
+            else:
+                parts.append([gkey, off, length, length == slots])
+        elif idx in raw_host:
+            host_run.append(raw_host[idx])
+        else:
+            flush_host()
+            parts.append(_decode_structured_to_device(buf, p, length, np_dtype, dev)[0])
+    flush_host()
+    tensors = [
+        group_arrays[x[0]][x[1] : x[1] + x[2]] if isinstance(x, list) else x for x in parts
+    ]
+    if not tensors:
+        values = torch.zeros(0, dtype=_torch_dtype(np_dtype), device=dev)
+    else:
+        values = tensors[0] if len(tensors) == 1 else torch.cat(tensors)
+    validity = None
+    if any(v is not None for _l, v, _b, _p in plans):
+        validity = _to_device(
+            np.concatenate([np.ones(l, bool) if v is None else v for l, v, _b, _p in plans]),
+            dev,
+        )
+    return DeviceColumn(field.name, field.dtype, values, validity)
+
+
+# ---------------------------------------------------------------------------
+# entry points (reference scan.py:1361-1512)
+
+
+def scan_file(
+    path: str,
+    device,
+    columns: Optional[Sequence[str]] = None,
+    predicates: Optional[Sequence] = None,
+) -> DeviceTable:
+    """Scan a strawboat file's flat integer and date32 columns onto
+    ``device`` (``"cuda"``, ``"cpu"``, a ``torch.device``).
+
+    ``columns`` picks columns by name (default: all; any other type then
+    raises ``NotYetImplementedError``).  Zone-map pruning
+    (``predicates``), floats, strings, decimals, booleans and nested
+    columns are not ported yet."""
+    dev = as_device(device)
+    if predicates:
+        raise NotYetImplementedError(f"zone-map pruning in scan_file ({_SCAN_TODO})")
+    out: Dict[str, DeviceColumn] = {}
+    num_rows = 0
+    for file_bytes, meta, field in _file_columns(path, columns):
+        col = decode_column_pages_device(file_bytes, meta, field, dev)
+        out[field.name] = col
+        num_rows = len(col)
+    return DeviceTable(out, num_rows)
+
+
+def _file_columns(path: str, columns: Optional[Sequence[str]]):
+    """(file bytes, meta, field) of each selected top-level column."""
+    with open(path, "rb") as f:
+        schema = infer_schema(f)
+        metas = read_meta(f)
+    # a plain ndarray view of the map: indexing a np.memmap costs ~20x more
+    file_bytes = np.memmap(path, dtype=np.uint8, mode="r").view(np.ndarray)
+    i = 0
+    for field in schema:
+        meta = metas[i]
+        i += field.n_leaves
+        if columns is None or field.name in columns:
+            yield file_bytes, meta, field
+
+
+def k3_launch_groups(path: str, columns: Optional[Sequence[str]] = None):
+    """What ``scan_file(path, columns=columns)`` hands kernel K3, one
+    entry per launch: [(column, (codec, b), page indices, words (n_blocks,
+    4b) u32)].  For timing K3 alone at the scan's shapes."""
+    out = []
+    for file_bytes, meta, field in _file_columns(path, columns):
+        if not field.is_flat_int:
+            continue
+        plans = _plan_pages(file_bytes, meta, field.nullable)
+        _raw, k3_jobs, _bpv = _sort_jobs(plans, np.dtype(FLAT_INT_TYPES[field.dtype]))
+        for gkey, jobs in _k3_groups(k3_jobs).items():
+            out.append((field.name, gkey, [j[0] for j in jobs],
+                        np.concatenate([j[2] for j in jobs])))
+    return out
+
+
+def scan_chunks(path: str, chunk_pages: int, columns=None, predicates=None):
+    """Not ported yet: a file as a stream of chunked DeviceTables."""
+    raise NotYetImplementedError(f"scan_chunks ({_SCAN_TODO})")

@@ -3,11 +3,13 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, ``build/lib<name>.so`` beside this file
 (git-ignored).  The build happens at first use, never at import, and is
-redone when the source is newer than the library.
+redone when the source is newer than the library.  :func:`load_all`
+starts one nvcc per source at once.
 """
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import ctypes
 import os
 import shutil
@@ -26,7 +28,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: Dict[str, threading.Lock] = {}  # one per library: builds run side by side
 _libs: Dict[str, ctypes.CDLL] = {}
 # seconds each library took to compile in this process (absent: reused)
 build_seconds: Dict[str, float] = {}
@@ -70,6 +73,8 @@ def _compile(name: str, src: str, out: str) -> None:
 def load(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
@@ -80,3 +85,11 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(out)
         _libs[name] = lib
         return lib
+
+
+def load_all(names) -> None:
+    """Build and load several libraries, their nvcc runs started together."""
+    names = list(names)
+    with cf.ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        for fut in [pool.submit(load, n) for n in names]:
+            fut.result()

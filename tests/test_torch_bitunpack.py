@@ -97,3 +97,59 @@ def test_cpu_tensor_runs_plain_and_counts_no_launch():
     got = port.bitunpack_tiled(w, 3, 7)
     assert torch.equal(got, port.bitunpack_tiled_plain(w, 3, 7))
     assert port.bitunpack_tiled.launches == before
+
+
+# ---------------------------------------------------------------------------
+# K2 (the unseeded tiled kernel) and K0 (the 2-D stripe kernel): the K1
+# kernel at seed 0, against their own interpreted Pallas kernels
+
+
+@pytest.mark.parametrize("b", range(1, 33))
+def test_k2_matches_reference(ref, b):
+    w = _words(b)
+    out3 = ref.bitunpack_pallas_tiled(jnp.asarray(w), b)
+    inv = np.argsort(ref.tiled_rows_to_t(b))  # row of value t
+    got = port.bitunpack_tiled_unseeded(torch.from_numpy(w.view(np.int32)), b)
+    np.testing.assert_array_equal(
+        got.numpy().view(np.uint32), np.asarray(out3)[:, inv], err_msg=f"b={b}"
+    )
+    # the flat natural order, restored by reshapes over t order
+    np.testing.assert_array_equal(
+        port.bitunpack_tiled_to_flat(got).numpy().view(np.uint32),
+        np.asarray(ref.bitunpack_tiled_to_flat(out3, b)),
+        err_msg=f"flat b={b}",
+    )
+
+
+@pytest.mark.parametrize("b", range(1, 33))
+def test_k0_matches_reference(ref, b):
+    rng = np.random.default_rng(2000 + b)
+    wt = rng.integers(0, 1 << 32, (b, 1024), dtype=np.uint64).astype(np.uint32)
+    got = port.bitunpack_tmajor(torch.from_numpy(wt.view(np.int32)), b)
+    np.testing.assert_array_equal(
+        got.numpy().view(np.uint32),
+        np.asarray(ref.bitunpack_pallas_tmajor(jnp.asarray(wt), b)),
+        err_msg=f"b={b}",
+    )
+    np.testing.assert_array_equal(
+        port.bitunpack_tmajor_natural(torch.from_numpy(wt.view(np.int32)), b)
+        .numpy()
+        .view(np.uint32),
+        np.asarray(ref.bitunpack_pallas(jnp.asarray(wt), b)),
+        err_msg=f"natural b={b}",
+    )
+
+
+def test_k2_k0_plain_versions_and_counts():
+    """On the CPU the wrappers run their plain versions and count no
+    launch; the plain versions are K1's at seed 0."""
+    w = torch.from_numpy(_words(9).view(np.int32))
+    counts = (port.bitunpack_tiled_unseeded.launches, port.bitunpack_tmajor.launches)
+    assert torch.equal(port.bitunpack_tiled_unseeded(w, 9), port.bitunpack_tiled_plain(w, 0, 9))
+    wt = w[0]
+    assert torch.equal(port.bitunpack_tmajor(wt, 9), port.bitunpack_tiled_plain(w[:1], 0, 9)[0])
+    assert counts == (port.bitunpack_tiled_unseeded.launches, port.bitunpack_tmajor.launches)
+    with pytest.raises(ValueError):
+        port.bitunpack_tmajor(torch.zeros((9, 500), dtype=torch.int32), 9)  # lanes % 512
+    with pytest.raises(ValueError):
+        port.bitunpack_tmajor(w, 9)  # not 2-D

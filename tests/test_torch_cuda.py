@@ -1,4 +1,4 @@
-"""The port's CUDA kernel and resident path on the card.
+"""The port's CUDA kernels, resident path and file scan on the card.
 
 Marked ``cuda``: every test skips where no CUDA device is usable.  Run on a
 machine with an H100 (``--noconftest``: the repo's conftest imports JAX,
@@ -53,3 +53,49 @@ def test_resident_q1_q6_on_card(cuda):
             else:
                 assert got[key][name] == w, (key, name)
     assert bu.bitunpack_tiled.launches > before
+
+
+@pytest.mark.parametrize("seed", [0, 0xA5A500FF])
+def test_k3_matches_plain_on_card(cuda, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed & 0xFFFF)
+    for b in range(0, 33):
+        w = torch.randint(-(2**31), 2**31 - 1, (777, 4 * b), dtype=torch.int32,
+                          device=cuda, generator=g)
+        before = bu.bitunpack_natural.launches
+        got = bu.bitunpack_natural(w, seed, b)
+        torch.cuda.synchronize()
+        assert bu.bitunpack_natural.launches == before + (b > 0)  # b == 0: no launch
+        assert torch.equal(got, bu.bitunpack_natural_plain(w, seed, b)), b
+
+
+def test_k2_k0_match_plain_on_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for b in range(1, 33):
+        w = torch.randint(-(2**31), 2**31 - 1, (2, b, 16384), dtype=torch.int32,
+                          device=cuda, generator=g)
+        assert torch.equal(bu.bitunpack_tiled_unseeded(w, b), bu.bitunpack_tiled_unseeded_plain(w, b))
+        wt = w[0, :, :1536].contiguous()
+        assert torch.equal(bu.bitunpack_tmajor(wt, b), bu.bitunpack_tmajor_plain(wt, b))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("flags", [("STRAWBOAT_DICT_COMPRESSION", "STRAWBOAT_BITPACK_COMPRESSION"),
+                                   ("STRAWBOAT_BITPACK_COMPRESSION",)])
+def test_scan_on_card(cuda, tmp_path, monkeypatch, flags):
+    from strawboat_tpu_torch.benchsuite import tpch
+    from strawboat_tpu_torch.exec import scan_file
+    from strawboat_tpu_torch.exec.scan import host_values
+
+    for f in flags:
+        monkeypatch.setenv(f, "1")
+    cols = tpch.generate_lineitem(1.0, rows=300_000)
+    path = str(tmp_path / "lineitem.str")
+    tpch.write_lineitem(path, cols)
+    before = bu.bitunpack_natural.launches
+    table = scan_file(path, device=cuda)
+    torch.cuda.synchronize()
+    assert bu.bitunpack_natural.launches > before
+    for k in tpch.INT_COLUMNS:
+        assert table[k].values.device.type == "cuda"
+        np.testing.assert_array_equal(host_values(table[k]), cols[k], err_msg=k)
+    assert int(tpch.q6(table)) == tpch.q6_numpy_reference(cols)

@@ -2,8 +2,9 @@
 
 Runs in a subprocess: this test process already has JAX loaded (conftest).
 The child imports every module of the port, runs Q6 and Q1 over a small
-resident table built from numpy columns on the CPU, and checks
-``sys.modules`` afterwards.
+resident table built from numpy columns on the CPU, writes a small file
+with the port's writer and scans it back (dictionary and bit-packed
+pages), and checks ``sys.modules`` afterwards.
 """
 
 import os
@@ -21,15 +22,26 @@ MODULES = sorted(
 )
 
 CHILD = """
-import importlib, json, sys
+import importlib, json, os, sys, tempfile
+import numpy as np
 for m in {modules!r}:
     importlib.import_module(m)
 from strawboat_tpu_torch.benchsuite import tpch
-from strawboat_tpu_torch.exec import make_resident
+from strawboat_tpu_torch.exec import make_resident, scan_file
+from strawboat_tpu_torch.exec.scan import host_values
 cols = tpch.generate_lineitem(1.0, rows=5000)
 rt = make_resident({{k: cols[k] for k in tpch.Q1_Q6_COLUMNS}}, "cpu", tile=512)
 assert int(tpch.q6(rt)) == tpch.q6_numpy_reference(cols)
 assert tpch.q1_rows(tpch.q1(rt)) == tpch.q1_numpy_reference(cols)
+os.environ["STRAWBOAT_DICT_COMPRESSION"] = "1"
+os.environ["STRAWBOAT_BITPACK_COMPRESSION"] = "1"
+with tempfile.TemporaryDirectory() as d:
+    path = os.path.join(d, "lineitem.str")
+    tpch.write_lineitem(path, cols, max_page_size=1024)
+    table = scan_file(path, "cpu")
+for k in tpch.INT_COLUMNS:
+    assert np.array_equal(host_values(table[k]), cols[k]), k
+assert int(tpch.q6(table)) == tpch.q6_numpy_reference(cols)
 print(json.dumps({{"jax": "jax" in sys.modules, "pyarrow": "pyarrow" in sys.modules}}))
 """
 
@@ -37,6 +49,9 @@ print(json.dumps({{"jax": "jax" in sys.modules, "pyarrow": "pyarrow" in sys.modu
 def test_port_modules_listed():
     assert "strawboat_tpu_torch.exec.resident" in MODULES
     assert "strawboat_tpu_torch.kernels.bitunpack" in MODULES
+    assert "strawboat_tpu_torch.exec.scan" in MODULES
+    assert "strawboat_tpu_torch.write.writer" in MODULES
+    assert "strawboat_tpu_torch.schema" in MODULES
 
 
 def test_port_runs_without_jax_or_pyarrow():

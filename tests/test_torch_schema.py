@@ -1,0 +1,94 @@
+"""Arrow IPC schema bytes of the torch port against the JAX package's
+pyarrow-based ``strawboat_tpu.schema``, in both directions."""
+
+import pyarrow as pa
+import pytest
+
+from strawboat_tpu import schema as ref
+from strawboat_tpu.errors import NotYetImplementedError, OutOfSpecError
+from strawboat_tpu_torch import schema as port
+
+FLAT = list(port.FLAT_INT_TYPES)
+
+
+def _pa_type(alias):
+    return pa.type_for_alias(alias)
+
+
+@pytest.mark.parametrize("nullable", [True, False])
+def test_port_bytes_read_by_pyarrow(nullable):
+    fields = [port.Field(f"c_{t}", t, nullable) for t in FLAT]
+    buf = port.schema_to_bytes(fields)
+    assert len(buf) % 8 == 0
+    want = pa.schema([pa.field(f.name, _pa_type(f.dtype), nullable) for f in fields])
+    # bare (as a file stores it) and continuation-prefixed
+    assert ref.deserialize_schema(buf).equals(want)
+    prefixed = b"\xff\xff\xff\xff" + len(buf).to_bytes(4, "little") + buf
+    assert pa.ipc.read_schema(pa.BufferReader(prefixed)).equals(want)
+
+
+def test_pyarrow_bytes_read_by_port():
+    schema = pa.schema(
+        [pa.field(f"c_{t}", _pa_type(t), i % 2 == 0) for i, t in enumerate(FLAT)]
+    )
+    want = [port.Field(f.name, str(f.type).replace("[day]", ""), f.nullable) for f in schema]
+    assert port.deserialize_schema(ref.schema_to_bytes(schema)) == want  # bare
+    assert port.deserialize_schema(schema.serialize().to_pybytes()) == want  # prefixed
+    assert port.deserialize_schema(port.schema_to_bytes(want)) == want  # the port's own
+
+
+def test_other_types_parse_with_their_leaf_counts():
+    """Files with strings, floats and nested columns still open; the leaf
+    count keeps the column metas aligned."""
+    schema = pa.schema(
+        [
+            pa.field("s", pa.string()),
+            pa.field("f", pa.float64()),
+            pa.field("b", pa.bool_()),
+            pa.field("d", pa.decimal128(15, 2)),
+            pa.field("t", pa.timestamp("us")),
+            pa.field("l", pa.list_(pa.struct([("p", pa.int8()), ("q", pa.float32())]))),
+            pa.field("m", pa.map_(pa.int32(), pa.string())),
+            pa.field("st", pa.struct([("a", pa.int64()), ("b", pa.list_(pa.int16()))])),
+            pa.field("i", pa.int32()),
+        ]
+    )
+    got = port.deserialize_schema(ref.schema_to_bytes(schema))
+    assert [f.name for f in got] == schema.names
+    assert [f.dtype for f in got[:5]] == ["string", "float", "bool", "decimal", "timestamp"]
+    assert [f.n_leaves for f in got] == [ref.n_leaf_columns(f.type) for f in schema]
+    assert [f.is_flat_int for f in got] == [False] * 8 + [True]
+
+
+def test_dictionary_field_is_not_a_flat_int():
+    schema = pa.schema([pa.field("d", pa.dictionary(pa.int32(), pa.string()))])
+    (f,) = port.deserialize_schema(ref.schema_to_bytes(schema))
+    assert f.dictionary_encoded and not f.is_flat_int
+
+
+def test_writing_other_types_raises():
+    with pytest.raises(NotYetImplementedError):
+        port.schema_to_bytes([port.Field("s", "string")])
+    with pytest.raises(NotYetImplementedError):
+        port.schema_to_bytes([port.Field("x", "float64")])
+
+
+def test_bad_bytes_raise():
+    good = port.schema_to_bytes([port.Field("a", "int32")])
+    with pytest.raises(OutOfSpecError):
+        port.deserialize_schema(good[:12])
+    with pytest.raises(OutOfSpecError):
+        port.deserialize_schema(b"\x00" * 3)
+    # a record-batch message is not a schema
+    bad = bytearray(good)
+    msg = int.from_bytes(bad[:4], "little")
+    vt = msg - int.from_bytes(bad[msg : msg + 4], "little", signed=True)
+    hdr_type_off = int.from_bytes(bad[vt + 6 : vt + 8], "little")
+    bad[msg + hdr_type_off] = 3
+    with pytest.raises(OutOfSpecError):
+        port.deserialize_schema(bytes(bad))
+
+
+def test_empty_schema_round_trips():
+    assert port.deserialize_schema(port.schema_to_bytes([])) == []
+    assert ref.deserialize_schema(port.schema_to_bytes([])).equals(pa.schema([]))
