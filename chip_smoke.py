@@ -10,8 +10,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    with nvcc, one process per source, started together;
 3. kernel  — K1 bit-exact against its plain torch version for every width
    1..32 and two seeds, then K1 and plain times at the SF10 plane shapes;
-4. kernel_natural — K3 likewise (b = 1..32, two seeds), then K3 and plain
-   times over 60 M values at the scan's widths;
+4. kernel_natural — K3 likewise (b = 0..32, two seeds, block counts around
+   one CTA's share and 2000), then K3 and plain times over 60 M values at
+   the scan's widths and b = 16;
 5. generate — TPC-H lineitem, 60 M rows = SF10, seeded numpy;
 
 the resident path (K1's launches are counted over 6–8):
@@ -38,7 +39,10 @@ and last:
    then (their launches counted) l_shipdate's bit-packed pages decoded
    through K2's and K0's natural-order entry points == the generated column.
 
-Then the kernel summary line, the nvidia-smi line, and as the last line
+Then the kernel summary line (each kernel's launches on its path, its
+time and its plain version's over that path's shapes, and ``bound_ms``: the
+bytes it must move, each input read once and each output written once, at
+the H100 SXM's 3.35 TB/s), the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without a CUDA
 device the script fails before printing any result.
 """
@@ -66,6 +70,7 @@ PATH_WIDTHS = (1, 2, 4, 6, 12, 23)  # plane widths of the Q1/Q6 columns
 # block widths K3 meets in the scan: dict index codes 4 and 6 (7 for
 # l_shipdate), bit-packed l_shipdate 7..12
 SCAN_WIDTHS = (4, 6, 7, 8, 9, 10, 11, 12)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, at its 700 W limit
 SEEDS = (0, 0xA5A500FF)
 REPS = 20
 SCAN_REPS = 3
@@ -118,6 +123,11 @@ def wall_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
+def bound_ms(nbytes: int) -> float:
+    """The least time the card takes to move ``nbytes`` of device memory."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def random_words(rng, n_tiles: int, b: int, tile: int, device) -> torch.Tensor:
     w = rng.integers(0, 1 << 32, (n_tiles, b, tile), dtype=np.uint64).astype(np.uint32)
     return torch.from_numpy(w.view(np.int32)).to(device)
@@ -149,9 +159,9 @@ def phase_kernel(device, seed: int, tile: int, n_tiles: int) -> dict:
             raise AssertionError(f"K1 disagrees with plain at the path shape: b={b}")
         ms = event_ms(lambda: bu.bitunpack_tiled(w, 0, b))
         plain_ms = event_ms(lambda: bu.bitunpack_tiled_plain(w, 0, b))
-        gbytes = (b + 32) * 4 * n_tiles * tile / 1e9
-        times[b] = {"ms": ms, "plain_ms": plain_ms, "GB_per_s": gbytes / ms * 1e3,
-                    "plain_GB_per_s": gbytes / plain_ms * 1e3}
+        nbytes = (b + 32) * 4 * n_tiles * tile
+        times[b] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms(nbytes),
+                    "GB_per_s": nbytes / 1e6 / ms, "plain_GB_per_s": nbytes / 1e6 / plain_ms}
     emit("kernel", widths_checked=32, seeds=[hex(s) for s in SEEDS], max_abs_err=max_err,
          shape=[n_tiles, "b", tile], times=times)
     return {"max_abs_err": max_err, "times": times}
@@ -219,35 +229,44 @@ def phase_q1(rt, cols) -> None:
          count_order=sum(a["count_order"] for a in got.values()))
 
 
+def k3_bytes(b: int, n_blocks: int) -> int:
+    """What K3 must move: 16·b bytes in and 512 out per 128 values."""
+    return (16 * b + 512) * n_blocks
+
+
 def phase_kernel_natural(device, seed: int) -> dict:
-    """K3 vs its plain version for every width and seed at 2000 blocks,
-    then K3 and plain over 60 M values at the scan widths (bytes moved:
-    16·b in + 512 out per 128 values).  Returns the kernel summary."""
+    """K3 vs its plain version for every width 0..32 and seed, at block
+    counts around one CTA's share (the masked tail) and 2000, then K3 and
+    plain over 60 M values at the scan widths and b = 16.  Returns the
+    kernel summary."""
     from strawboat_tpu_torch.kernels import bitunpack as bu
 
     rng = np.random.default_rng(seed)
-    for b in range(1, 33):
-        w = random_words(rng, 1, 2000, 4 * b, device)[0]
-        for s in SEEDS:
-            got = bu.bitunpack_natural(w, s, b)
-            torch.cuda.synchronize()
-            err = int((got.long() - bu.bitunpack_natural_plain(w, s, b).long()).abs().max())
-            if err:
-                raise AssertionError(f"K3 disagrees with plain: b={b} seed={s:#x} err={err}")
+    cta = bu.NATURAL_CTA_BLOCKS
+    tails = (1, 7, cta - 1, cta, cta + 1, 2000)
+    for b in range(0, 33):
+        for n_blocks in tails:
+            w = random_words(rng, 1, n_blocks, 4 * b, device)[0]
+            for s in SEEDS:
+                got = bu.bitunpack_natural(w, s, b)
+                torch.cuda.synchronize()
+                if not torch.equal(got, bu.bitunpack_natural_plain(w, s, b)):
+                    raise AssertionError(
+                        f"K3 disagrees with plain: b={b} n_blocks={n_blocks} seed={s:#x}")
     n_blocks = SF10_ROWS // 128
     times = {}
-    for b in SCAN_WIDTHS:
+    for b in SCAN_WIDTHS + (16,):
         w = random_words(rng, 1, n_blocks, 4 * b, device)[0]
         if not torch.equal(bu.bitunpack_natural(w, 0, b), bu.bitunpack_natural_plain(w, 0, b)):
             raise AssertionError(f"K3 disagrees with plain at 60 M values: b={b}")
         ms = event_ms(lambda: bu.bitunpack_natural(w, 0, b))
         plain_ms = event_ms(lambda: bu.bitunpack_natural_plain(w, 0, b))
-        gbytes = (16 * b + 512) * n_blocks / 1e9
-        times[b] = {"ms": ms, "plain_ms": plain_ms, "GB_per_s": gbytes / ms * 1e3,
-                    "plain_GB_per_s": gbytes / plain_ms * 1e3}
+        nbytes = k3_bytes(b, n_blocks)
+        times[b] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms(nbytes),
+                    "GB_per_s": nbytes / 1e6 / ms, "plain_GB_per_s": nbytes / 1e6 / plain_ms}
         del w
-    emit("kernel_natural", widths_checked=32, seeds=[hex(s) for s in SEEDS], max_abs_err=0,
-         n_values=n_blocks * 128, times=times)
+    emit("kernel_natural", widths_checked=33, seeds=[hex(s) for s in SEEDS], max_abs_err=0,
+         n_blocks_checked=tails, n_values=n_blocks * 128, times=times)
     return {"max_abs_err": 0}
 
 
@@ -281,8 +300,10 @@ def phase_write(cols, tmpdir) -> dict:
             facts[name] = {"seconds": time.perf_counter() - t0, "bytes": os.path.getsize(path),
                            "pages_per_column": len(metas[0].pages), "flags": flags}
         paths[name] = path
+    from strawboat_tpu_torch import native
+
     emit("write", rows=SF10_ROWS, page_rows=PAGE_ROWS, native_available=native_available(),
-         files=facts)
+         native_error=native.load_error(), files=facts)
     return paths
 
 
@@ -340,17 +361,19 @@ def phase_q6_scan(tables, cols) -> None:
 
 
 def k3_summary(paths, device) -> dict:
-    """K3 and plain times over every launch one scan of both files makes."""
+    """K3 and plain times, and the bound, over every launch one scan of
+    both files makes."""
     from strawboat_tpu_torch.exec.scan import k3_launch_groups
     from strawboat_tpu_torch.kernels import bitunpack as bu
 
-    ms = plain_ms = 0.0
+    ms = plain_ms = nbytes = 0.0
     for path in paths.values():
         for _col, (_codec, b), _pages, words in k3_launch_groups(path):
             w = torch.from_numpy(words.view(np.int32)).to(device)
             ms += event_ms(lambda: bu.bitunpack_natural(w, 0, b))
             plain_ms += event_ms(lambda: bu.bitunpack_natural_plain(w, 0, b))
-    return {"ms": ms, "plain_ms": plain_ms}
+            nbytes += k3_bytes(b, words.shape[0])
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms(nbytes)}
 
 
 def phase_k2_k0(path: str, shipdate: np.ndarray, device, seed: int) -> dict:
@@ -392,12 +415,15 @@ def phase_k2_k0(path: str, shipdate: np.ndarray, device, seed: int) -> dict:
     launches = {"K2": bu.bitunpack_tiled_unseeded.launches, "K0": bu.bitunpack_tmajor.launches}
     if min(launches.values()) <= 0:
         raise AssertionError(f"the K2/K0 path did not launch both kernels: {launches}")
-    times = {"K2": {"ms": 0.0, "plain_ms": 0.0}, "K0": {"ms": 0.0, "plain_ms": 0.0}}
+    times = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0} for k in ("K2", "K0")}
     for b, _want, w3, wt in inputs:
         times["K2"]["ms"] += event_ms(lambda: bu.bitunpack_tiled_unseeded(w3, b))
         times["K2"]["plain_ms"] += event_ms(lambda: bu.bitunpack_tiled_unseeded_plain(w3, b))
         times["K0"]["ms"] += event_ms(lambda: bu.bitunpack_tmajor(wt, b))
         times["K0"]["plain_ms"] += event_ms(lambda: bu.bitunpack_tmajor_plain(wt, b))
+        # b words in, 32 values out per lane column
+        times["K2"]["bound_ms"] += bound_ms(w3.numel() * 4 * (b + 32) // b)
+        times["K0"]["bound_ms"] += bound_ms(wt.numel() * 4 * (b + 32) // b)
     emit("k2_k0", widths_checked=32, max_abs_err=0, path_widths=[g[0] for g in groups],
          launches=launches, times=times, equal_to_numpy=True)
     return {k: {"launches": launches[k], "max_abs_err": 0, **times[k]} for k in launches}
@@ -442,6 +468,7 @@ def main() -> int:
     k1["plain_ms"] = sum(
         event_ms(lambda w=w, b=b: bu.bitunpack_tiled_plain(w, 0, b)) for w, b in planes
     )
+    k1["bound_ms"] = sum(bound_ms(w.numel() * 4 * (b + 32) // b) for w, b in planes)
     del rt, planes
     torch.cuda.empty_cache()
 
@@ -462,7 +489,9 @@ def main() -> int:
     def line(name, src, replaces, launches, facts):
         return {"name": name, "route": "cuda", "source": CSRC + src, "replaces": PALLAS + replaces,
                 "launches": launches, "max_abs_err": facts["max_abs_err"], "ms": facts["ms"],
-                "plain_ms": facts["plain_ms"]}
+                "plain_ms": facts["plain_ms"], "bound_ms": facts["bound_ms"], "bound_by": "bytes",
+                # no single torch call unpacks BitPacker4x
+                "library_ms": None}
 
     print(json.dumps({"kernels": [
         line("bitunpack_tiled", "bitunpack.cu", "222", k1_launches, k1),

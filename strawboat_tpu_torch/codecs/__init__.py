@@ -4,8 +4,8 @@ Counterpart of ``strawboat_tpu/codecs/__init__.py``.  Every compressed
 page body starts with the 9-byte header ``[codec u8][compressed_size u32
 LE][uncompressed_size u32 LE]`` (the reference's
 src/compression/integer/mod.rs:49-63).  The general-purpose byte codecs
-(LZ4, Zstd, Snappy) decompress through ``strawboat_tpu.native``; without
-that library such a page raises.
+(LZ4, Zstd, Snappy) decompress through the port's ``native`` library;
+without it such a page raises.
 """
 
 from __future__ import annotations
@@ -16,9 +16,9 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from strawboat_tpu import native
-from strawboat_tpu.constants import Compression
-from strawboat_tpu.errors import OutOfSpecError, StrawboatError
+from .. import native
+from ..constants import Compression
+from ..errors import OutOfSpecError, StrawboatError
 
 HEADER_SIZE = 9
 _HDR = struct.Struct("<BII")
@@ -46,7 +46,7 @@ class WriteOptions:
 
 
 def native_available() -> bool:
-    """Whether ``strawboat_tpu.native`` built and loaded: LZ4 / Zstd /
+    """Whether the port's ``native`` library built and loaded: LZ4 / Zstd /
     Snappy pages need it, and without it the block-header walk and the
     dictionary factorize run their Python loops."""
     return native.available()
@@ -77,7 +77,7 @@ def decompress_raw(codec: Compression, bodies, nbytes) -> List[np.ndarray]:
         return list(bodies)
     if not native.available():
         raise StrawboatError(
-            f"{codec.name} pages need strawboat_tpu.native (g++ and the "
-            "lz4/zstd/snappy libraries); it failed to build or load"
+            f"{codec.name} pages need the native library (g++, liblz4 and "
+            f"libzstd), which did not build or load: {native.load_error()}"
         )
     return native.decompress_batch(int(codec), list(bodies), list(nbytes))

@@ -17,12 +17,11 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from strawboat_tpu import native
-from strawboat_tpu.constants import Compression
-from strawboat_tpu.errors import NotYetImplementedError, OutOfSpecError
-from strawboat_tpu.util import env, roaring
-from strawboat_tpu.util.bits import BLOCK_LEN, pack_blocks
-
+from .. import native
+from ..constants import Compression
+from ..errors import NotYetImplementedError, OutOfSpecError
+from ..util import env, roaring
+from ..util.bits import BLOCK_LEN, pack_blocks
 from . import WriteOptions, write_header
 
 _CHOOSER = "ROADMAP.md 'Modules to port': the port's adaptive writer chooser"
@@ -36,9 +35,7 @@ def _encode_blocks(blocks: np.ndarray) -> bytes:
     """Per block ``[u8 num_bits][BitPacker4x words]``; a block's width is the
     bit length of the OR of its values."""
     if blocks.shape[0] >= 8 and native.available():
-        res = native.bp_encode(blocks, blocks)
-        if res is not None:
-            return res
+        return native.bp_encode(blocks, blocks)
     n_blocks = blocks.shape[0]
     acc = np.bitwise_or.reduce(blocks, axis=1)
     nbs = np.zeros(n_blocks, dtype=np.int64)
@@ -74,12 +71,10 @@ def bitpack_encode(values: np.ndarray) -> bytes:
 def factorize_first_occurrence(values: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """(int64 codes, distinct values) in first-occurrence order — the
     reference's DictEncoder interning."""
-    if values.dtype.itemsize in (4, 8) and len(values) >= 4096:
+    if values.dtype.itemsize in (4, 8) and len(values) >= 4096 and native.available():
         kind = np.uint32 if values.dtype.itemsize == 4 else np.uint64
-        r = native.factorize(np.ascontiguousarray(values).view(kind))
-        if r is not None:
-            codes, uniq = r
-            return codes.astype(np.int64), uniq.view(values.dtype)
+        codes, uniq = native.factorize(np.ascontiguousarray(values).view(kind))
+        return codes.astype(np.int64), uniq.view(values.dtype)
     uniq, first_idx, inv = np.unique(values, return_index=True, return_inverse=True)
     order = np.argsort(first_idx, kind="stable")
     rank = np.empty(len(uniq), dtype=np.int64)

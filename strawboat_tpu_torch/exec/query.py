@@ -24,8 +24,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from strawboat_tpu.errors import NotYetImplementedError
-
+from ..errors import NotYetImplementedError
 from .aggregate import dense_group_count, dense_group_sum, segment_reduce
 from .expr import Expr
 from .resident import ResidentTable, _unpack_plane_tiled

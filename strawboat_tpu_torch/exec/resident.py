@@ -31,11 +31,12 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from strawboat_tpu.errors import NotYetImplementedError, OutOfSpecError
-
+from .. import native
 from ..device import U32_MASK, as_device, shr_u32, u64_to_i64, words_u32
+from ..errors import NotYetImplementedError, OutOfSpecError
 from ..kernels.bitunpack import TILE3D, bitunpack_tiled, transpose_words_host_tiled
 from ..kernels.decode import dict_gather_device
+from ..util.bits import pack_blocks
 from .aggregate import segment_reduce
 from .scan import DeviceColumn, DeviceTable, to_pa_array
 
@@ -421,8 +422,6 @@ def _pack_plane(vals: np.ndarray, bits: int, tile: int, device: torch.device):
     Large columns move the raw values and pack on the device."""
     if tile % 512:
         raise ValueError(f"tile must be a multiple of 512, got {tile}")
-    from strawboat_tpu.util.bits import pack_blocks
-
     bits = max(bits, 1)
     if len(vals) >= _DEVICE_PACK_MIN:
         v = np.ascontiguousarray(vals, dtype=np.uint32).view(np.int32)
@@ -497,22 +496,17 @@ def _try_dict(vals: np.ndarray):
         sample = vals[:: max(1, n // 65536)]
         if np.unique(sample).size > (1 << 14):
             return None
-    if vals.dtype.itemsize in (4, 8) and n >= 4096:
-        from strawboat_tpu import native
-
-        if native.available():
-            kind = np.uint32 if vals.dtype.itemsize == 4 else np.uint64
-            r = native.factorize(
-                np.ascontiguousarray(vals).view(kind), max_uniq=_MAX_DICT
-            )
-            if r is None:
-                return None  # unique count exceeded _MAX_DICT mid-pass
-            codes_f, uniq_bits = r
-            uniq = uniq_bits.view(vals.dtype)
-            order = np.argsort(uniq, kind="stable")
-            rank = np.empty(len(order), dtype=np.uint32)
-            rank[order.astype(np.intp)] = np.arange(len(order), dtype=np.uint32)
-            return uniq[order], rank[codes_f]
+    if vals.dtype.itemsize in (4, 8) and n >= 4096 and native.available():
+        kind = np.uint32 if vals.dtype.itemsize == 4 else np.uint64
+        r = native.factorize(np.ascontiguousarray(vals).view(kind), max_uniq=_MAX_DICT)
+        if r is None:
+            return None  # unique count exceeded _MAX_DICT mid-pass
+        codes_f, uniq_bits = r
+        uniq = uniq_bits.view(vals.dtype)
+        order = np.argsort(uniq, kind="stable")
+        rank = np.empty(len(order), dtype=np.uint32)
+        rank[order.astype(np.intp)] = np.arange(len(order), dtype=np.uint32)
+        return uniq[order], rank[codes_f]
     uniq, inv = np.unique(vals, return_inverse=True)
     if uniq.size > _MAX_DICT:
         return None

@@ -22,7 +22,7 @@ pages and dictionary index subpages of one width run kernel K3
 (``kernels/bitunpack.py``); pages whose blocks mix widths run the varwidth
 decoder; RLE / ONE_VALUE / FREQ / other DICT pages decode page by page in
 torch ops; raw pages (NONE, and LZ4 / Zstd / Snappy through
-``strawboat_tpu.native``) decode on the host and upload once per run.
+the port's ``native`` library) decode on the host and upload once per run.
 """
 
 from __future__ import annotations
@@ -34,14 +34,12 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from strawboat_tpu import native
-from strawboat_tpu.constants import Compression
-from strawboat_tpu.errors import NotYetImplementedError, OutOfSpecError
-from strawboat_tpu.meta import ColumnMeta
-
+from .. import native
 from ..codecs import decompress_raw, read_header
 from ..codecs.integer import parse_dict_values, parse_freq, parse_one_value, parse_rle
+from ..constants import Compression
 from ..device import as_device
+from ..errors import NotYetImplementedError, OutOfSpecError
 from ..kernels.decode import (
     bitunpack_natural_device,
     bitunpack_varwidth_device,
@@ -53,6 +51,7 @@ from ..kernels.decode import (
     prefix_sum_u32,
     rle_expand_device,
 )
+from ..meta import ColumnMeta
 from ..read.levels import read_validity
 from ..read.reader import infer_schema, read_meta
 from ..schema import FLAT_INT_TYPES, Field

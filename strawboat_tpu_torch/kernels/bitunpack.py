@@ -115,11 +115,15 @@ _NATURAL_ARGS = (
 )
 
 
-def _require_cuda(words: torch.Tensor) -> None:
+def _require_cuda(words: torch.Tensor, align: int = 4) -> None:
+    """A kernel's input: on a CUDA device, contiguous, and ``data_ptr()``
+    a multiple of ``align`` bytes."""
     if words.device.type != "cuda":
         raise ValueError(f"unsupported device {words.device}")
     if not words.is_contiguous():
         raise ValueError("words must be contiguous")
+    if words.data_ptr() % align:
+        raise ValueError(f"words must start on a {align}-byte boundary, got {words.data_ptr():#x}")
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -241,6 +245,10 @@ def bitunpack_tmajor_natural(wt: torch.Tensor, bits: int) -> torch.Tensor:
 # K3: natural-order unpack straight from the page's block words
 # (reference ``bitunpack_pallas_tiled_natural`` :298)
 
+# blocks one CTA of the K3 kernel unpacks (``kBlocksPerCta`` in
+# ``csrc/bitunpack_natural.cu``); the tests check tails around it
+NATURAL_CTA_BLOCKS = 32
+
 
 def _check_natural(words: torch.Tensor, bits: int) -> None:
     if not 0 <= bits <= 32:
@@ -277,12 +285,15 @@ def bitunpack_natural(words: torch.Tensor, seed: int, bits: int) -> torch.Tensor
     128,)`` int32 values in natural order; value ``128*blk + 4*t + l`` is
     bits ``[t*bits, (t+1)*bits)`` of lane ``l``'s stream, lane ``l`` word
     ``k`` being ``words[blk, 4*k + l]``.  ``bits == 0`` gives zeros with no
-    launch.  CUDA tensors launch the kernel (``csrc/bitunpack_natural.cu``);
-    CPU tensors run :func:`bitunpack_natural_plain`."""
+    launch.  CUDA tensors launch the kernel (``csrc/bitunpack_natural.cu``)
+    and must be contiguous with a 16-byte aligned ``data_ptr()``, else it
+    raises; CPU tensors run :func:`bitunpack_natural_plain`."""
     _check_natural(words, bits)
     if words.device.type == "cpu" or bits == 0:
         return bitunpack_natural_plain(words, seed, bits)
-    _require_cuda(words)
+    # the kernel moves 16-byte vectors: a block's row is 16*bits bytes, so
+    # an aligned start aligns every row
+    _require_cuda(words, align=16)
     n_blocks = words.shape[0]
     out = torch.empty(n_blocks * 128, dtype=torch.int32, device=words.device)
     if n_blocks == 0:

@@ -1,9 +1,9 @@
 // K3: natural-order unpack of BitPacker4x blocks for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel
-// strawboat_tpu/kernels/bitunpack_pallas.py:bitunpack_pallas_tiled_natural
-// (bodies _plane_kernel_natural and _rowloop_kernel_natural), together with
-// the relayout pass transpose_words_device_tiled that fed it.
+// strawboat_tpu/kernels/bitunpack_pallas.py:298 bitunpack_pallas_tiled_natural
+// (bodies _plane_kernel_natural :249 and _rowloop_kernel_natural :277),
+// together with the relayout pass transpose_words_device_tiled that fed it.
 //
 // Input  words (n_blocks, 4 * b) u32: the header-stripped bodies of
 //        BitPacker4x blocks as a page stores them.  Lane l of block blk
@@ -16,16 +16,30 @@
 // planes first, because VMEM is tiled by lanes; here a thread reads the
 // page's own layout directly, so that pass is gone.
 //
-// Bound: device-memory bytes.  Per 128 values the kernel reads 16 * b bytes
-// and writes 512.  One thread per output value keeps every store of a warp
-// on 32 consecutive words; the 128 threads of one BitPacker4x block read
-// the block's 16 * b bytes, which the first warp brings into L1 for the
-// other three.  The shift arithmetic is negligible.  b is a template
-// parameter, so the mask is a constant; t varies by thread, so the word
-// index and shift are computed (two shifts and an and).
+// Bound: device-memory bytes.  Per 128 values the kernel must read 16 * b
+// bytes and write 512 (3.35 TB/s on an H100 SXM: 0.081 ms for 60 M values
+// at b = 4, 0.099 ms at b = 12).  The shifts are negligible.
 //
-// Not yet: several values per thread, 16-byte stores, staging a block's
-// words in shared memory.
+// Design: one thread per (block, t) unpacks value t of all four lanes.
+// The lanes share the word index w0 = t*b >> 5 and the shift sh = t*b & 31,
+// and words[blk, 4*w0 .. 4*w0 + 3] are 16 contiguous bytes (a block's row
+// is 16 * b bytes, so they are 16-byte aligned): one 16-byte load (a second
+// when the value straddles into word w0 + 1), four shifts and masks, and
+// one 16-byte store of out[128 * blk + 4t .. +3].  A warp covers one block:
+// its loads touch the block's 16 * b bytes, its 32 stores are 512
+// contiguous bytes.  Each warp takes kBlocksPerWarp consecutive blocks and
+// issues all their loads before the first store, so several loads are in
+// flight a thread.  Stores stream (st.global.cs): the decoded column is
+// far larger than the 50 MB L2, and the next kernel reads it, not this one.
+// b is a template parameter, so the mask and, for b dividing 32, the
+// absence of a second load are constants.  Offsets are 64-bit.
+//
+// Measured on an H100 (PERF.md): 67-77% of the bound at the scan's
+// widths, against torch's fill_ of the same output at 90%.  A variant that
+// stages each CTA's chunk in shared memory (cp.async.bulk into a double
+// buffer, completing on an mbarrier, persistent grid) ran 2-5% slower, and
+// neither 8 blocks a warp, plain stores nor a persistent grid that loads
+// the next blocks before storing gained, so this, the simplest, stays.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -33,42 +47,71 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kBlocksPerWarp = 4;
+// blocks one CTA unpacks (the tails checked by the tests sit around it)
+constexpr int kBlocksPerCta = kThreads / 32 * kBlocksPerWarp;
+
+template <int B>
+__device__ __forceinline__ uint32_t field(uint32_t lo, uint32_t hi, int sh,
+                                          bool straddle, uint32_t seed) {
+  // b == 32: (1u << 32) is undefined, so the full mask is spelled out
+  constexpr uint32_t mask = B == 32 ? 0xFFFFFFFFu : ((1u << B) - 1u);
+  uint32_t v = (lo ^ seed) >> sh;
+  // the value's high bits start word w0 + 1 (sh > 0 here, so 32 - sh < 32)
+  if (straddle) v |= (hi ^ seed) << (32 - sh);
+  return v & mask;
+}
 
 template <int B>
 __global__ void __launch_bounds__(kThreads)
-bitunpack_natural_kernel(const uint32_t* __restrict__ words,
-                         uint32_t* __restrict__ out, uint32_t seed,
-                         int64_t n_values) {
-  const int64_t i = int64_t(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n_values) return;
-  const int64_t blk = i >> 7;
-  const int r = int(i & 127);
-  const int t = r >> 2;
-  const int l = r & 3;
+bitunpack_natural_kernel(const uint4* __restrict__ words,
+                         uint4* __restrict__ out, uint32_t seed,
+                         int64_t n_blocks) {
+  const int t = threadIdx.x & 31;
   const int s = t * B;
   const int w0 = s >> 5;
   const int sh = s & 31;
-  const uint32_t* lane = words + blk * (4 * B) + l;
-  uint32_t v = (lane[4 * w0] ^ seed) >> sh;
-  // the value straddles two words: its high bits start word w0 + 1
-  // (sh > 0 here, so the shift 32 - sh stays below 32)
-  if (sh + B > 32) v |= (lane[4 * (w0 + 1)] ^ seed) << (32 - sh);
-  // b == 32: (1u << 32) is undefined, so the full mask is spelled out
-  constexpr uint32_t mask = B == 32 ? 0xFFFFFFFFu : ((1u << B) - 1u);
-  out[i] = v & mask;
+  // for b dividing 32 no value straddles two words
+  const bool straddle = (32 % B != 0) && (sh + B > 32);
+  const int64_t first =
+      (int64_t(blockIdx.x) * (kThreads / 32) + (threadIdx.x >> 5)) * kBlocksPerWarp;
+
+  uint4 lo[kBlocksPerWarp], hi[kBlocksPerWarp];
+#pragma unroll
+  for (int k = 0; k < kBlocksPerWarp; ++k) {
+    lo[k] = hi[k] = make_uint4(0u, 0u, 0u, 0u);
+    const int64_t blk = first + k;
+    if (blk < n_blocks) {
+      const uint4* row = words + blk * B;  // a block's row: b 16-byte words
+      lo[k] = __ldg(row + w0);
+      if (straddle) hi[k] = __ldg(row + w0 + 1);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kBlocksPerWarp; ++k) {
+    const int64_t blk = first + k;
+    if (blk < n_blocks) {
+      uint4 v;
+      v.x = field<B>(lo[k].x, hi[k].x, sh, straddle, seed);
+      v.y = field<B>(lo[k].y, hi[k].y, sh, straddle, seed);
+      v.z = field<B>(lo[k].z, hi[k].z, sh, straddle, seed);
+      v.w = field<B>(lo[k].w, hi[k].w, sh, straddle, seed);
+      __stcs(out + blk * 32 + t, v);  // values 128 * blk + 4t .. +3
+    }
+  }
 }
 
 template <int B>
-cudaError_t launch(const uint32_t* words, uint32_t* out, uint32_t seed,
+cudaError_t launch(const void* words, void* out, uint32_t seed,
                    int64_t n_blocks, cudaStream_t stream) {
-  const int64_t n_values = n_blocks * 128;
-  const int64_t grid = (n_values + kThreads - 1) / kThreads;
+  const int64_t grid = (n_blocks + kBlocksPerCta - 1) / kBlocksPerCta;
   bitunpack_natural_kernel<B><<<unsigned(grid), kThreads, 0, stream>>>(
-      words, out, seed, n_values);
+      static_cast<const uint4*>(words), static_cast<uint4*>(out), seed,
+      n_blocks);
   return cudaGetLastError();
 }
 
-using LaunchFn = cudaError_t (*)(const uint32_t*, uint32_t*, uint32_t, int64_t,
+using LaunchFn = cudaError_t (*)(const void*, void*, uint32_t, int64_t,
                                  cudaStream_t);
 
 constexpr LaunchFn kLaunch[32] = {
@@ -83,14 +126,16 @@ constexpr LaunchFn kLaunch[32] = {
 }  // namespace
 
 // Returns a cudaError_t: cudaSuccess (0) when the launch was accepted.
-// The grid is one-dimensional: n_blocks * 128 / 256 blocks must stay below
-// 2^31, i.e. n_blocks < 2^32.
+// words and out must be 16-byte aligned; the grid (n_blocks / 32 CTAs)
+// must stay below 2^31.
 extern "C" int sb_bitunpack_natural(const void* words, void* out,
                                     unsigned int seed, int bits,
                                     long long n_blocks, void* stream) {
-  if (bits < 1 || bits > 32 || n_blocks < 1 || n_blocks >= (1LL << 32))
+  if (bits < 1 || bits > 32 || n_blocks < 1 ||
+      n_blocks / kBlocksPerCta >= (1LL << 31) - 1)
     return int(cudaErrorInvalidValue);
-  return int(kLaunch[bits - 1](static_cast<const uint32_t*>(words),
-                               static_cast<uint32_t*>(out), seed, n_blocks,
+  if ((reinterpret_cast<uintptr_t>(words) | reinterpret_cast<uintptr_t>(out)) & 15)
+    return int(cudaErrorMisalignedAddress);
+  return int(kLaunch[bits - 1](words, out, seed, n_blocks,
                                static_cast<cudaStream_t>(stream)));
 }

@@ -31,7 +31,10 @@ def dict_gather_device(indices: torch.Tensor, dictionary: torch.Tensor) -> torch
 
 def bitunpack_natural_device(words: torch.Tensor, num_bits: int) -> torch.Tensor:
     """Uniform-width blocks ``(n_blocks, num_bits*4)`` int32 → flat
-    ``(n_blocks*128,)`` int32 values in natural order (K3 on CUDA)."""
+    ``(n_blocks*128,)`` int32 values in natural order.  On CUDA this is
+    kernel K3's direct variant (``csrc/bitunpack_natural.cu``: a thread
+    unpacks one value of all four lanes with 16-byte loads and stores, a
+    warp one block); the words must be contiguous and 16-byte aligned."""
     return bitunpack_natural(words, 0, num_bits)
 
 

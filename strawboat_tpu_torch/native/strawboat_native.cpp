@@ -1,0 +1,215 @@
+// Native host runtime of the torch port: the byte-sequential work of the
+// writer and the scan planner that numpy does not vectorize.
+//
+// Cut from strawboat_tpu/native/strawboat_native.cpp, keeping what the port
+// calls: batched page decompression (LZ4 block / Zstd / Snappy) over a
+// std::thread pool, the bit-packed block-header walk, the BitPacker4x page
+// encoder and the first-occurrence factorize.  Snappy is compiled in only
+// with -DSB_SNAPPY (where libsnappy exists); sb_has_snappy() says which.
+//
+// Built as a plain C ABI shared library, loaded with ctypes.
+
+#include <algorithm>
+#include <atomic>
+#include <cstdint>
+#include <cstring>
+#include <thread>
+#include <vector>
+
+extern "C" {
+// liblz4 / libzstd / libsnappy (C ABI)
+int LZ4_decompress_safe(const char* src, char* dst, int compressedSize, int dstCapacity);
+size_t ZSTD_decompress(void* dst, size_t dstCapacity, const void* src, size_t srcSize);
+unsigned ZSTD_isError(size_t code);
+#ifdef SB_SNAPPY
+int snappy_uncompress(const char* compressed, size_t compressed_length,
+                      char* uncompressed, size_t* uncompressed_length);
+#endif
+}
+
+namespace {
+
+enum Codec : int { kNone = 0, kLz4 = 1, kZstd = 2, kSnappy = 3 };
+
+int decompress_one(int codec, const uint8_t* in, int64_t in_len, uint8_t* out,
+                   int64_t out_len) {
+  switch (codec) {
+    case kNone:
+      if (in_len != out_len) return -1;
+      std::memcpy(out, in, (size_t)out_len);
+      return 0;
+    case kLz4: {
+      int n = LZ4_decompress_safe((const char*)in, (char*)out, (int)in_len,
+                                  (int)out_len);
+      return n == (int)out_len ? 0 : -2;
+    }
+    case kZstd: {
+      size_t n = ZSTD_decompress(out, (size_t)out_len, in, (size_t)in_len);
+      return (!ZSTD_isError(n) && n == (size_t)out_len) ? 0 : -3;
+    }
+#ifdef SB_SNAPPY
+    case kSnappy: {
+      size_t n = (size_t)out_len;
+      int rc = snappy_uncompress((const char*)in, (size_t)in_len, (char*)out, &n);
+      return (rc == 0 && n == (size_t)out_len) ? 0 : -4;
+    }
+#endif
+  }
+  return -5;  // a codec this build does not have
+}
+
+}  // namespace
+
+extern "C" {
+
+int sb_has_snappy() {
+#ifdef SB_SNAPPY
+  return 1;
+#else
+  return 0;
+#endif
+}
+
+// Decompress n pages in parallel.  Arrays of pointers/sizes; returns 0 or a
+// nonzero per-page error code.
+int sb_decompress_batch(int codec, int64_t n, const uint8_t** inputs,
+                        const int64_t* in_lens, uint8_t** outputs,
+                        const int64_t* out_lens, int n_threads) {
+  if (n <= 0) return 0;
+  if (n_threads <= 0) n_threads = (int)std::thread::hardware_concurrency();
+  if (n_threads > n) n_threads = (int)n;
+  std::atomic<int64_t> next(0);
+  std::atomic<int> err(0);
+  auto worker = [&]() {
+    for (;;) {
+      int64_t i = next.fetch_add(1);
+      if (i >= n) break;
+      int rc = decompress_one(codec, inputs[i], in_lens[i], outputs[i], out_lens[i]);
+      if (rc != 0) err.store(rc);
+    }
+  };
+  if (n_threads <= 1) {
+    worker();
+  } else {
+    std::vector<std::thread> pool;
+    pool.reserve(n_threads);
+    for (int t = 0; t < n_threads; ++t) pool.emplace_back(worker);
+    for (auto& th : pool) th.join();
+  }
+  return err.load();
+}
+
+// Walk bitpacked block headers: per 128-value block [u8 num_bits][nb*16 bytes].
+// Writes each block's num_bits and returns the end offset, or -1 if the walk
+// runs past buf_len (corrupt input).
+int64_t sb_bp_walk(const uint8_t* buf, int64_t buf_len, int64_t body,
+                   int64_t n_blocks, uint8_t* nbs_out) {
+  int64_t p = body;
+  for (int64_t i = 0; i < n_blocks; i++) {
+    if (p >= buf_len) return -1;
+    uint8_t nb = buf[p];
+    nbs_out[i] = nb;
+    p += 1 + (int64_t)nb * 16;
+  }
+  return p <= buf_len ? p : -1;
+}
+
+// Encode 128-value blocks as [u8 num_bits][BitPacker4x packed] in one pass
+// (reference integer/bp.rs:36-86 layout: 4 interleaved 32-value lanes,
+// LSB-first).  A block's width comes from OR-reducing width_vals.  Returns
+// bytes written.
+int64_t sb_bp_encode(const uint32_t* vals, int64_t n_blocks,
+                     const uint32_t* width_vals, uint8_t* out) {
+  int64_t p = 0;
+  for (int64_t blk = 0; blk < n_blocks; ++blk) {
+    const uint32_t* v = vals + blk * 128;
+    const uint32_t* wv = width_vals + blk * 128;
+    uint32_t acc = 0;
+    for (int i = 0; i < 128; ++i) acc |= wv[i];
+    uint32_t nb = acc ? 32 - __builtin_clz(acc) : 0;
+    out[p++] = (uint8_t)nb;
+    if (!nb) continue;
+    uint32_t words[32 * 4];
+    std::memset(words, 0, sizeof(uint32_t) * nb * 4);
+    for (uint32_t t = 0; t < 32; ++t) {
+      const uint32_t s = t * nb;
+      const uint32_t w0 = s >> 5, sh = s & 31;
+      for (uint32_t l = 0; l < 4; ++l) {
+        uint32_t x = v[t * 4 + l];
+        words[w0 * 4 + l] |= x << sh;
+        if (sh + nb > 32) words[(w0 + 1) * 4 + l] |= x >> (32 - sh);
+      }
+    }
+    std::memcpy(out + p, words, (size_t)nb * 16);
+    p += (int64_t)nb * 16;
+  }
+  return p;
+}
+
+}  // extern "C"
+
+// First-occurrence factorization (the reference DictEncoder's interning,
+// integer/dict.rs): codes[i] = index of vals[i] in uniq, in first-occurrence
+// order.  Returns the unique count, or -1 when it would exceed max_uniq.
+// The open-addressing table is thread-local and epoch-tagged, so a call
+// neither allocates nor clears it again.
+template <typename T>
+static int64_t factorize_impl(const T* vals, int64_t n, uint32_t* codes,
+                              T* uniq, int64_t max_uniq) {
+  int64_t cap = 64;
+  while (cap < 2 * n) cap <<= 1;
+  static thread_local std::vector<T> keys;
+  static thread_local std::vector<int32_t> slot_code;
+  static thread_local std::vector<uint32_t> tags;
+  static thread_local uint32_t epoch = 0;
+  if ((int64_t)keys.size() < cap) {
+    keys.resize((size_t)cap);
+    slot_code.resize((size_t)cap);
+    tags.assign((size_t)cap, 0);
+    epoch = 0;
+  }
+  const int64_t hmask = (int64_t)keys.size() - 1;  // a power of two
+  if (++epoch == 0) {
+    std::fill(tags.begin(), tags.end(), 0u);
+    epoch = 1;
+  }
+  int64_t n_uniq = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    T v = vals[i];
+    uint64_t h = (uint64_t)v;
+    h = (h ^ (h >> 30)) * 0xBF58476D1CE4E5B9ull;
+    h = (h ^ (h >> 27)) * 0x94D049BB133111EBull;
+    h ^= h >> 31;
+    int64_t s = (int64_t)(h & (uint64_t)hmask);
+    for (;;) {
+      if (tags[s] != epoch) {
+        if (n_uniq >= max_uniq) return -1;
+        tags[s] = epoch;
+        keys[s] = v;
+        slot_code[s] = (int32_t)n_uniq;
+        uniq[n_uniq] = v;
+        codes[i] = (uint32_t)n_uniq;
+        ++n_uniq;
+        break;
+      }
+      if (keys[s] == v) {
+        codes[i] = (uint32_t)slot_code[s];
+        break;
+      }
+      s = (s + 1) & hmask;
+    }
+  }
+  return n_uniq;
+}
+
+extern "C" int64_t sb_factorize_u64(const uint64_t* vals, int64_t n,
+                                    uint32_t* codes, uint64_t* uniq,
+                                    int64_t max_uniq) {
+  return factorize_impl<uint64_t>(vals, n, codes, uniq, max_uniq);
+}
+
+extern "C" int64_t sb_factorize_u32(const uint32_t* vals, int64_t n,
+                                    uint32_t* codes, uint32_t* uniq,
+                                    int64_t max_uniq) {
+  return factorize_impl<uint32_t>(vals, n, codes, uniq, max_uniq);
+}

@@ -1,8 +1,8 @@
 """The validity prelude of a simple (non-nested) page.
 
 Counterpart of ``read_validity`` in ``strawboat_tpu/read/levels.py``
-(the reference's src/read/read_basic.rs:36-63), over the JAX-free
-``strawboat_tpu.util.hybrid_rle``.
+(the reference's src/read/read_basic.rs:36-63), over the port's
+``util/hybrid_rle.py``.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from strawboat_tpu.util.hybrid_rle import decode_validity
+from ..util.hybrid_rle import decode_validity
 
 
 def read_validity(buf, pos: int, length: int) -> Tuple[Optional[np.ndarray], int]:

@@ -3,8 +3,8 @@
 Counterpart of ``read_meta`` / ``infer_schema`` in
 ``strawboat_tpu/read/reader.py`` (the reference's src/read/reader.rs).  The
 file ends in ``[schema][metas][u32 schema_size][u32 meta_size][EOS: 8
-bytes]``; the metas parse with ``strawboat_tpu.meta`` (no JAX, no pyarrow)
-and the schema with the port's own flatbuffer reader.
+bytes]``; the metas parse with the port's ``meta.py`` and the schema with
+the port's own flatbuffer reader.
 """
 
 from __future__ import annotations
@@ -12,8 +12,7 @@ from __future__ import annotations
 import os
 from typing import BinaryIO, List
 
-from strawboat_tpu.meta import ColumnMeta, deserialize_metas
-
+from ..meta import ColumnMeta, deserialize_metas
 from ..schema import Field, deserialize_schema
 
 

@@ -18,8 +18,8 @@ import struct
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
-from strawboat_tpu.constants import CONTINUATION_MARKER
-from strawboat_tpu.errors import NotYetImplementedError, OutOfSpecError
+from .constants import CONTINUATION_MARKER
+from .errors import NotYetImplementedError, OutOfSpecError
 
 # alias → numpy storage dtype of the flat integer types the port reads and
 # writes (date32 stores days since the epoch as int32)

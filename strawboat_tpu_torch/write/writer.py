@@ -24,14 +24,13 @@ from typing import BinaryIO, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
-from strawboat_tpu.constants import ARROW_MAGIC, CONTINUATION_MARKER
-from strawboat_tpu.errors import NotYetImplementedError, OutOfSpecError
-from strawboat_tpu.meta import ColumnMeta, PageMeta, serialize_metas
-from strawboat_tpu.util.hybrid_rle import encode_validity_bitpacked
-
 from ..codecs import WriteOptions
 from ..codecs.integer import compress_integer
+from ..constants import ARROW_MAGIC, CONTINUATION_MARKER
+from ..errors import NotYetImplementedError, OutOfSpecError
+from ..meta import ColumnMeta, PageMeta, serialize_metas
 from ..schema import FLAT_INT_TYPES, Field, schema_to_bytes
+from ..util.hybrid_rle import encode_validity_bitpacked
 
 
 def _numpy_alias(dtype: np.dtype) -> str:

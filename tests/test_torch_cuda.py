@@ -58,14 +58,25 @@ def test_resident_q1_q6_on_card(cuda):
 @pytest.mark.parametrize("seed", [0, 0xA5A500FF])
 def test_k3_matches_plain_on_card(cuda, seed):
     g = torch.Generator(device=cuda).manual_seed(seed & 0xFFFF)
+    cta = bu.NATURAL_CTA_BLOCKS
     for b in range(0, 33):
-        w = torch.randint(-(2**31), 2**31 - 1, (777, 4 * b), dtype=torch.int32,
-                          device=cuda, generator=g)
-        before = bu.bitunpack_natural.launches
-        got = bu.bitunpack_natural(w, seed, b)
-        torch.cuda.synchronize()
-        assert bu.bitunpack_natural.launches == before + (b > 0)  # b == 0: no launch
-        assert torch.equal(got, bu.bitunpack_natural_plain(w, seed, b)), b
+        for n_blocks in (1, 7, cta - 1, cta, cta + 1, 777, 2000):
+            w = torch.randint(-(2**31), 2**31 - 1, (n_blocks, 4 * b), dtype=torch.int32,
+                              device=cuda, generator=g)
+            before = bu.bitunpack_natural.launches
+            got = bu.bitunpack_natural(w, seed, b)
+            torch.cuda.synchronize()
+            assert bu.bitunpack_natural.launches == before + (b > 0)  # b == 0: no launch
+            assert torch.equal(got, bu.bitunpack_natural_plain(w, seed, b)), (b, n_blocks)
+    # a start 4 bytes past a 16-byte boundary is refused before any launch
+    flat = torch.zeros(4 * 6 * 100 + 1, dtype=torch.int32, device=cuda)
+    misaligned = flat[1:].view(100, 4 * 6)
+    before = bu.bitunpack_natural.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        bu.bitunpack_natural(misaligned, seed, 6)
+    with pytest.raises(ValueError, match="contiguous"):
+        bu.bitunpack_natural(flat[: 4 * 6 * 100].view(4 * 6, 100).t(), seed, 6)
+    assert bu.bitunpack_natural.launches == before
 
 
 def test_k2_k0_match_plain_on_card(cuda):

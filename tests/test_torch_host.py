@@ -1,0 +1,295 @@
+"""The port's own host modules against their counterparts in the JAX package.
+
+``strawboat_tpu_torch`` keeps its own copies of the host modules it needs
+(``errors``, ``constants``, ``meta``, ``util/``, ``native/``).  Each is
+held against the JAX package's module of the same name on the same numpy
+inputs, made from a seed: equal bytes, equal arrays, equal answers.
+"""
+
+import ctypes
+import os
+import pathlib
+
+import numpy as np
+import pytest
+
+from strawboat_tpu import constants as ref_constants
+from strawboat_tpu import meta as ref_meta
+from strawboat_tpu import native as ref_native
+from strawboat_tpu.util import bits as ref_bits
+from strawboat_tpu.util import env as ref_env
+from strawboat_tpu.util import hybrid_rle as ref_rle
+from strawboat_tpu.util import roaring as ref_roaring
+from strawboat_tpu_torch import constants, meta, native
+from strawboat_tpu_torch.errors import OutOfSpecError, StrawboatError
+from strawboat_tpu_torch.util import bits, env, hybrid_rle, roaring
+
+PORT = pathlib.Path(__file__).resolve().parents[1] / "strawboat_tpu_torch"
+
+
+# ---------------------------------------------------------------------------
+# constants, meta
+
+
+def test_constants_match_reference():
+    assert constants.ARROW_MAGIC == ref_constants.ARROW_MAGIC
+    assert constants.CONTINUATION_MARKER == ref_constants.CONTINUATION_MARKER
+    assert {c.name: int(c) for c in constants.Compression} == {
+        c.name: int(c) for c in ref_constants.Compression}
+    for c in constants.Compression:
+        assert c.raw_mode == ref_constants.Compression(int(c)).raw_mode
+        assert constants.Compression.from_codec(int(c)) is c
+    with pytest.raises(OutOfSpecError):
+        constants.Compression.from_codec(9)
+
+
+def _random_metas(seed):
+    rng = np.random.default_rng(seed)
+    return [
+        (int(rng.integers(0, 1 << 40)),
+         [(int(rng.integers(1, 1 << 33)), int(rng.integers(0, 1 << 20)))
+          for _ in range(int(rng.integers(0, 6)))])
+        for _ in range(int(rng.integers(0, 9)))
+    ]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_meta_block_bytes_match_reference_both_ways(seed):
+    raw = _random_metas(seed)
+    port = [meta.ColumnMeta(o, [meta.PageMeta(*p) for p in pages]) for o, pages in raw]
+    ref = [ref_meta.ColumnMeta(o, [ref_meta.PageMeta(*p) for p in pages]) for o, pages in raw]
+    buf = meta.serialize_metas(port)
+    assert buf == ref_meta.serialize_metas(ref)
+    # each reads the other's bytes back to the same directory
+    assert meta.serialize_metas(meta.deserialize_metas(ref_meta.serialize_metas(ref))) == buf
+    assert ref_meta.serialize_metas(ref_meta.deserialize_metas(buf)) == buf
+    assert [(m.offset, [(p.length, p.num_values) for p in m.pages])
+            for m in meta.deserialize_metas(buf)] == raw
+    if len(buf) > 8:
+        with pytest.raises(OutOfSpecError):
+            meta.deserialize_metas(buf[:-1])
+
+
+# ---------------------------------------------------------------------------
+# util: bits, env, hybrid_rle, roaring
+
+
+@pytest.mark.parametrize("b", range(0, 33))
+def test_pack_blocks_matches_reference(b):
+    rng = np.random.default_rng(b)
+    vals = rng.integers(0, 1 << b, (37, 128), dtype=np.uint64).astype(np.uint32)
+    got = bits.pack_blocks(vals, b)
+    assert got.dtype == np.uint32
+    np.testing.assert_array_equal(got, ref_bits.pack_blocks(vals, b))
+    assert bits.BLOCK_LEN == ref_bits.BLOCK_LEN
+
+
+@pytest.mark.parametrize("value", [None, "1", "0", "true"])
+def test_env_flags_match_reference(monkeypatch, value):
+    pairs = [(env.check_dict_env, ref_env.check_dict_env, env.DICT_ENV),
+             (env.check_rle_env, ref_env.check_rle_env, env.RLE_ENV),
+             (env.check_freq_env, ref_env.check_freq_env, env.FREQ_ENV),
+             (env.check_bitpack_env, ref_env.check_bitpack_env, env.BITPACK_ENV)]
+    for _port, _ref, name in pairs:
+        monkeypatch.delenv(name, raising=False)
+    for port_fn, ref_fn, name in pairs:
+        if value is not None:
+            monkeypatch.setenv(name, value)
+        assert port_fn() == ref_fn() == (value == "1"), name
+        monkeypatch.delenv(name, raising=False)
+        assert not port_fn() and not ref_fn()
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 8, 9, 1000, 4099])
+def test_validity_levels_match_reference(n):
+    rng = np.random.default_rng(n)
+    validity = rng.random(n) < 0.7
+    buf = hybrid_rle.encode_validity_bitpacked(validity)
+    assert buf == ref_rle.encode_validity_bitpacked(validity)
+    np.testing.assert_array_equal(hybrid_rle.decode_validity(buf, n), validity)
+    np.testing.assert_array_equal(hybrid_rle.decode_validity(buf, n),
+                                  ref_rle.decode_validity(buf, n))
+
+
+def test_validity_levels_refuse_rle_runs_and_read_several_runs():
+    rng = np.random.default_rng(5)
+    # long constant stretches make the reference encoder emit RLE runs
+    levels = np.repeat(rng.random(40) < 0.5, 24)
+    buf = ref_rle.encode_levels(levels.astype(np.uint32), 1)
+    with pytest.raises(OutOfSpecError):
+        hybrid_rle.decode_validity(buf, len(levels))
+    # two bit-packed runs back to back
+    a, b = rng.random(16) < 0.5, rng.random(40) < 0.5
+    two = ref_rle.encode_bitpacked(a.astype(np.uint32), 1) + ref_rle.encode_bitpacked(
+        b.astype(np.uint32), 1)
+    np.testing.assert_array_equal(hybrid_rle.decode_validity(two, 56), np.concatenate([a, b]))
+    np.testing.assert_array_equal(hybrid_rle.decode_validity(two, 56),
+                                  ref_rle.decode_validity(two, 56))
+    with pytest.raises(OutOfSpecError):
+        hybrid_rle.decode_validity(b"\x80", 8)  # a varint cut short
+
+
+def _roaring_positions(kind, rng):
+    if kind == "empty":
+        return np.empty(0, np.uint32)
+    if kind == "sparse":
+        return np.unique(rng.integers(0, 1 << 32, 300, dtype=np.uint64)).astype(np.uint32)
+    if kind == "dense":  # one container above 4096 entries: a bitset
+        return np.unique(rng.integers(0, 1 << 16, 20000)).astype(np.uint32)
+    # several containers, array and bitset, keys 0..5
+    return np.unique(np.concatenate([
+        rng.integers(k << 16, (k + 1) << 16, 6000 if k % 2 else 50) for k in range(6)
+    ])).astype(np.uint32)
+
+
+@pytest.mark.parametrize("kind", ["empty", "sparse", "dense", "mixed"])
+def test_roaring_deserialize_matches_reference(kind):
+    positions = _roaring_positions(kind, np.random.default_rng(11))
+    buf = ref_roaring.serialize(positions)
+    got = roaring.deserialize(buf)
+    assert got.dtype == np.uint32
+    np.testing.assert_array_equal(got, ref_roaring.deserialize(buf))
+    np.testing.assert_array_equal(got, positions)
+
+
+def test_roaring_run_containers_match_reference():
+    """The run form (cookie 12347), which the writer never emits but a
+    reader must take: container 0 holds runs, container 1 an array."""
+    n = 2
+    head = np.uint32(ref_roaring.SERIAL_COOKIE | ((n - 1) << 16)).tobytes()
+    flags = bytes([0b01])  # container 0 is a run container
+    runs = np.array([3, 4, 100, 0, 65000, 9], "<u2")  # [start, len-1] pairs
+    array = np.array([1, 7, 9], "<u2")
+    desc = np.array([0, 16 - 1, 2, len(array) - 1], "<u2")  # [key, card-1] pairs
+    body = np.uint16(len(runs) // 2).tobytes() + runs.tobytes() + array.tobytes()
+    buf = head + flags + desc.tobytes() + body  # n < 4: no offsets
+    want = np.concatenate([np.arange(3, 8), [100], np.arange(65000, 65010),
+                           (2 << 16) + array.astype(np.uint32)]).astype(np.uint32)
+    np.testing.assert_array_equal(roaring.deserialize(buf), want)
+    np.testing.assert_array_equal(ref_roaring.deserialize(buf), want)
+    for bad in (b"\x01\x00", np.uint32(777).tobytes() + bytes(8)):
+        with pytest.raises(OutOfSpecError):
+            roaring.deserialize(bad)
+
+
+# ---------------------------------------------------------------------------
+# native
+
+
+@pytest.fixture(scope="module")
+def both_native():
+    if not native.available():
+        pytest.skip(f"the port's native library does not build here: {native.load_error()}")
+    if not ref_native.available():
+        pytest.skip("the JAX package's native library does not build here")
+    return native, ref_native
+
+
+def test_native_library_builds_under_the_port(both_native):
+    path = pathlib.Path(native.library_path()).resolve()
+    assert PORT.resolve() in path.parents
+    assert path.parent == (PORT / "native" / "build").resolve()
+    assert path.exists()
+    assert native.load_error() is None
+
+
+def _bp_page(rng, n_blocks):
+    widths = rng.integers(0, 33, n_blocks)
+    widths[::5] = 0
+    blocks = np.zeros((n_blocks, 128), np.uint32)
+    for i, w in enumerate(widths):
+        if w:
+            blocks[i] = rng.integers(0, 1 << int(w), 128, dtype=np.uint64).astype(np.uint32)
+            blocks[i, 0] |= np.uint32(1 << (int(w) - 1))  # the block is exactly w wide
+    return blocks, widths
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_native_bp_encode_and_walk_match_reference(both_native, seed):
+    rng = np.random.default_rng(seed)
+    blocks, widths = _bp_page(rng, 300)
+    page = native.bp_encode(blocks, blocks)
+    assert page == ref_native.bp_encode(blocks, blocks)
+    buf = np.frombuffer(b"xyz" + page, np.uint8)
+    nbs, end = native.bp_walk(buf, 3, len(blocks))
+    ref_nbs, ref_end = ref_native.bp_walk(buf, 3, len(blocks))
+    np.testing.assert_array_equal(nbs, widths)
+    np.testing.assert_array_equal(nbs, ref_nbs)
+    assert end == ref_end == len(buf)
+    with pytest.raises(OutOfSpecError):
+        native.bp_walk(buf[:-1], 3, len(blocks))
+    # a block's width comes from the OR of its width row, which may be
+    # wider than the payload (delta pages)
+    low = blocks & np.uint32(0xF)
+    assert native.bp_encode(low, blocks) == ref_native.bp_encode(low, blocks)
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.uint64])
+def test_native_factorize_matches_reference(both_native, dtype):
+    rng = np.random.default_rng(3)
+    vals = rng.integers(0, 5000, 50_000).astype(dtype)
+    codes, uniq = native.factorize(vals)
+    ref_codes, ref_uniq = ref_native.factorize(vals)
+    np.testing.assert_array_equal(codes, ref_codes)
+    np.testing.assert_array_equal(uniq, ref_uniq)
+    np.testing.assert_array_equal(uniq[codes], vals)
+    assert native.factorize(vals, max_uniq=100) is None
+    assert ref_native.factorize(vals, max_uniq=100) is None
+    with pytest.raises(TypeError):
+        native.factorize(vals.astype(np.int64))
+
+
+def _ref_compress(codec, data: bytes) -> bytes:
+    lib = ref_native._load()
+    cap = lib.sb_compress_bound(int(codec), len(data))
+    out = np.empty(cap, np.uint8)
+    src = np.frombuffer(data, np.uint8)
+    n = lib.sb_compress(int(codec), src.ctypes.data, len(src), out.ctypes.data, cap)
+    assert n > 0
+    return out[:n].tobytes()
+
+
+@pytest.mark.parametrize("codec", [constants.Compression.LZ4, constants.Compression.ZSTD,
+                                   constants.Compression.SNAPPY])
+def test_native_decompress_batch_matches_reference(both_native, codec):
+    if codec == constants.Compression.SNAPPY and not native._load().sb_has_snappy():
+        pytest.skip("libsnappy.so.1 is absent here")
+    rng = np.random.default_rng(int(codec))
+    pages = [np.repeat(rng.integers(0, 50, n // 8 + 1), 8)[:n].astype(np.int32).tobytes()
+             for n in (0, 1, 1000, 65536)]
+    comp = [_ref_compress(codec, p) for p in pages]
+    got = native.decompress_batch(int(codec), comp, [len(p) for p in pages])
+    ref = ref_native.decompress_batch(int(codec), comp, [len(p) for p in pages])
+    assert [g.tobytes() for g in got] == pages == [r.tobytes() for r in ref]
+    with pytest.raises(OutOfSpecError):  # a size that does not match the page
+        native.decompress_batch(int(codec), comp[2:3], [len(pages[2]) + 1])
+
+
+def test_native_without_snappy_raises_on_snappy_pages(both_native, monkeypatch):
+    """The build of a host without libsnappy: LZ4 works, a Snappy page
+    raises an error that names the missing library."""
+    out = os.path.join(native.BUILD, f"libstrawboat_native_test_{os.getpid()}.so")
+    try:
+        native._build(out, snappy=False)
+        lib = ctypes.CDLL(out)
+        native._bind(lib)
+        assert lib.sb_has_snappy() == 0
+        monkeypatch.setitem(native._state, "lib", lib)
+        page = np.arange(512, dtype=np.int32).tobytes()
+        lz4 = _ref_compress(constants.Compression.LZ4, page)
+        assert native.decompress_batch(int(constants.Compression.LZ4), [lz4], [len(page)])[0].tobytes() == page
+        with pytest.raises(StrawboatError, match="libsnappy"):
+            native.decompress_batch(int(constants.Compression.SNAPPY), [b"\x00"], [0])
+    finally:
+        if os.path.exists(out):
+            os.unlink(out)
+
+
+def test_native_unavailable_is_loud(monkeypatch):
+    monkeypatch.setattr(native, "_load", lambda: None)
+    assert not native.available()
+    for call in (lambda: native.bp_walk(np.zeros(4, np.uint8), 0, 1),
+                 lambda: native.factorize(np.zeros(4, np.uint32)),
+                 lambda: native.decompress_batch(1, [b""], [0])):
+        with pytest.raises(StrawboatError, match="native library"):
+            call()

@@ -1,14 +1,17 @@
-"""The torch port imports neither JAX nor pyarrow.
+"""The torch port imports neither JAX, nor pyarrow, nor the JAX package.
 
 Runs in a subprocess: this test process already has JAX loaded (conftest).
 The child imports every module of the port, runs Q6 and Q1 over a small
 resident table built from numpy columns on the CPU, writes a small file
 with the port's writer and scans it back (dictionary and bit-packed
-pages), and checks ``sys.modules`` afterwards.
+pages), and checks ``sys.modules`` afterwards: no ``jax``, no ``pyarrow``,
+no ``strawboat_tpu`` or ``strawboat_tpu.*``.  A source check holds every
+port file and ``chip_smoke.py`` to the same.
 """
 
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -42,7 +45,9 @@ with tempfile.TemporaryDirectory() as d:
 for k in tpch.INT_COLUMNS:
     assert np.array_equal(host_values(table[k]), cols[k]), k
 assert int(tpch.q6(table)) == tpch.q6_numpy_reference(cols)
-print(json.dumps({{"jax": "jax" in sys.modules, "pyarrow": "pyarrow" in sys.modules}}))
+ref = sorted(m for m in sys.modules if m == "strawboat_tpu" or m.startswith("strawboat_tpu."))
+print(json.dumps({{"jax": "jax" in sys.modules, "pyarrow": "pyarrow" in sys.modules,
+                  "strawboat_tpu": ref}}))
 """
 
 
@@ -62,7 +67,33 @@ def test_port_runs_without_jax_or_pyarrow():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr[-3000:]
-    assert out.stdout.strip().splitlines()[-1] == '{"jax": false, "pyarrow": false}'
+    assert out.stdout.strip().splitlines()[-1] == (
+        '{"jax": false, "pyarrow": false, "strawboat_tpu": []}'
+    )
+
+
+# an import statement that names the JAX package (not strawboat_tpu_torch)
+_REF_IMPORT = re.compile(r"^\s*(from|import)\s+strawboat_tpu(\.|\s|$)")
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"],
+)
+def test_no_import_of_the_jax_package(path):
+    for n, line in enumerate((ROOT / path).read_text().splitlines(), 1):
+        assert not _REF_IMPORT.match(line), f"{path}:{n}: {line}"
+    assert not _REF_IMPORT.match("from strawboat_tpu_torch import native")
+    assert _REF_IMPORT.match("    from strawboat_tpu.util.bits import pack_blocks")
+
+
+def test_native_library_path_lies_under_the_port():
+    from strawboat_tpu_torch import native
+
+    for snappy in (False, True):
+        path = pathlib.Path(native.library_path(snappy)).resolve()
+        assert path.parent == (PORT / "native" / "build").resolve()
+    assert pathlib.Path(native.BUILD).resolve() == (PORT / "native" / "build").resolve()
 
 
 @pytest.mark.parametrize("needle", ["import jax", "from jax", "import pyarrow"])

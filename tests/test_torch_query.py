@@ -15,7 +15,7 @@ import pyarrow as pa
 import pytest
 import torch
 
-from strawboat_tpu.errors import NotYetImplementedError
+from strawboat_tpu_torch.errors import NotYetImplementedError
 from strawboat_tpu_torch.benchsuite import tpch as port_tpch
 from strawboat_tpu_torch.exec import Query, col, dense_group_sum, make_resident
 

@@ -16,7 +16,7 @@ import pyarrow as pa
 import pytest
 import torch
 
-from strawboat_tpu.errors import NotYetImplementedError
+from strawboat_tpu_torch.errors import NotYetImplementedError
 from strawboat_tpu_torch.exec import resident as port
 
 TILE = 512

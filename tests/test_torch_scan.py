@@ -16,18 +16,21 @@ import torch
 
 from strawboat_tpu.codecs import WriteOptions as RefOptions
 from strawboat_tpu.codecs import read_header as ref_read_header
-from strawboat_tpu.constants import Compression
-from strawboat_tpu.errors import NotYetImplementedError
 from strawboat_tpu.exec.scan import scan_file as ref_scan
+from strawboat_tpu.meta import serialize_metas as ref_serialize_metas
 from strawboat_tpu.read.reader import read_meta as ref_read_meta
 from strawboat_tpu.util.env import _ALL as FLAG_NAMES
 from strawboat_tpu.write.writer import write_file as ref_write
+from strawboat_tpu_torch import native
 from strawboat_tpu_torch.benchsuite import tpch
 from strawboat_tpu_torch.codecs import WriteOptions
+from strawboat_tpu_torch.constants import Compression
+from strawboat_tpu_torch.errors import NotYetImplementedError, OutOfSpecError, StrawboatError
 from strawboat_tpu_torch.exec import scan_file
 from strawboat_tpu_torch.exec import scan as port_scan
 from strawboat_tpu_torch.exec.scan import host_values
 from strawboat_tpu_torch.kernels import bitunpack as bu
+from strawboat_tpu_torch.meta import serialize_metas
 from strawboat_tpu_torch.read.reader import infer_schema, read_meta
 from strawboat_tpu_torch.write import write_file
 
@@ -225,7 +228,7 @@ def test_port_writer_matches_reference_writer(tmp_path, flags, name):
     port_path, ref_path = str(tmp_path / "port.str"), str(tmp_path / "ref.str")
     metas = write_file(port_path, cols, options=WriteOptions(max_page_size=1024))
     ref_metas = ref_write(ref_path, _arrow(cols), options=RefOptions(max_page_size=1024))
-    assert metas == ref_metas
+    assert serialize_metas(metas) == ref_serialize_metas(ref_metas)
     got_metas, got_pages = _page_region(port_path)
     want_metas, want_pages = _page_region(ref_path)
     assert got_metas == want_metas
@@ -255,9 +258,6 @@ def test_block_widths_of_a_truncated_page_raise(monkeypatch, native_lib):
     """Mixed block widths walk the headers (C, or Python without the
     native library); a page cut inside its last block or short of its
     block count raises either way."""
-    from strawboat_tpu import native
-    from strawboat_tpu.errors import OutOfSpecError
-
     if not native_lib:
         monkeypatch.setattr(native, "_load", lambda: None)
     buf = np.frombuffer(bytes([5]) + bytes(80) + bytes([7]) + bytes(112), np.uint8)
@@ -360,13 +360,10 @@ def test_scanned_table_to_arrow_equals_reference_host_read(tmp_path, flags, name
 
 
 def test_without_the_native_library(tmp_path, flags, monkeypatch):
-    """Where ``strawboat_tpu.native`` does not load: the writer packs and
-    factorizes in numpy, the scan walks block headers in Python, and both
-    agree with the reference; a raw LZ4 page raises instead of falling
+    """Where the port's ``native`` library does not load: the writer packs
+    and factorizes in numpy, the scan walks block headers in Python, and
+    both agree with the reference; a raw LZ4 page raises instead of falling
     back."""
-    from strawboat_tpu import native
-    from strawboat_tpu.errors import StrawboatError
-
     lz4_path = str(tmp_path / "lz4.str")
     cols = _columns(rows=2000)
     ref_write(lz4_path, _arrow(cols), options=RefOptions(default_compression=Compression.LZ4))

@@ -5,7 +5,7 @@ import pyarrow as pa
 import pytest
 
 from strawboat_tpu import schema as ref
-from strawboat_tpu.errors import NotYetImplementedError, OutOfSpecError
+from strawboat_tpu_torch.errors import NotYetImplementedError, OutOfSpecError
 from strawboat_tpu_torch import schema as port
 
 FLAT = list(port.FLAT_INT_TYPES)
