@@ -33,13 +33,27 @@ the scan path (K3's launches are counted over 9–11):
    equals the generated one; K3 launched on each; warm median;
 11. q6_scan — ``tpch.q6`` over each scanned table == the numpy reference;
 
+the general path (K1's and K3's launches are counted over 12):
+
+12. general — the orders file (SF10 orders, 15 M rows, seed 1, under the
+   ``dict`` flags); the Q3-shaped join through ``Query`` over the two files
+   and through ``q3_like`` over their scans == the numpy reference; a
+   ``Query`` over the lineitem file grouped by l_suppkey (10 000 groups,
+   the capacity grows from 4096), ordered and limited; two top-k
+   projections; over the resident table a group-by on l_quantity (not a
+   dictionary column), a projection with a limit, and Q1's aggregates
+   through ``hash_aggregate`` == the fused Q1; ``load_resident`` of the
+   dict file (planes == ``make_resident`` of the numpy columns) and
+   ``make_resident(scan_file(bitpack file))``, each with Q6 == numpy;
+
 and last:
 
-12. k2_k0  — K2 and K0 bit-exact against their plain versions (b = 1..32),
+13. k2_k0  — K2 and K0 bit-exact against their plain versions (b = 1..32),
    then (their launches counted) l_shipdate's bit-packed pages decoded
-   through K2's and K0's natural-order entry points == the generated column.
+   through K2's and K0's natural-order entry points == the generated column;
+   each width group's lane count, times and bound are printed.
 
-Then the kernel summary line (each kernel's launches on its path, its
+Then the kernel summary line (each kernel's launches on its paths, its
 time and its plain version's over that path's shapes, and ``bound_ms``: the
 bytes it must move, each input read once and each output written once, at
 the H100 SXM's 3.35 TB/s), the nvidia-smi line, and as the last line
@@ -360,9 +374,253 @@ def phase_q6_scan(tables, cols) -> None:
     emit("q6_scan", equal_to_numpy=True, files=facts)
 
 
+def _check_equal(what: str, got, want) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: {got} != numpy {want}")
+
+
+def _host(t) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+def _q3_checks(li_path, o_path, cols, orders, device) -> dict:
+    """The Q3-shaped join through the Query API over the two files, and
+    through ``q3_like`` over their scans; both equal numpy."""
+    from strawboat_tpu_torch.benchsuite import tpch
+    from strawboat_tpu_torch.exec import scan_file
+
+    t0 = time.perf_counter()
+    want = tpch.q3_numpy_reference(cols, orders)
+    numpy_s = time.perf_counter() - t0
+
+    def query():
+        res = tpch.q3_query(li_path, o_path, device)
+        return tpch.q3_rows(res["key_o_orderpriority"], res["n_groups"], res["revenue"])
+
+    _check_equal("Q3 through Query", query(), want)
+    query_ms = wall_ms(query, reps=SCAN_REPS)
+    lt, ot = scan_file(li_path, device), scan_file(o_path, device)
+    _check_equal("q3_like over the scans", tpch.q3_rows(*tpch.q3_like(lt, ot)), want)
+    like_ms = event_ms(lambda: tpch.q3_like(lt, ot), reps=5, warmup=1)
+    return {"groups": want, "equal_to_numpy": True, "numpy_s": numpy_s,
+            "query_warm_median_ms": query_ms, "q3_like_device_ms": like_ms}
+
+
+def _suppkey_check(li_path, cols, device) -> dict:
+    """Group by l_suppkey (not a dictionary column; 10 000 groups, so the
+    capacity grows from 4096), then ORDER BY revenue DESC LIMIT 10."""
+    from strawboat_tpu_torch.exec import Query, aggregate, col
+
+    def query():
+        return (Query(li_path, device=device)
+                .filter(col("l_shipdate") <= 2467)
+                .group_by("l_suppkey", num_groups=4096)
+                .agg(revenue=("sum", col("l_extendedprice") * (100 - col("l_discount"))),
+                     min_qty=("min", "l_quantity"), max_qty=("max", "l_quantity"),
+                     avg_price=("avg", "l_extendedprice"), n=("count", "l_quantity"))
+                .order_by(("revenue", "desc"))
+                .limit(10)
+                .run())
+
+    # count hash_aggregate's passes and the capacity of the last one
+    runs = []
+    inner = aggregate.grouped_aggregate
+    aggregate.grouped_aggregate = lambda *a, **k: runs.append(a[3]) or inner(*a, **k)
+    try:
+        res = query()
+    finally:
+        aggregate.grouped_aggregate = inner
+    m = cols["l_shipdate"] <= 2467
+    sk = cols["l_suppkey"][m]
+    qty, price, disc = cols["l_quantity"][m], cols["l_extendedprice"][m], cols["l_discount"][m]
+    n_keys = int(cols["l_suppkey"].max()) + 1
+    rev_f = np.bincount(sk, weights=price * (100 - disc), minlength=n_keys)
+    if rev_f.max() >= 2**53:
+        raise AssertionError("revenue per supplier beyond float64's exact integers")
+    rev = rev_f.astype(np.int64)
+    cnt = np.bincount(sk, minlength=n_keys)
+    present = np.bincount(sk * 51 + qty, minlength=n_keys * 51).reshape(n_keys, 51) > 0
+    live = np.flatnonzero(cnt)
+    top = live[np.argsort(-rev[live], kind="stable")[:10]]
+    got = {k: _host(res[k]) for k in ("key_l_suppkey", "revenue", "min_qty", "max_qty", "n",
+                                      "avg_price", "taken_valid")}
+    _check_equal("suppkey group count", len(live), 10_000)
+    _check_equal("suppkey top-10 keys", got["key_l_suppkey"].tolist(), top.tolist())
+    _check_equal("suppkey revenue", got["revenue"].tolist(), rev[top].tolist())
+    _check_equal("suppkey count", got["n"].tolist(), cnt[top].tolist())
+    _check_equal("suppkey min_qty", got["min_qty"].tolist(), present[top].argmax(1).tolist())
+    _check_equal("suppkey max_qty", got["max_qty"].tolist(), (50 - present[top, ::-1].argmax(1)).tolist())
+    sums = np.bincount(sk, weights=price, minlength=n_keys)[top]
+    np.testing.assert_allclose(got["avg_price"], sums / cnt[top], rtol=1e-12)
+    if not got["taken_valid"].all() or int(res["n_groups"]) != 10:
+        raise AssertionError("suppkey LIMIT 10 took an empty slot")
+    return {"groups": int(len(live)), "runs": len(runs), "capacities": runs,
+            "equal_to_numpy": True, "warm_median_ms": wall_ms(query, reps=SCAN_REPS)}
+
+
+def _topk_checks(li_path, cols, device) -> dict:
+    """select + ORDER BY l_extendedprice DESC + LIMIT 100, without a filter
+    (the single-column branch) and with one (masked); ties keep row order,
+    as a stable numpy argsort of the negated key does."""
+    from strawboat_tpu_torch.exec import Query, col
+    from strawboat_tpu_torch.exec.scan import host_values
+
+    price = cols["l_extendedprice"]
+    out = {}
+    for name, pred in (("no_filter", None), ("filter", col("l_shipdate") <= 2467)):
+        def query(pred=pred):
+            q = Query(li_path, device=device).select("l_orderkey", "l_extendedprice")
+            if pred is not None:
+                q = q.filter(pred)
+            return q.order_by(("l_extendedprice", "desc")).limit(100).run()
+
+        table, taken = query()
+        rows = np.arange(len(price)) if pred is None else np.flatnonzero(cols["l_shipdate"] <= 2467)
+        # the 100 largest, ties in row order: a stable argsort of the candidates
+        thr = np.partition(price[rows], len(rows) - 100)[len(rows) - 100]
+        cand = rows[price[rows] >= thr]
+        want = cand[np.argsort(-price[cand], kind="stable")[:100]]
+        for k in ("l_orderkey", "l_extendedprice"):
+            if not np.array_equal(host_values(table[k]), cols[k][want]):
+                raise AssertionError(f"top-k {name}: {k} != numpy")
+        if taken is not None and not bool(taken.all()):
+            raise AssertionError(f"top-k {name} took a masked row")
+        out[name] = {"equal_to_numpy": True, "ties_at_cut": int((price[cand] == thr).sum()),
+                     "warm_median_ms": wall_ms(query, reps=SCAN_REPS)}
+    return out
+
+
+def _resident_checks(rt, cols) -> dict:
+    """Over the resident table: a group-by on l_quantity (plain planes), a
+    projection with a limit (natural order), and Q1's aggregates through
+    the sort-based hash_aggregate == the fused Q1 == numpy."""
+    from strawboat_tpu_torch.benchsuite import tpch
+    from strawboat_tpu_torch.exec import Query, col, hash_aggregate
+
+    if rt["l_quantity"].is_dict:
+        raise AssertionError("l_quantity was meant to be plain planes")
+    m = cols["l_shipdate"] <= 2467
+    res = (Query(rt).filter(col("l_shipdate") <= 2467).group_by("l_quantity", num_groups=64)
+           .agg(sum_base=("sum", "l_extendedprice"), n=("count", "l_tax"),
+                max_disc=("max", "l_discount")).run())
+    n = int(res["n_groups"])
+    qty, disc = cols["l_quantity"][m], cols["l_discount"][m]
+    keys = _host(res["key_l_quantity"])[:n]
+    # per-quantity sums stay below 2^53, so float64 bincount weights are exact
+    sums = np.bincount(qty, weights=cols["l_extendedprice"][m]).astype(np.int64)
+    present = np.bincount(qty * 11 + disc, minlength=51 * 11).reshape(51, 11) > 0
+    _check_equal("resident group keys", keys.tolist(), np.unique(qty).tolist())
+    _check_equal("resident group sums", _host(res["sum_base"])[:n].tolist(), sums[keys].tolist())
+    _check_equal("resident group counts", _host(res["n"])[:n].tolist(),
+                 np.bincount(qty)[keys].tolist())
+    _check_equal("resident group max", _host(res["max_disc"])[:n].tolist(),
+                 (10 - present[keys, ::-1].argmax(1)).tolist())
+    table, _mask = Query(rt).select("l_quantity", "l_extendedprice").filter(
+        col("l_discount") > 7).limit(1000).run()
+    first = np.flatnonzero(cols["l_discount"] > 7)[:1000]
+    for k in ("l_quantity", "l_extendedprice"):
+        if not np.array_equal(_host(table[k].values), cols[k][first]):
+            raise AssertionError(f"resident projection {k} != numpy")
+
+    def q1_general():
+        t, pad = rt.as_device_table(list(tpch.Q1_Q6_COLUMNS))
+        mask = pad & (col("l_shipdate") <= tpch.EPOCH_DAYS - tpch.Q1_DEFAULT_DELTA).mask(t)
+        r = hash_aggregate(t, ["l_returnflag", "l_linestatus"], tpch.q1_aggs(), num_groups=16, mask=mask)
+        k = int(r["n_groups"])
+        return {name: _host(r[name][:k]) for name in tpch.Q1_AGG_NAMES}
+
+    general, fused = q1_general(), tpch.q1(rt)
+    want = tpch.q1_numpy_reference(cols)
+    _check_equal("Q1 groups", (len(general["count_order"]), len(fused["count_order"])),
+                 (len(want), len(want)))
+    for i, key in enumerate(want):
+        for name, w in want[key].items():
+            for route, got in (("general", general[name][i]), ("fused", fused[name][i])):
+                if name.startswith("avg_"):
+                    np.testing.assert_allclose(got, w, rtol=1e-12, err_msg=f"Q1 {route} {key} {name}")
+                elif int(got) != w:
+                    raise AssertionError(f"Q1 {route} {key} {name}: {got} != numpy {w}")
+    return {"group_by_quantity": {"groups": n, "equal_to_numpy": True},
+            "projection_limit": {"rows": 1000, "equal_to_numpy": True},
+            "q1_general_ms": wall_ms(q1_general), "q1_fused_ms": wall_ms(lambda: tpch.q1(rt)),
+            "q1_equal": True}
+
+
+def _plane_bytes(rt) -> int:
+    return sum(w.numel() * 4 for c in rt.columns.values() for w, _b in c.planes)
+
+
+def _loader_checks(paths, cols, device):
+    """load_resident(dict file): planes == make_resident of the numpy
+    columns, word for word; make_resident(scan_file(bitpack file)): decoded
+    columns == the generated ones.  Q6 over each == numpy.  Returns the
+    facts and the make_resident(scan) table, whose device-direct planes K1
+    is timed over."""
+    from strawboat_tpu_torch.benchsuite import tpch
+    from strawboat_tpu_torch.exec import load_resident, make_resident, scan_file
+    from strawboat_tpu_torch.exec.scan import DeviceColumn, host_values
+
+    want_q6 = tpch.q6_numpy_reference(cols)
+    ints = {k: cols[k] for k in tpch.INT_COLUMNS}
+    out = {}
+    t0 = time.perf_counter()
+    rt = load_resident(paths["dict"], device)
+    torch.cuda.synchronize()
+    out["load_resident"] = {"seconds": time.perf_counter() - t0, "plane_bytes": _plane_bytes(rt)}
+    ref = make_resident(ints, device)
+    for n, c in ref.columns.items():
+        mine = rt.columns[n]
+        same = (len(mine.planes) == len(c.planes) and mine.offset == c.offset
+                and mine.is_dict == c.is_dict
+                and all(b == rb and torch.equal(w, rw) for (w, b), (rw, rb) in zip(mine.planes, c.planes)))
+        if not same:
+            raise AssertionError(f"load_resident column {n}: planes != make_resident of numpy")
+    del ref
+    _check_equal("Q6 over load_resident", int(tpch.q6(rt)), want_q6)
+    out["load_resident"].update(planes_equal=True, q6_equal_to_numpy=True)
+    del rt
+    t0 = time.perf_counter()
+    rt = make_resident(scan_file(paths["bitpack"], device), device)
+    torch.cuda.synchronize()
+    out["make_resident_scan"] = {"seconds": time.perf_counter() - t0, "plane_bytes": _plane_bytes(rt)}
+    for k in tpch.INT_COLUMNS:
+        got = host_values(DeviceColumn(k, rt[k].arrow_type, rt.decode_natural(k)))
+        if not np.array_equal(got, ints[k]):
+            raise AssertionError(f"make_resident(scan) column {k} != the generated column")
+    _check_equal("Q6 over make_resident(scan)", int(tpch.q6(rt)), want_q6)
+    out["make_resident_scan"].update(decoded_equal=True, q6_equal_to_numpy=True)
+    return out, rt
+
+
+def phase_general(paths, cols, rt, tmpdir, device):
+    """The general query path at full width over the SF10 files and the
+    resident table; every answer against numpy.  Returns the orders file's
+    path and the make_resident(scan) table, so that the kernel summary
+    times K3 and K1 over their shapes too."""
+    from strawboat_tpu_torch.benchsuite import tpch
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    orders = tpch.generate_orders(SF10_ROWS / tpch.ROWS_PER_SF, seed=1)
+    o_path = os.path.join(tmpdir, "orders_dict.str")
+    gen_s = time.perf_counter() - t0
+    with forcing(FILES["dict"]):
+        t0 = time.perf_counter()
+        tpch.write_orders(o_path, orders, max_page_size=PAGE_ROWS)
+    facts = {"orders": {"rows": len(orders["o_orderkey"]), "generate_s": gen_s,
+                        "write_s": time.perf_counter() - t0, "bytes": os.path.getsize(o_path)}}
+    facts["q3"] = _q3_checks(paths["dict"], o_path, cols, orders, device)
+    facts["suppkey"] = _suppkey_check(paths["dict"], cols, device)
+    facts["topk"] = _topk_checks(paths["dict"], cols, device)
+    facts["resident"] = _resident_checks(rt, cols)
+    facts["loaders"], scan_rt = _loader_checks(paths, cols, device)
+    emit("general", **facts, max_memory_allocated=torch.cuda.max_memory_allocated())
+    return o_path, scan_rt
+
+
 def k3_summary(paths, device) -> dict:
     """K3 and plain times, and the bound, over every launch one scan of
-    both files makes."""
+    each file in ``paths`` makes."""
     from strawboat_tpu_torch.exec.scan import k3_launch_groups
     from strawboat_tpu_torch.kernels import bitunpack as bu
 
@@ -416,16 +674,25 @@ def phase_k2_k0(path: str, shipdate: np.ndarray, device, seed: int) -> dict:
     if min(launches.values()) <= 0:
         raise AssertionError(f"the K2/K0 path did not launch both kernels: {launches}")
     times = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0} for k in ("K2", "K0")}
+    per_launch = []
     for b, _want, w3, wt in inputs:
-        times["K2"]["ms"] += event_ms(lambda: bu.bitunpack_tiled_unseeded(w3, b))
-        times["K2"]["plain_ms"] += event_ms(lambda: bu.bitunpack_tiled_unseeded_plain(w3, b))
-        times["K0"]["ms"] += event_ms(lambda: bu.bitunpack_tmajor(wt, b))
-        times["K0"]["plain_ms"] += event_ms(lambda: bu.bitunpack_tmajor_plain(wt, b))
-        # b words in, 32 values out per lane column
-        times["K2"]["bound_ms"] += bound_ms(w3.numel() * 4 * (b + 32) // b)
-        times["K0"]["bound_ms"] += bound_ms(wt.numel() * 4 * (b + 32) // b)
+        one = {
+            "K2": {"n_lanes": w3.shape[0] * w3.shape[2],
+                   "ms": event_ms(lambda: bu.bitunpack_tiled_unseeded(w3, b)),
+                   "plain_ms": event_ms(lambda: bu.bitunpack_tiled_unseeded_plain(w3, b)),
+                   # b words in, 32 values out per lane column
+                   "bound_ms": bound_ms(w3.numel() * 4 * (b + 32) // b)},
+            "K0": {"n_lanes": wt.shape[1],
+                   "ms": event_ms(lambda: bu.bitunpack_tmajor(wt, b)),
+                   "plain_ms": event_ms(lambda: bu.bitunpack_tmajor_plain(wt, b)),
+                   "bound_ms": bound_ms(wt.numel() * 4 * (b + 32) // b)},
+        }
+        for k in ("K2", "K0"):
+            for f in ("ms", "plain_ms", "bound_ms"):
+                times[k][f] += one[k][f]
+        per_launch.append({"b": b, **one})
     emit("k2_k0", widths_checked=32, max_abs_err=0, path_widths=[g[0] for g in groups],
-         launches=launches, times=times, equal_to_numpy=True)
+         launches=launches, times=times, per_launch=per_launch, equal_to_numpy=True)
     return {k: {"launches": launches[k], "max_abs_err": 0, **times[k]} for k in launches}
 
 
@@ -462,15 +729,6 @@ def main() -> int:
     k1_launches = bu.bitunpack_tiled.launches
     if k1_launches <= 0:
         raise AssertionError("the resident path never launched K1")
-    # K1 over every plane one Q1/Q6 pass decodes, at the loaded shapes
-    planes = [(w, b) for c in rt.columns.values() for w, b in c.planes]
-    k1["ms"] = sum(event_ms(lambda w=w, b=b: bu.bitunpack_tiled(w, 0, b)) for w, b in planes)
-    k1["plain_ms"] = sum(
-        event_ms(lambda w=w, b=b: bu.bitunpack_tiled_plain(w, 0, b)) for w, b in planes
-    )
-    k1["bound_ms"] = sum(bound_ms(w.numel() * 4 * (b + 32) // b) for w, b in planes)
-    del rt, planes
-    torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmpdir:
         # the scan path: count only its launches
@@ -483,8 +741,31 @@ def main() -> int:
             raise AssertionError("the scan path never launched K3")
         del tables
         torch.cuda.empty_cache()
-        k3.update(k3_summary(paths, device))
+        # the general path: count only its launches
+        bu.bitunpack_tiled.launches = 0
+        bu.bitunpack_natural.launches = 0
+        o_path, scan_rt = phase_general(paths, cols, rt, tmpdir, device)
+        general = {"K1": bu.bitunpack_tiled.launches, "K3": bu.bitunpack_natural.launches}
+        if min(general.values()) <= 0:
+            raise AssertionError(f"the general path did not launch K1 and K3: {general}")
+        k1_launches += general["K1"]
+        k3_launches += general["K3"]
+        torch.cuda.empty_cache()
+        # K3 over one scan of each file the paths scan: both lineitem files
+        # and the orders file
+        k3.update(k3_summary({**paths, "orders": o_path}, device))
         k2_k0 = phase_k2_k0(paths["bitpack"], cols["l_shipdate"], device, SEED)
+    # K1 over every plane shape the paths decode: the host-encoded planes of
+    # the resident table (Q1, Q6 and the general queries over it; Q6 over
+    # load_resident decodes planes equal to these word for word) and the
+    # device-direct planes of make_resident(scan), once each
+    planes = [(w, b) for t in (rt, scan_rt) for c in t.columns.values() for w, b in c.planes]
+    k1["ms"] = sum(event_ms(lambda w=w, b=b: bu.bitunpack_tiled(w, 0, b)) for w, b in planes)
+    k1["plain_ms"] = sum(
+        event_ms(lambda w=w, b=b: bu.bitunpack_tiled_plain(w, 0, b)) for w, b in planes
+    )
+    k1["bound_ms"] = sum(bound_ms(w.numel() * 4 * (b + 32) // b) for w, b in planes)
+    del rt, scan_rt, planes
 
     def line(name, src, replaces, launches, facts):
         return {"name": name, "route": "cuda", "source": CSRC + src, "replaces": PALLAS + replaces,
@@ -493,6 +774,7 @@ def main() -> int:
                 # no single torch call unpacks BitPacker4x
                 "library_ms": None}
 
+    emit("launches", general_path=general)
     print(json.dumps({"kernels": [
         line("bitunpack_tiled", "bitunpack.cu", "222", k1_launches, k1),
         line("bitunpack_tiled_unseeded", "bitunpack.cu", "174", k2_k0["K2"]["launches"], k2_k0["K2"]),

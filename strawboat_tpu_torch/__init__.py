@@ -1,5 +1,5 @@
-"""strawboat_tpu_torch: strawboat's resident serving path and file scan on
-PyTorch + CUDA.
+"""strawboat_tpu_torch: strawboat's resident serving path, file scan and
+general query path (sort, hash aggregate, join) on PyTorch + CUDA.
 
 A port of ``strawboat_tpu`` (JAX/Pallas, the reference) to torch tensors,
 with the reference's Pallas kernels rewritten by hand in CUDA C++ for the

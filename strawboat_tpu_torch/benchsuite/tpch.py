@@ -1,10 +1,10 @@
-"""TPC-H lineitem, Q1 and Q6 for the resident path and the file scan.
+"""TPC-H lineitem and orders, Q1, Q6 and a Q3-shaped join.
 
-Counterpart of ``strawboat_tpu/benchsuite/tpch.py``.  The generator is the
-reference's numpy body and returns numpy columns (no pyarrow needed); the
-numpy references compute Q1 over dictionary codes, which stays fast at 60 M
-rows.  Money columns are scaled int64 (cents), so every sum is an exact
-integer.
+Counterpart of ``strawboat_tpu/benchsuite/tpch.py``.  The generators are
+the reference's numpy bodies and return numpy columns (no pyarrow needed);
+the numpy references compute Q1 over dictionary codes, which stays fast at
+60 M rows.  Money columns are scaled int64 (cents), so every sum is an
+exact integer.
 """
 
 from __future__ import annotations
@@ -15,7 +15,9 @@ import numpy as np
 
 import torch
 
+from ..exec.aggregate import grouped_aggregate
 from ..exec.expr import col
+from ..exec.join import hash_join
 from ..exec.query import Query
 from ..exec.resident import ResidentTable
 
@@ -97,14 +99,18 @@ def generate_lineitem(
 # Q6: revenue from discounted small shipments in 1994
 
 
-def write_lineitem(path, cols: Dict[str, np.ndarray], max_page_size: int = 65536, options=None):
-    """Write the integer lineitem columns through the port's writer (codecs
-    as the ``STRAWBOAT_*_COMPRESSION`` flags force them) → column metas."""
+def _write(path, cols: Dict[str, np.ndarray], max_page_size: int, options):
     from ..codecs import WriteOptions
     from ..write import write_file
 
     options = options or WriteOptions(max_page_size=max_page_size)
-    return write_file(path, {k: cols[k] for k in INT_COLUMNS}, options=options)
+    return write_file(path, cols, options=options)
+
+
+def write_lineitem(path, cols: Dict[str, np.ndarray], max_page_size: int = 65536, options=None):
+    """Write the integer lineitem columns through the port's writer (codecs
+    as the ``STRAWBOAT_*_COMPRESSION`` flags force them) → column metas."""
+    return _write(path, {k: cols[k] for k in INT_COLUMNS}, max_page_size, options)
 
 
 def q6(table):
@@ -227,4 +233,91 @@ def q1_numpy_reference(
             "avg_disc": int(d.sum()) / n,
             "count_order": n,
         }
+    return out
+
+
+# ---------------------------------------------------------------------------
+# orders and a Q3-shaped join: lineitem ⋈ orders on the order key, a date
+# filter on orders, revenue grouped by order priority
+
+
+def generate_orders(
+    scale: float, seed: int = 1, rows: Optional[int] = None
+) -> Dict[str, np.ndarray]:
+    """Orders (1.5 M rows per SF) as numpy columns, the reference
+    generator's values: o_orderkey is ``arange``, aligned with lineitem's
+    order keys; o_orderpriority is a low-cardinality int (1..5)."""
+    n = rows if rows is not None else int(1_500_000 * scale)
+    rng = np.random.default_rng(seed)
+    orderkey = np.arange(n, dtype=np.int64)
+    custkey = rng.integers(0, max(int(150_000 * max(scale, 0.01)), 10), n).astype(np.int64)
+    orderdate = rng.integers(0, EPOCH_DAYS - 151, n).astype(np.int32)
+    priority = rng.integers(1, 6, n).astype(np.int64)
+    return {
+        "o_orderkey": orderkey,
+        "o_custkey": custkey,
+        "o_orderdate": orderdate,
+        "o_orderpriority": priority,
+    }
+
+
+def write_orders(path, cols: Dict[str, np.ndarray], max_page_size: int = 65536, options=None):
+    """Write the orders columns through the port's writer → column metas."""
+    return _write(path, cols, max_page_size, options)
+
+
+def q3_like(lineitem, orders, date_cut: int = 1000, num_groups: int = 8192):
+    """Q3-shaped query over two DeviceTables: join lineitem → orders on the
+    order key (orders is the unique-key build side), keep orders before
+    ``date_cut``, sum ``l_extendedprice * (100 - l_discount)`` by
+    o_orderpriority.  Returns (label keys, n_groups, revenue) device
+    tensors, slot for slot the reference's."""
+    pi, bi, valid = hash_join(lineitem, orders, on=("l_orderkey", "o_orderkey"))
+    valid = valid & (orders["o_orderdate"].values[bi] < date_cut)
+    revenue = lineitem["l_extendedprice"].values[pi].long() * (
+        100 - lineitem["l_discount"].values[pi].long()
+    )
+    prio = orders["o_orderpriority"].values[bi]
+    uniq, n_groups, _rep, (total,) = grouped_aggregate(
+        (prio,), (revenue,), valid, num_groups, (("sum", 0),)
+    )
+    return uniq, n_groups, total
+
+
+def q3_query(lineitem, orders, device, date_cut: int = 1000):
+    """The Q3-shaped join through the Query API (files or resident
+    tables): lineitem ⋈ orders filtered on o_orderdate, revenue grouped by
+    o_orderpriority."""
+    return (
+        Query(lineitem, device=device)
+        .join(Query(orders, device=device).filter(col("o_orderdate") < date_cut),
+              on=("l_orderkey", "o_orderkey"))
+        .group_by("o_orderpriority", num_groups=64)
+        .agg(revenue=("sum", col("l_extendedprice") * (100 - col("l_discount"))))
+        .run()
+    )
+
+
+def q3_rows(keys: torch.Tensor, n_groups, revenue: torch.Tensor) -> Dict[int, int]:
+    """{priority: revenue} from a grouped result's first ``n_groups``
+    slots."""
+    n = int(n_groups)
+    return dict(zip(keys[:n].tolist(), revenue[:n].tolist()))
+
+
+def q3_numpy_reference(
+    li: Dict[str, np.ndarray], orders: Dict[str, np.ndarray], date_cut: int = 1000
+) -> Dict[int, int]:
+    """{priority: revenue} in numpy: each lineitem row finds its order by
+    ``searchsorted`` over the sorted o_orderkey."""
+    lk, ok = li["l_orderkey"], orders["o_orderkey"]
+    pos = np.clip(np.searchsorted(ok, lk), 0, len(ok) - 1)
+    matched = (ok[pos] == lk) & (orders["o_orderdate"][pos] < date_cut)
+    rev = li["l_extendedprice"] * (100 - li["l_discount"])
+    prio = orders["o_orderpriority"][pos]
+    out = {}
+    for g in np.unique(orders["o_orderpriority"]):
+        m = matched & (prio == g)
+        if m.any():
+            out[int(g)] = int(rev[m].sum())
     return out

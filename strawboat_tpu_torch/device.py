@@ -59,3 +59,15 @@ def shr_u32(x: torch.Tensor, n: int) -> torch.Tensor:
     if n == 0:
         return x
     return (x >> n) & ((1 << (32 - n)) - 1)
+
+
+SIGN64 = -(1 << 63)  # the int64 with only bit 63 set
+
+
+def widen_i64(x: torch.Tensor, unsigned: bool = False) -> torch.Tensor:
+    """Integer (or bool) values → int64 bits: signed types sign-extend; an
+    unsigned 16/32-bit view (``unsigned``) zero-extends; 64-bit values keep
+    their bits."""
+    if unsigned and x.element_size() < 8:
+        return x.to(torch.int64) & ((1 << (8 * x.element_size())) - 1)
+    return x.to(torch.int64)

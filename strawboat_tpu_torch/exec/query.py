@@ -1,44 +1,65 @@
-"""Fluent query API over a resident table.
+"""Fluent query API over resident tables and files.
 
-Counterpart of ``strawboat_tpu/exec/query.py``, resident fused branch:
+Counterpart of ``strawboat_tpu/exec/query.py``:
 
-    res = (Query(rt)
+    res = (Query("/data/lineitem.str", device="cuda")
            .filter(col("l_shipdate") <= 2467)
-           .group_by("l_returnflag", "l_linestatus", num_groups=16)
-           .agg(sum_qty=("sum", "l_quantity"), n=("count", "l_quantity"))
-           .order_by("key_l_returnflag", "key_l_linestatus")
+           .group_by("l_suppkey", num_groups=4096)
+           .agg(revenue=("sum", col("l_extendedprice") * (100 - col("l_discount"))))
+           .order_by(("revenue", "desc"))
+           .limit(10)
            .run())
 
-Every group key must be a dictionary column (dense sorted codes), so the
-composite key ``Σ code_i · stride_i`` is a direct segment id: decode,
-filter and every aggregate run without a sort.  Other shapes (file
-sources, the general hash-aggregate / sort / join path, more than 4096
-composite groups) raise ``NotYetImplementedError``.
+A grouped aggregate over a resident table whose keys are all dictionary
+columns (dense sorted codes, at most 4096 composite groups) takes the fused
+branch first: the composite key ``Σ code_i · stride_i`` is a direct segment
+id, and the result comes back as host numpy.  Every other shape takes the
+general path, on the source's device: scan (a file through ``scan_file``,
+a resident table decoded with its padding mask), join, filter, then the
+sort-based ``hash_aggregate``, ``scalar_aggregate``, ``sort_table`` or a
+projection; results are device tensors, and ``(DeviceTable, mask)`` for
+projections.  File sources run on ``device`` (default ``"cuda"``, which
+raises without a card); a build-side query runs on its probe's device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..errors import NotYetImplementedError
-from .aggregate import dense_group_count, dense_group_sum, segment_reduce
+from ..device import as_device
+from ..errors import NotYetImplementedError, OutOfSpecError
+from .aggregate import (
+    dense_group_count,
+    dense_group_sum,
+    hash_aggregate,
+    scalar_aggregate,
+    segment_reduce,
+)
 from .expr import Expr
+from .join import hash_join
 from .resident import ResidentTable, _unpack_plane_tiled
-from .scan import DeviceColumn, DeviceTable
+from .scan import DeviceColumn, DeviceTable, refuse_pruning, scan_file, unsigned_view
+from .sort import _by_items, _dictionary_rank, head_table, sort_indices, sort_table, take_table
 
-_GENERAL = "ROADMAP.md 'Modules to port': the Query general path (aggregate, sort, join)"
+_DATASETS = "ROADMAP.md 'Modules to port': datasets (Query over globs and lists of files)"
 _FUSED_FNS = ("sum", "count", "min", "max", "avg", "mean")
 _MAX_FUSED_GROUPS = 4096
 
 
 @dataclass
 class Query:
-    path: Any  # a ResidentTable (file sources are not ported yet)
+    path: Any  # a file path or a ResidentTable
+    # file sources: the device the scan and the query run on (a resident
+    # source runs on its table's device)
+    device: Any = "cuda"
     _columns: Optional[List[str]] = None
+    # resident sources: padding mask over the tiled table (True = real row)
+    _base_mask: Optional[torch.Tensor] = None
     _filter: Optional[Expr] = None
     _keys: List[str] = field(default_factory=list)
     _aggs: Dict[str, Tuple[str, Any]] = field(default_factory=dict)
@@ -46,7 +67,7 @@ class Query:
     _order: List = field(default_factory=list)
     _limit: Optional[int] = None
     _distinct: bool = False
-    _join: Optional[Tuple] = None
+    _join: Optional[Tuple] = None  # (build Query, (probe_col, build_col), max_fanout)
 
     def select(self, *columns: str) -> "Query":
         self._columns = list(columns)
@@ -66,6 +87,11 @@ class Query:
         return self
 
     def join(self, other, on: Tuple[str, str], max_fanout: int = 1) -> "Query":
+        """Inner equi-join against another file, resident table or query
+        (the build side).  ``on`` = (probe_column, build_column).
+        ``max_fanout`` bounds duplicate build keys; a longer run grows it
+        and re-runs.  Filters and aggregates after the join see both
+        sides' columns; a filter on the build query masks build rows."""
         self._join = (other if isinstance(other, Query) else Query(other), tuple(on), max_fanout)
         return self
 
@@ -86,29 +112,96 @@ class Query:
 
     # -- execution ------------------------------------------------------
 
+    def scan(self, device=None) -> DeviceTable:
+        """The source as a DeviceTable: a resident table's decoded tiled
+        columns (its padding mask in ``_base_mask``), or a file scanned on
+        ``device`` (default: the query's).  Only referenced columns are
+        decoded."""
+        cols = self._referenced_columns()
+        if isinstance(self.path, ResidentTable):
+            # tiled order is a pure permutation: every order-invariant
+            # stage sees exactly the natural-order table
+            table, self._base_mask = self.path.as_device_table(cols)
+            return table
+        if not isinstance(self.path, str) or any(c in self.path for c in "*?["):
+            raise NotYetImplementedError(f"Query over {self.path!r} ({_DATASETS})")
+        if self._filter is not None:
+            refuse_pruning(self.path)
+        return scan_file(self.path, as_device(device or self.device), columns=cols)
+
     def run(self):
-        """Grouped: a dict of host numpy arrays (``n_groups``, ``keys``,
-        ``key_<col>``, ``dict_<col>`` for string keys, one entry per
-        aggregate).  Ungrouped: ``{name: scalar}``."""
-        if not isinstance(self.path, ResidentTable):
-            raise NotYetImplementedError(f"Query over {type(self.path).__name__} ({_GENERAL})")
-        if self._join is not None or self._distinct or not self._aggs:
-            raise NotYetImplementedError(f"join / distinct / projection queries ({_GENERAL})")
-        res = self._try_run_resident_fused()
-        if res is None:
-            raise NotYetImplementedError(
-                f"grouping by non-dictionary keys, over {_MAX_FUSED_GROUPS} "
-                f"composite groups, or aggregates outside {_FUSED_FNS} ({_GENERAL})"
-            )
-        if self._keys:
+        """Grouped: a dict (``n_groups``, ``keys``, ``key_<col>``,
+        ``dict_<col>`` for string keys, one entry per aggregate, and
+        ``taken_valid`` after ORDER BY / LIMIT).  Ungrouped aggregates:
+        ``{name: scalar}``.  Projections: ``(DeviceTable, mask)``."""
+        if (
+            isinstance(self.path, ResidentTable)
+            and self._join is None
+            and not self._distinct
+            and self._aggs
+        ):
+            # keys=[] runs as a single dense group (cap 1)
+            fused = self._try_run_resident_fused()
+            if fused is not None:
+                if self._keys:
+                    return fused
+                if int(fused["n_groups"]) == 1:
+                    return {name: fused[name][0] for name in self._aggs}
+                # zero surviving rows: the general path defines the
+                # empty-aggregate semantics
+        table = self.scan()
+        base_mask = self._base_mask
+        row_order_sensitive = (
+            not self._keys and not self._aggs and not self._distinct and self._join is None
+        )
+        if base_mask is not None and row_order_sensitive:
+            # projection / limit / order-by over a resident source: natural
+            # row order up front (the packing keeps it), the padding slots
+            # cut from the tail
+            table = head_table(table, self.path.num_rows)
+            base_mask = None
+        join_valid = None
+        if self._join is not None:
+            # padding slots are excluded as a probe mask so they never match
+            table, join_valid = self._apply_join(table, probe_mask=base_mask)
+            base_mask = None  # folded into join_valid
+        mask = self._filter.mask(table) if self._filter is not None else None
+        if base_mask is not None:
+            mask = base_mask if mask is None else (mask & base_mask)
+        if join_valid is not None:
+            mask = join_valid if mask is None else (mask & join_valid)
+        keys, aggs = self._keys, self._aggs
+        if self._distinct and not keys:
+            cols = self._columns or list(table.columns.keys())
+            keys = cols
+            aggs = aggs or {"count": ("count", cols[0])}
+        if keys:
+            res = hash_aggregate(table, keys=keys, aggs=aggs, num_groups=self._num_groups, mask=mask)
+            # key codes are meaningful against the dictionary of this scan
+            for k in keys:
+                d = table[k].dictionary
+                if d is not None:
+                    res[f"dict_{k}"] = d
+            if self._order or self._limit is not None:
+                res = _order_grouped(res, self._order, self._limit, table)
             return res
-        # one dense group; with no surviving row the empty-aggregate
-        # semantics apply (sum/count 0, min/max the identity, avg NaN)
-        empty = int(res["n_groups"]) == 0
-        return {
-            name: (np.float64("nan") if empty and fn in ("avg", "mean") else res[name][0])
-            for name, (fn, _c) in self._aggs.items()
-        }
+        if aggs:
+            def _vals(c):
+                return c.evaluate(table) if isinstance(c, Expr) else table[c].values
+
+            return {name: scalar_aggregate(_vals(c), mask, fn) for name, (fn, c) in aggs.items()}
+        if self._order:
+            idx, taken_valid = sort_table(table, self._order, mask, self._limit)
+            return take_table(self._projected(table), idx), taken_valid
+        if self._limit is not None:
+            out_t = self._projected(table)
+            if mask is not None:
+                # the first _limit surviving rows, compacted: no padded
+                # duplicate rows leak out
+                idx = torch.nonzero(mask).reshape(-1)[: self._limit]
+                return take_table(out_t, idx), None
+            return head_table(out_t, self._limit), None
+        return self._projected(table), mask
 
     def _try_run_resident_fused(self):
         """Grouped aggregate over a resident source, or None when the query
@@ -226,11 +319,87 @@ class Query:
             res = _order_grouped_host(res, self._order, self._limit)
         return res
 
+    def _projected(self, table: DeviceTable) -> DeviceTable:
+        """Restrict to the select() projection (the scan may carry columns
+        referenced only by the filter or ORDER BY)."""
+        if self._columns is None:
+            return table
+        return DeviceTable({n: table.columns[n] for n in self._columns}, table.num_rows)
+
+    def _apply_join(self, table: DeviceTable, probe_mask=None):
+        """Materialize the inner join: gather both sides by the match
+        indices; returns (joined table, row-valid mask)."""
+        other_q, on, max_fanout = self._join
+        build = other_q.scan(device=_table_device(table))
+        if other_q._base_mask is not None:
+            # resident build side: padding slots must never match
+            build = _with_key_validity(build, on[1], other_q._base_mask)
+        if other_q._filter is not None:
+            # build-side filter: rows failing it must never match
+            build = _with_key_validity(build, on[1], other_q._filter.mask(build))
+        pi, bi, valid = hash_join(table, build, on=on, max_fanout=max_fanout, probe_mask=probe_mask)
+
+        def _gather(c, idx):
+            return DeviceColumn(
+                c.name, c.dtype, c.values[idx],
+                None if c.validity is None else c.validity[idx], c.dictionary,
+            )
+
+        cols = {name: _gather(c, pi) for name, c in table.columns.items()}
+        for name, c in build.columns.items():
+            if name in cols:
+                raise OutOfSpecError(f"join: column name {name!r} exists on both sides")
+            cols[name] = _gather(c, bi)
+        return DeviceTable(cols, int(pi.shape[0])), valid
+
+    def _referenced_columns(self) -> Optional[List[str]]:
+        if self._join is not None:
+            # probe-side refs cannot be split from build-side refs without a
+            # catalog; scan everything (the build side scans via its Query)
+            return None
+        filter_refs = list(self._filter.refs) if self._filter is not None else []
+        if self._filter is not None and not filter_refs:
+            # an Expr built outside the tracked constructors: scan everything
+            # rather than risk a missing column
+            return None
+        if self._columns is not None:
+            cols = list(self._columns)
+            for name in filter_refs:
+                if name not in cols:
+                    cols.append(name)
+            if self._order and not self._keys:
+                for item in self._order:
+                    name = item[0] if isinstance(item, tuple) else item
+                    if name not in cols:
+                        cols.append(name)
+            return cols
+        if not self._keys and not self._aggs:
+            return None
+        cols = set(self._keys) | set(filter_refs)
+        for _fn, c in self._aggs.values():
+            if isinstance(c, Expr):
+                cols.update(c.refs)
+            else:
+                cols.add(c)
+        return sorted(cols)
+
+
+def _table_device(table: DeviceTable) -> torch.device:
+    return next(iter(table.columns.values())).values.device
+
+
+def _with_key_validity(table: DeviceTable, name: str, valid: torch.Tensor) -> DeviceTable:
+    """The table with ``valid`` folded into column ``name``'s validity:
+    rows it clears never match as build rows (null keys cannot match)."""
+    c = table.columns[name]
+    v = valid if c.validity is None else (c.validity & valid)
+    return DeviceTable({**table.columns, name: dataclasses.replace(c, validity=v)}, table.num_rows)
+
 
 def _order_grouped_host(res: Dict, order: List, limit: Optional[int]):
-    """ORDER BY / LIMIT over a grouped result (host numpy: group counts are
-    tiny).  String keys sort by their codes: resident dictionaries are
-    sorted."""
+    """ORDER BY / LIMIT over a fused grouped result (host numpy: group
+    counts are tiny).  String keys sort by their codes: resident
+    dictionaries are sorted."""
     n = int(res["n_groups"])
     idx = np.arange(n)
     if order:
@@ -259,4 +428,45 @@ def _order_grouped_host(res: Dict, order: List, limit: Optional[int]):
         arr = np.asarray(v)
         out[k] = arr[idx] if arr.ndim >= 1 and arr.shape[0] == n else v
     out["taken_valid"] = np.ones(len(idx), dtype=bool)
+    return out
+
+
+def _order_grouped(res: Dict, order: List, limit: Optional[int], table: Optional[DeviceTable] = None):
+    """Sort a grouped-aggregate result by output columns (+ LIMIT), on the
+    device.  Only the first ``n_groups`` slots are real groups; the rest
+    sort last.  ``key_<col>`` columns holding a string column's codes
+    order lexically (codes remap through the dictionary's rank)."""
+    keys = res["keys"]
+    cap = keys.shape[0]
+    valid = torch.arange(cap, device=keys.device) < res["n_groups"]
+
+    def _sort_col(name):
+        v = res[name]
+        if table is not None and name.startswith("key_"):
+            src = table.columns.get(name[4:])
+            if src is not None and src.dictionary is not None:
+                rank = torch.from_numpy(_dictionary_rank(src.dictionary)).to(v.device)
+                return rank[v.long().clamp(0, max(len(rank) - 1, 0))], False
+            if src is not None:
+                return v, unsigned_view(src)
+        # the u64 labels order unsigned
+        return v, name == "keys"
+
+    if order:
+        names, desc = _by_items(order)
+        cols = [_sort_col(n) for n in names]
+        idx = sort_indices(
+            tuple(c for c, _u in cols), desc, valid, limit, tuple(u for _c, u in cols)
+        )
+    else:
+        idx = torch.arange(cap if limit is None else min(limit, cap), device=keys.device)
+    out = {}
+    for k, v in res.items():
+        if k == "n_groups":
+            out[k] = torch.clamp(v, max=idx.shape[0])
+        elif not k.startswith("dict_") and isinstance(v, torch.Tensor) and v.dim() >= 1 and v.shape[0] == cap:
+            out[k] = v[idx]
+        else:
+            out[k] = v
+    out["taken_valid"] = valid[idx]
     return out

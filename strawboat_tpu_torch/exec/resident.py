@@ -32,13 +32,13 @@ import numpy as np
 import torch
 
 from .. import native
-from ..device import U32_MASK, as_device, shr_u32, u64_to_i64, words_u32
+from ..device import U32_MASK, as_device, shr_u32, u64_to_i64, widen_i64, words_u32
 from ..errors import NotYetImplementedError, OutOfSpecError
 from ..kernels.bitunpack import TILE3D, bitunpack_tiled, transpose_words_host_tiled
 from ..kernels.decode import dict_gather_device
 from ..util.bits import pack_blocks
 from .aggregate import segment_reduce
-from .scan import DeviceColumn, DeviceTable, to_pa_array
+from .scan import DeviceColumn, DeviceTable, to_pa_array, unsigned_view
 
 _MAX_DICT = 1 << 20  # dictionary entries beyond this: plain planes instead
 _DEVICE_PACK_MIN = 1 << 16  # from this many rows the pack runs on the device
@@ -150,6 +150,12 @@ class ResidentTable:
                 < self.num_rows
             )
         return self._mask
+
+    def natural_slot_index(self) -> torch.Tensor:
+        """Slot of natural row i: the identity under the pre-permuted
+        packing (kept for callers that need an index array; int32, as the
+        reference's)."""
+        return torch.arange(self.num_rows, dtype=torch.int32, device=self.device)
 
     @classmethod
     def from_reference(cls, rt_ref, device) -> "ResidentTable":
@@ -470,6 +476,16 @@ def _pack_plane_device(vals: torch.Tensor, bits: int, tile: int) -> torch.Tensor
             hi = shr_u32(v_t, 32 - sh)
             words[w0 + 1] = hi if words[w0 + 1] is None else (words[w0 + 1] | hi)
     return torch.stack(words, dim=1)
+
+
+def _split_planes_device(lo: torch.Tensor, hi: torch.Tensor, total_bits: int, tile: int):
+    """Device u32 lo/hi words (int32 bits) → 1–2 packed planes (LSB first)."""
+    if total_bits <= 32:
+        return ((_pack_plane_device(lo, total_bits, tile), max(total_bits, 1)),), (0,)
+    return (
+        (_pack_plane_device(lo, 32, tile), 32),
+        (_pack_plane_device(hi, total_bits - 32, tile), total_bits - 32),
+    ), (0, 32)
 
 
 def _split_planes(u: np.ndarray, total_bits: int, tile: int, device):
@@ -854,6 +870,119 @@ def _encode_numpy_column(name: str, arr, tile: int, device) -> ResidentColumn:
     return col
 
 
+# ---------------------------------------------------------------------------
+# Device-direct encode: a DeviceTable (a scan or join result on the device)
+# → planes, without a host round trip (reference resident.py:1276-1478).
+# Integers always take offset-stripped planes (no dictionary), f32 its bit
+# pattern, string codes remap onto the sorted dictionary.
+
+
+def _encode_int_device(c: DeviceColumn, tile: int, rows: int) -> ResidentColumn:
+    v = widen_i64(c.values[:rows], unsigned_view(c))
+    validity = None if c.validity is None else c.validity[:rows]
+    vmin = vmax = 0
+    if rows:
+        if validity is None:
+            vmin, vmax = int(v.min()), int(v.max())
+        else:
+            big = torch.iinfo(torch.int64).max
+            vmin = int(torch.where(validity, v, big).min())
+            vmax = int(torch.where(validity, v, -big - 1).max())
+            if vmin > vmax:  # all null
+                vmin = vmax = 0
+    span_bits = _bits_of(vmax - vmin)
+    offset = 0 if vmin >= 0 and vmax < (1 << 31) else vmin
+    plain_bits = span_bits if offset else _bits_of(vmax)
+    if validity is not None:
+        v = torch.where(validity, v, vmin)
+    u = v - offset  # the u64 payload, int64 wrap
+    lo = (u & U32_MASK).to(torch.int32)
+    hi = ((u >> 32) & U32_MASK).to(torch.int32)
+    planes, shifts = _split_planes_device(lo, hi, plain_bits, tile)
+    return ResidentColumn(
+        c.name, planes, shifts, rows, "int",
+        wide=_is_wide(c.dtype),
+        offset=int(np.int64(offset).astype(np.uint64)),
+        arrow_type=c.dtype,
+    )
+
+
+def _encode_f32_device(c: DeviceColumn, tile: int, rows: int) -> ResidentColumn:
+    u = c.values[:rows].view(torch.int32)
+    if c.validity is not None:
+        u = torch.where(c.validity[:rows], u, 0)
+    planes, shifts = _split_planes_device(u, u, 32, tile)
+    return ResidentColumn(c.name, planes, shifts, rows, "f32", arrow_type=c.dtype)
+
+
+def _encode_dictcol_device(c: DeviceColumn, tile: int, rows: int) -> ResidentColumn:
+    """String/binary codes + host dictionary → packed codes over the sorted
+    dictionary (one device gather through the rank table)."""
+    d = c.dictionary
+    if len(d) > _MAX_DICT:
+        raise NotYetImplementedError(f"resident encode: column {c.name!r} dictionary too large")
+    order = np.argsort(d, kind="stable")
+    rank = np.empty(max(len(d), 1), dtype=np.int32)
+    rank[order] = np.arange(len(order), dtype=np.int32)
+    codes = c.values[:rows].to(torch.int64)
+    if c.validity is not None:
+        codes = torch.where(c.validity[:rows], codes, 0)
+    rank_t = torch.from_numpy(rank).to(codes.device)
+    new_codes = dict_gather_device(codes.clamp(0, max(len(d) - 1, 0)), rank_t)
+    code_bits = _bits_of(max(len(d) - 1, 1))
+    planes, shifts = _split_planes_device(new_codes, new_codes, code_bits, tile)
+    return ResidentColumn(
+        c.name, planes, shifts, rows, "str",
+        dictionary_host=np.asarray(d[order], dtype=object),
+        arrow_type=c.dtype,
+    )
+
+
+def _encode_device_column(c: DeviceColumn, tile: int, rows: int) -> ResidentColumn:
+    vdt = c.values.dtype
+    if c.dictionary is not None:
+        col = _encode_dictcol_device(c, tile, rows)
+    elif vdt == torch.bool:
+        v = c.values[:rows]
+        if c.validity is not None:
+            v = v & c.validity[:rows]
+        planes = ((_pack_plane_device(v.to(torch.int32), 1, tile), 1),)
+        col = ResidentColumn(c.name, planes, (0,), rows, "bool", arrow_type=c.dtype)
+    elif vdt == torch.float64:
+        # the reference encodes f64 on the host (its exact bytes live there
+        # on the TPU); the port's scan makes no f64 column yet
+        raise NotYetImplementedError(
+            f"device-direct resident encode of f64 column {c.name!r} "
+            "(ROADMAP.md 'Modules to port': scan_file, item 5.1, floats)"
+        )
+    elif vdt == torch.float32:
+        col = _encode_f32_device(c, tile, rows)
+    elif not vdt.is_floating_point and not vdt.is_complex:
+        col = _encode_int_device(c, tile, rows)
+    else:
+        raise NotYetImplementedError(
+            f"device-direct resident encode of column {c.name!r} dtype {vdt}/{c.dtype}"
+        )
+    if c.validity is not None:
+        col.validity_plane = _pack_plane_device(c.validity[:rows].to(torch.int32), 1, tile)
+    return col
+
+
+def _make_resident_device(dt: DeviceTable, tile: int, device: torch.device) -> ResidentTable:
+    rows = int(dt.num_rows)
+    out: Dict[str, ResidentColumn] = {}
+    for name, c in dt.columns.items():
+        if c.values.device != device:
+            c = DeviceColumn(
+                c.name, c.dtype, c.values.to(device),
+                None if c.validity is None else c.validity.to(device), c.dictionary,
+            )
+        out[name] = _encode_device_column(c, tile, rows)
+    if not out:
+        raise OutOfSpecError("no loadable columns")
+    return ResidentTable(out, rows, tile)
+
+
 def _encode_all(encode, items):
     """Encode columns in threads (numpy and arrow release the GIL in their
     hot loops), like the reference loader."""
@@ -864,13 +993,15 @@ def _encode_all(encode, items):
 
 
 def make_resident(table, device, tile: Optional[int] = None) -> ResidentTable:
-    """Build a resident table on ``device`` from a ``pa.Table`` or from a
-    mapping ``{name: numpy column}``.
+    """Build a resident table on ``device`` from a ``pa.Table``, from a
+    mapping ``{name: numpy column}``, or from a ``DeviceTable``.
 
     numpy columns encode as the arrow type the reference would see: int64 →
     int64 (decoded wide), int32 → int32, unicode → string, bytes → binary,
     float, bool, datetime64[D] → date32; a ``np.ma.MaskedArray`` carries
-    nulls."""
+    nulls.  A ``DeviceTable`` (a scan or join result) encodes on the device
+    itself, as the reference's device-direct encoder does: integers take
+    offset-stripped planes and never a dictionary."""
     dev = as_device(device)
     tile = tile or TILE3D
     if isinstance(table, Mapping):
@@ -879,9 +1010,7 @@ def make_resident(table, device, tile: Optional[int] = None) -> ResidentTable:
             lambda n: _encode_numpy_column(n, table[n], tile, dev), names
         )
     elif isinstance(table, DeviceTable):
-        raise NotYetImplementedError(
-            "make_resident(DeviceTable) (ROADMAP.md 'Modules to port')"
-        )
+        return _make_resident_device(table, tile, dev)
     else:
         import pyarrow as pa
 
@@ -903,3 +1032,39 @@ def make_resident(table, device, tile: Optional[int] = None) -> ResidentTable:
             raise OutOfSpecError(f"resident columns disagree on row grid: {name!r}")
         out[name] = col
     return ResidentTable(out, first.length, tile, field_order=names)
+
+
+def load_resident(
+    path, device, columns: Optional[Sequence[str]] = None, tile: Optional[int] = None
+) -> ResidentTable:
+    """Load one file's columns as a resident table on ``device``.
+
+    The file scans onto ``device`` (``scan_file``), the columns come back
+    to the host and take the host encoder (``make_resident`` of numpy
+    columns), so the planes equal the reference's ``load_resident`` word
+    for word: the host encoder takes the dictionary decisions the
+    device-direct one does not.  ``columns`` picks and orders columns;
+    names the file lacks are skipped.  Globs and lists of files wait for
+    the dataset layer."""
+    from .scan import host_values, scan_file
+
+    if not isinstance(path, str) or any(ch in path for ch in "*?["):
+        raise NotYetImplementedError(
+            "load_resident over a glob or a list of files "
+            "(ROADMAP.md 'Modules to port': datasets)"
+        )
+    dev = as_device(device)
+    want = list(columns) if columns else None
+    dt = scan_file(path, dev, columns=want)
+    names = [n for n in want if n in dt.columns] if want is not None else list(dt.columns)
+    cols = {}
+    for n in names:
+        c = dt[n]
+        vals = host_values(c)
+        if c.dtype == "date32":
+            vals = vals.astype("datetime64[D]")
+        if c.validity is not None:
+            vals = np.ma.MaskedArray(vals, mask=~c.validity.cpu().numpy())
+        cols[n] = vals
+    del dt
+    return make_resident(cols, dev, tile=tile)

@@ -27,6 +27,8 @@ the port's ``native`` library) decode on the host and upload once per run.
 
 from __future__ import annotations
 
+import os
+import struct
 from collections import defaultdict
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence
@@ -57,6 +59,8 @@ from ..read.reader import infer_schema, read_meta
 from ..schema import FLAT_INT_TYPES, Field
 
 _SCAN_TODO = "ROADMAP.md 'Modules to port': scan_file, what is left"
+_PRUNING = "ROADMAP.md 'Modules to port': scan_file, item 5.6, zone-map pruning"
+ZONE_MAGIC = 0x314D4E5A  # b"ZNM1" little-endian (reference exec/pruning.py)
 
 
 @dataclass
@@ -142,6 +146,12 @@ def to_pa_array(vals: np.ndarray, null_mask, dtype, dictionary=None):
             storage = pa.int32() if t.bit_width == 32 else pa.int64()
             arr = arr.cast(storage).cast(t)
     return arr
+
+
+def unsigned_view(c: DeviceColumn) -> bool:
+    """True when ``c.values`` holds a uint16/32/64 column in the signed
+    torch type of its width (uint8 stays ``torch.uint8``)."""
+    return str(c.dtype) in ("uint16", "uint32", "uint64")
 
 
 def host_values(c: DeviceColumn) -> np.ndarray:
@@ -572,12 +582,14 @@ def scan_file(
     ``device`` (``"cuda"``, ``"cpu"``, a ``torch.device``).
 
     ``columns`` picks columns by name (default: all; any other type then
-    raises ``NotYetImplementedError``).  Zone-map pruning
-    (``predicates``), floats, strings, decimals, booleans and nested
-    columns are not ported yet."""
+    raises ``NotYetImplementedError``).  ``predicates`` only prune where
+    the file has a zone block, which the port cannot read yet: such a file
+    raises ``NotYetImplementedError`` rather than scan unpruned; a file
+    without one scans whole, as in the reference.  Floats, strings,
+    decimals, booleans and nested columns are not ported yet."""
     dev = as_device(device)
     if predicates:
-        raise NotYetImplementedError(f"zone-map pruning in scan_file ({_SCAN_TODO})")
+        refuse_pruning(path)
     out: Dict[str, DeviceColumn] = {}
     num_rows = 0
     for file_bytes, meta, field in _file_columns(path, columns):
@@ -585,6 +597,32 @@ def scan_file(
         out[field.name] = col
         num_rows = len(col)
     return DeviceTable(out, num_rows)
+
+
+def has_zone_block(path: str) -> bool:
+    """Whether the file carries an in-band zone block: the locate step of
+    the reference's ``read_zones`` (``exec/pruning.py``), without parsing
+    the payload.  The block ends ``[u32 payload_len][u32 ZONE_MAGIC]``
+    right before the schema bytes."""
+    size = os.path.getsize(path)
+    if size < 32:
+        return False
+    with open(path, "rb") as f:
+        f.seek(size - 16)
+        schema_size, meta_size = struct.unpack("<II", f.read(8))
+        schema_start = size - 16 - meta_size - schema_size
+        if schema_start < 16:
+            return False
+        f.seek(schema_start - 8)
+        plen, magic = struct.unpack("<II", f.read(8))
+    return magic == ZONE_MAGIC and plen <= schema_start - 16
+
+
+def refuse_pruning(path: str) -> None:
+    """Raise where the reference would prune pages: a file with a zone
+    block, scanned under predicates."""
+    if has_zone_block(path):
+        raise NotYetImplementedError(f"{path}: a file with zone maps, under predicates ({_PRUNING})")
 
 
 def _file_columns(path: str, columns: Optional[Sequence[str]]):

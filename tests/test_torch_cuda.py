@@ -110,3 +110,40 @@ def test_scan_on_card(cuda, tmp_path, monkeypatch, flags):
         assert table[k].values.device.type == "cuda"
         np.testing.assert_array_equal(host_values(table[k]), cols[k], err_msg=k)
     assert int(tpch.q6(table)) == tpch.q6_numpy_reference(cols)
+
+
+def test_q3_general_path_on_card(cuda, tmp_path, monkeypatch):
+    """The general path at a small size on the card: the Q3-shaped join
+    through the Query API and through ``q3_like`` over scans (K3), a
+    group-by on a non-dictionary key that grows its capacity, and
+    ``load_resident`` + Q6 (K1)."""
+    from strawboat_tpu_torch.benchsuite import tpch
+    from strawboat_tpu_torch.exec import Query, col, load_resident, scan_file
+
+    monkeypatch.setenv("STRAWBOAT_DICT_COMPRESSION", "1")
+    monkeypatch.setenv("STRAWBOAT_BITPACK_COMPRESSION", "1")
+    cols = tpch.generate_lineitem(1.0, rows=200_000)
+    orders = tpch.generate_orders(1.0, rows=50_000)
+    lp, op = str(tmp_path / "li.str"), str(tmp_path / "o.str")
+    tpch.write_lineitem(lp, cols)
+    tpch.write_orders(op, orders)
+    want = tpch.q3_numpy_reference(cols, orders)
+    before = bu.bitunpack_natural.launches
+    res = tpch.q3_query(lp, op, cuda)
+    assert res["revenue"].device.type == "cuda"
+    assert bu.bitunpack_natural.launches > before
+    assert tpch.q3_rows(res["key_o_orderpriority"], res["n_groups"], res["revenue"]) == want
+    got = tpch.q3_like(scan_file(lp, cuda), scan_file(op, cuda))
+    assert tpch.q3_rows(*got) == want
+    m = cols["l_shipdate"] <= 2467
+    g = Query(lp, device=cuda).filter(col("l_shipdate") <= 2467).group_by(
+        "l_suppkey", num_groups=1024).agg(n=("count", "l_tax"), mx=("max", "l_quantity")).run()
+    n = int(g["n_groups"])
+    assert n == len(np.unique(cols["l_suppkey"][m])) and g["keys"].shape[0] == 16384
+    keys = g["key_l_suppkey"][:n].cpu().numpy()
+    np.testing.assert_array_equal(g["n"][:n].cpu().numpy(),
+                                  np.bincount(cols["l_suppkey"][m], minlength=10000)[keys])
+    before = bu.bitunpack_tiled.launches
+    rt = load_resident(lp, cuda)
+    assert int(tpch.q6(rt)) == tpch.q6_numpy_reference(cols)
+    assert bu.bitunpack_tiled.launches > before

@@ -28,7 +28,20 @@ PORT = pathlib.Path(__file__).resolve().parents[1] / "strawboat_tpu_torch"
 
 
 # ---------------------------------------------------------------------------
-# constants, meta
+# errors, constants, meta
+
+
+@pytest.mark.parametrize("what,capacity,required", [("aggregate groups", 4, 10),
+                                                    ("join fan-out", 1, 7)])
+def test_capacity_error_matches_reference(what, capacity, required):
+    from strawboat_tpu import errors as ref_errors
+    from strawboat_tpu_torch import errors
+
+    got = errors.CapacityError(what, capacity, required)
+    want = ref_errors.CapacityError(what, capacity, required)
+    assert isinstance(got, errors.StrawboatError)
+    assert str(got) == str(want)
+    assert (got.what, got.capacity, got.required) == (want.what, want.capacity, want.required)
 
 
 def test_constants_match_reference():

@@ -4,7 +4,9 @@ Runs in a subprocess: this test process already has JAX loaded (conftest).
 The child imports every module of the port, runs Q6 and Q1 over a small
 resident table built from numpy columns on the CPU, writes a small file
 with the port's writer and scans it back (dictionary and bit-packed
-pages), and checks ``sys.modules`` afterwards: no ``jax``, no ``pyarrow``,
+pages), runs a grouped ``Query`` over the file, the Q3-shaped join of it
+with an orders file and ``load_resident`` of it, and checks
+``sys.modules`` afterwards: no ``jax``, no ``pyarrow``,
 no ``strawboat_tpu`` or ``strawboat_tpu.*``.  A source check holds every
 port file and ``chip_smoke.py`` to the same.
 """
@@ -30,7 +32,7 @@ import numpy as np
 for m in {modules!r}:
     importlib.import_module(m)
 from strawboat_tpu_torch.benchsuite import tpch
-from strawboat_tpu_torch.exec import make_resident, scan_file
+from strawboat_tpu_torch.exec import Query, col, load_resident, make_resident, scan_file
 from strawboat_tpu_torch.exec.scan import host_values
 cols = tpch.generate_lineitem(1.0, rows=5000)
 rt = make_resident({{k: cols[k] for k in tpch.Q1_Q6_COLUMNS}}, "cpu", tile=512)
@@ -42,9 +44,20 @@ with tempfile.TemporaryDirectory() as d:
     path = os.path.join(d, "lineitem.str")
     tpch.write_lineitem(path, cols, max_page_size=1024)
     table = scan_file(path, "cpu")
-for k in tpch.INT_COLUMNS:
-    assert np.array_equal(host_values(table[k]), cols[k]), k
-assert int(tpch.q6(table)) == tpch.q6_numpy_reference(cols)
+    for k in tpch.INT_COLUMNS:
+        assert np.array_equal(host_values(table[k]), cols[k]), k
+    assert int(tpch.q6(table)) == tpch.q6_numpy_reference(cols)
+    res = (Query(path, device="cpu").filter(col("l_shipdate") <= 2467)
+           .group_by("l_suppkey", num_groups=8).agg(n=("count", "l_tax")).run())
+    assert int(res["n"].sum()) == int((cols["l_shipdate"] <= 2467).sum())
+    orders = tpch.generate_orders(1.0, rows=1250)
+    opath = os.path.join(d, "orders.str")
+    tpch.write_orders(opath, orders, max_page_size=1024)
+    got = tpch.q3_query(path, opath, "cpu")
+    assert tpch.q3_rows(got["key_o_orderpriority"], got["n_groups"], got["revenue"]) == \
+        tpch.q3_numpy_reference(cols, orders)
+    rt2 = load_resident(path, "cpu", tile=512)
+    assert int(tpch.q6(rt2)) == tpch.q6_numpy_reference(cols)
 ref = sorted(m for m in sys.modules if m == "strawboat_tpu" or m.startswith("strawboat_tpu."))
 print(json.dumps({{"jax": "jax" in sys.modules, "pyarrow": "pyarrow" in sys.modules,
                   "strawboat_tpu": ref}}))

@@ -188,7 +188,9 @@ def _assert_same_result(got, want):
             assert list(got[k]) == w.to_pylist(), k
             continue
         w = np.asarray(w)
-        g = np.asarray(got[k])
+        g = got[k].numpy() if isinstance(got[k], torch.Tensor) else np.asarray(got[k])
+        if w.dtype.kind == "u" and g.dtype.kind == "i" and g.dtype.itemsize == w.dtype.itemsize:
+            g = g.view(w.dtype)  # the general path's u64 labels travel as int64
         assert g.dtype == w.dtype, (k, g.dtype, w.dtype)
         if w.dtype.kind == "f":
             np.testing.assert_allclose(g, w, rtol=1e-12, err_msg=k)
@@ -258,17 +260,40 @@ def test_dense_group_sum_matches_reference():
 
 
 def test_unported_query_shapes_raise():
-    rt, _ = _both(_small_table(seed=5, n=600))
-    # 20000 distinct ints over an 18-bit span: plain planes, no dictionary
-    plain = make_resident({"k": np.arange(20_000) * 7}, "cpu", tile=TILE)
-    assert not plain["k"].is_dict
+    """What the port still lacks raises ``NotYetImplementedError`` naming
+    ROADMAP.md: Query over globs and lists of files, nested resident
+    columns, device-direct f64 encode.  The shapes that raised before the
+    general path (non-dictionary keys, joins, distinct, projections) now
+    run it and match the JAX package (``tests/test_torch_general.py``)."""
+    from strawboat_tpu.exec.expr import col as ref_col
+    from strawboat_tpu.exec.query import Query as RefQuery
+    from strawboat_tpu.exec.resident import make_resident as ref_make
+
+    rt, rt_ref = _both(_small_table(seed=5, n=600))
     for q in (
-        Query(plain).group_by("k").agg(s=("sum", "k")),  # not a dictionary key
-        Query(rt).group_by("g").agg(s=("median", "v")),
-        Query(rt).filter(col("v") > 0),  # projection
-        Query(rt).distinct(),
-        Query(rt).join(Query(rt), on=("g", "g")).agg(s=("sum", "v")),
-        Query("lineitem.str").agg(s=("sum", "v")),
+        Query("lineitem_*.str", device="cpu").agg(s=("sum", "v")),
+        Query(["a.str", "b.str"], device="cpu").agg(s=("sum", "v")),
     ):
         with pytest.raises(NotYetImplementedError, match="ROADMAP"):
             q.run()
+    with pytest.raises(NotYetImplementedError, match="ROADMAP"):
+        make_resident(pa.table({"l": pa.array([[1], [2, 3]])}), "cpu", tile=TILE)
+    with pytest.raises(NotYetImplementedError, match="ROADMAP"):
+        make_resident(rt.as_device_table(["f"])[0], "cpu", tile=TILE)
+    with pytest.raises(ValueError, match="median"):
+        Query(rt).group_by("g").agg(s=("median", "v")).run()
+    # 20000 distinct ints over an 18-bit span: plain planes, no dictionary
+    k = np.arange(20_000) * 7
+    plain = make_resident({"k": k}, "cpu", tile=TILE)
+    plain_ref = ref_make(pa.table({"k": k}), tile=TILE)
+    assert not plain["k"].is_dict
+    got = Query(plain).group_by("k", num_groups=32768).agg(s=("sum", "k")).run()
+    want = RefQuery(plain_ref).group_by("k", num_groups=32768).agg(s=("sum", "k")).run()
+    _assert_same_result(got, want)
+    got, mask = Query(rt).filter(col("v") > 0).run()
+    want, wmask = RefQuery(rt_ref).filter(ref_col("v") > 0).run()
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(wmask))
+    for name in ("g", "v", "s"):
+        np.testing.assert_array_equal(got[name].values.numpy(), np.asarray(want[name].values))
+    _assert_same_result(Query(rt).distinct(num_groups=2048).run(),
+                        RefQuery(rt_ref).distinct(num_groups=2048).run())
