@@ -46,9 +46,20 @@ the general path (K1's and K3's launches are counted over 12):
    dict file (planes == ``make_resident`` of the numpy columns) and
    ``make_resident(scan_file(bitpack file))``, each with Q6 == numpy;
 
+the whole lineitem file (K1's and K3's launches are counted over 13):
+
+13. lineitem_full — the ten lineitem columns (three utf8) through
+   ``tpch.write_lineitem`` under the ``dict`` flags with zone maps;
+   ``scan_file`` of the file (every column, strings as ``dictionary[codes]``,
+   equal to the generated one; K3 launches on the string index pages
+   counted alone); Q6 over ``scan_file(predicates=q6_pruning_predicates())``
+   == numpy, with the pages kept and the pruned and unpruned times;
+   ``tpch.q1_query`` over the file == numpy; ``load_resident`` of the ten
+   columns with the fused Q1 and Q6 == numpy;
+
 and last:
 
-13. k2_k0  — K2 and K0 bit-exact against their plain versions (b = 1..32),
+14. k2_k0  — K2 and K0 bit-exact against their plain versions (b = 1..32),
    then (their launches counted) l_shipdate's bit-packed pages decoded
    through K2's and K0's natural-order entry points == the generated column;
    each width group's lane count, times and bound are printed.
@@ -218,6 +229,18 @@ def phase_q6(rt, cols) -> None:
     emit("q6", revenue=got, equal_to_numpy=True, k1_launches=launched, warm_median_ms=ms)
 
 
+def _q1_check(what: str, got, want) -> None:
+    if list(got) != list(want):
+        raise AssertionError(f"{what}: groups {list(got)} != numpy {list(want)}")
+    for key, aggs in want.items():
+        for name, w in aggs.items():
+            g = got[key][name]
+            if name.startswith("avg_"):
+                np.testing.assert_allclose(g, w, rtol=1e-12, err_msg=f"{what} {key} {name}")
+            elif g != w:
+                raise AssertionError(f"{what} {key} {name}: {g} != numpy {w}")
+
+
 def phase_q1(rt, cols) -> None:
     from strawboat_tpu_torch.benchsuite import tpch
     from strawboat_tpu_torch.kernels import bitunpack as bu
@@ -226,16 +249,7 @@ def phase_q1(rt, cols) -> None:
     res = tpch.q1(rt)
     launched = bu.bitunpack_tiled.launches - before
     got = tpch.q1_rows(res)
-    want = tpch.q1_numpy_reference(cols)
-    if list(got) != list(want):
-        raise AssertionError(f"Q1 groups {list(got)} != numpy {list(want)}")
-    for key, aggs in want.items():
-        for name, w in aggs.items():
-            g = got[key][name]
-            if name.startswith("avg_"):
-                np.testing.assert_allclose(g, w, rtol=1e-12, err_msg=f"Q1 {key} {name}")
-            elif g != w:
-                raise AssertionError(f"Q1 {key} {name}: {g} != numpy {w}")
+    _q1_check("Q1", got, tpch.q1_numpy_reference(cols))
     if launched <= 0:
         raise AssertionError("Q1 did not launch K1")
     ms = wall_ms(lambda: tpch.q1(rt))
@@ -310,7 +324,8 @@ def phase_write(cols, tmpdir) -> dict:
         path = os.path.join(tmpdir, f"lineitem_{name}.str")
         with forcing(flags):
             t0 = time.perf_counter()
-            metas = tpch.write_lineitem(path, cols, max_page_size=PAGE_ROWS)
+            metas = tpch.write_lineitem(path, cols, max_page_size=PAGE_ROWS,
+                                        columns=tpch.INT_COLUMNS)
             facts[name] = {"seconds": time.perf_counter() - t0, "bytes": os.path.getsize(path),
                            "pages_per_column": len(metas[0].pages), "flags": flags}
         paths[name] = path
@@ -618,20 +633,142 @@ def phase_general(paths, cols, rt, tmpdir, device):
     return o_path, scan_rt
 
 
+def _host_column(c) -> np.ndarray:
+    """A scanned column on the host: values, or a string column's
+    ``dictionary[codes]`` as unicode."""
+    from strawboat_tpu_torch.exec.scan import host_values
+
+    vals = host_values(c)
+    if c.dictionary is None:
+        return vals
+    return np.array([v.decode() for v in c.dictionary])[vals]
+
+
+def _no_flag_scan(cols, tmpdir, device) -> dict:
+    """The ten columns written under no flag (raw NONE pages: the string
+    rows encode on the host page by page), scanned whole twice: the first
+    scan checked against the generated columns, the second timed alone."""
+    from strawboat_tpu_torch.benchsuite import tpch
+    from strawboat_tpu_torch.exec import scan_file
+
+    path = os.path.join(tmpdir, "lineitem_full_no_flag.str")
+    with forcing({}):
+        t0 = time.perf_counter()
+        tpch.write_lineitem(path, cols, max_page_size=PAGE_ROWS, zone_maps=True)
+    out = {"write_s": time.perf_counter() - t0, "bytes": os.path.getsize(path)}
+    t0 = time.perf_counter()
+    table = scan_file(path, device)
+    torch.cuda.synchronize()
+    out["first_scan_s"] = time.perf_counter() - t0
+    for k in tpch.LINEITEM_COLUMNS:
+        if not np.array_equal(_host_column(table[k]), cols[k]):
+            raise AssertionError(f"scanned column {k} of the no-flag file != the generated column")
+    del table
+    t0 = time.perf_counter()
+    scan_file(path, device)
+    torch.cuda.synchronize()
+    out.update(equal_to_numpy=True, second_scan_s=time.perf_counter() - t0)
+    os.remove(path)
+    return out
+
+
+def phase_lineitem_full(cols, tmpdir, device) -> str:
+    """The whole lineitem file: the ten columns (three utf8) written under
+    the ``dict`` flags with zone maps, scanned whole, Q6 over a pruned
+    scan, Q1 over the file through ``Query``, ``load_resident`` with the
+    fused Q1 and Q6; every answer against numpy.  Then the same columns
+    under no flag, scanned whole (:func:`_no_flag_scan`).  Returns the
+    dict file's path, whose K3 groups the kernel line times."""
+    from strawboat_tpu_torch.benchsuite import tpch
+    from strawboat_tpu_torch.exec import load_resident, scan_file
+    from strawboat_tpu_torch.exec.scan import _open, page_keep_mask
+    from strawboat_tpu_torch.kernels import bitunpack as bu
+
+    torch.cuda.reset_peak_memory_stats()
+    path = os.path.join(tmpdir, "lineitem_full.str")
+    with forcing(FILES["dict"]):
+        t0 = time.perf_counter()
+        metas = tpch.write_lineitem(path, cols, max_page_size=PAGE_ROWS, zone_maps=True)
+    facts = {"write": {"seconds": time.perf_counter() - t0, "bytes": os.path.getsize(path),
+                       "columns": len(metas), "pages_per_column": len(metas[0].pages)}}
+
+    strings = ("l_returnflag", "l_linestatus", "l_shipmode")
+    before = bu.bitunpack_natural.launches
+    table = scan_file(path, device)
+    facts["scan"] = {"k3_launches": bu.bitunpack_natural.launches - before}
+    for k in tpch.LINEITEM_COLUMNS:
+        if not np.array_equal(_host_column(table[k]), cols[k]):
+            raise AssertionError(f"scanned column {k} of the full file != the generated column")
+    facts["scan"]["dictionaries"] = {k: [v.decode() for v in table[k].dictionary] for k in strings}
+    del table
+    before = bu.bitunpack_natural.launches
+    strings_only = scan_file(path, device, columns=strings)
+    torch.cuda.synchronize()
+    facts["scan"]["k3_launches_string_index_pages"] = bu.bitunpack_natural.launches - before
+    del strings_only
+    facts["scan"].update(equal_to_numpy=True, warm_median_ms=wall_ms(
+        lambda: scan_file(path, device), reps=SCAN_REPS))
+
+    q6_cols = ("l_shipdate", "l_discount", "l_quantity", "l_extendedprice")
+    preds = tpch.q6_pruning_predicates()
+    want_q6 = tpch.q6_numpy_reference(cols)
+    pruned = scan_file(path, device, columns=q6_cols, predicates=preds)
+    _check_equal("Q6 over the pruned scan", int(tpch.q6(pruned)), want_q6)
+    keep = page_keep_mask(path, _open(path)[1], preds)
+    facts["q6_pruned"] = {
+        "pages_kept": int(keep.sum()), "pages": len(keep), "rows_scanned": pruned.num_rows,
+        "revenue": want_q6, "equal_to_numpy": True,
+        "pruned_warm_median_ms": wall_ms(lambda: int(tpch.q6(scan_file(
+            path, device, columns=q6_cols, predicates=preds))), reps=SCAN_REPS),
+        "unpruned_warm_median_ms": wall_ms(lambda: int(tpch.q6(scan_file(
+            path, device, columns=q6_cols))), reps=SCAN_REPS),
+    }
+    del pruned
+
+    want_q1 = tpch.q1_numpy_reference(cols)
+    _q1_check("Q1 over the file", tpch.q1_rows(tpch.q1_query(path, device)), want_q1)
+    facts["q1_query"] = {"groups": len(want_q1), "equal_to_numpy": True,
+                         "warm_median_ms": wall_ms(lambda: tpch.q1_rows(tpch.q1_query(path, device)),
+                                                   reps=SCAN_REPS)}
+
+    t0 = time.perf_counter()
+    rt = load_resident(path, device)
+    torch.cuda.synchronize()
+    facts["load_resident"] = {"seconds": time.perf_counter() - t0, "plane_bytes": _plane_bytes(rt),
+                              "columns": len(rt.columns)}
+    _q1_check("fused Q1 over load_resident", tpch.q1_rows(tpch.q1(rt)), want_q1)
+    _check_equal("Q6 over load_resident", int(tpch.q6(rt)), want_q6)
+    facts["load_resident"].update(q1_equal_to_numpy=True, q6_equal_to_numpy=True)
+    del rt
+    facts["no_flag_file"] = _no_flag_scan(cols, tmpdir, device)
+    emit("lineitem_full", rows=SF10_ROWS, page_rows=PAGE_ROWS, flags=FILES["dict"], zone_maps=True,
+         **facts, max_memory_allocated=torch.cuda.max_memory_allocated(), nvidia_smi=nvidia_smi())
+    return path
+
+
 def k3_summary(paths, device) -> dict:
-    """K3 and plain times, and the bound, over every launch one scan of
-    each file in ``paths`` makes."""
+    """K3 held exactly against its plain version, then K3 and plain times
+    and the bound, over every launch one scan of each file in ``paths``
+    makes; the ``k3_groups`` line has them per file and per launch
+    (column, width, blocks)."""
     from strawboat_tpu_torch.exec.scan import k3_launch_groups
     from strawboat_tpu_torch.kernels import bitunpack as bu
 
-    ms = plain_ms = nbytes = 0.0
-    for path in paths.values():
-        for _col, (_codec, b), _pages, words in k3_launch_groups(path):
+    files = {}
+    for name, path in paths.items():
+        groups = []
+        for col, (_codec, b), _pages, words in k3_launch_groups(path):
             w = torch.from_numpy(words.view(np.int32)).to(device)
-            ms += event_ms(lambda: bu.bitunpack_natural(w, 0, b))
-            plain_ms += event_ms(lambda: bu.bitunpack_natural_plain(w, 0, b))
-            nbytes += k3_bytes(b, words.shape[0])
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms(nbytes)}
+            if not torch.equal(bu.bitunpack_natural(w, 0, b), bu.bitunpack_natural_plain(w, 0, b)):
+                raise AssertionError(f"K3 disagrees with plain over {name}/{col}: b={b}")
+            groups.append({"column": col, "b": b, "n_blocks": words.shape[0],
+                           "ms": event_ms(lambda: bu.bitunpack_natural(w, 0, b)),
+                           "plain_ms": event_ms(lambda: bu.bitunpack_natural_plain(w, 0, b)),
+                           "bound_ms": bound_ms(k3_bytes(b, words.shape[0]))})
+        files[name] = {k: sum(g[k] for g in groups) for k in ("ms", "plain_ms", "bound_ms")}
+        files[name]["groups"] = groups
+    emit("k3_groups", files=files)
+    return {k: sum(f[k] for f in files.values()) for k in ("ms", "plain_ms", "bound_ms")}
 
 
 def phase_k2_k0(path: str, shipdate: np.ndarray, device, seed: int) -> dict:
@@ -751,9 +888,19 @@ def main() -> int:
         k1_launches += general["K1"]
         k3_launches += general["K3"]
         torch.cuda.empty_cache()
-        # K3 over one scan of each file the paths scan: both lineitem files
-        # and the orders file
-        k3.update(k3_summary({**paths, "orders": o_path}, device))
+        # the whole lineitem file: count only its launches
+        bu.bitunpack_tiled.launches = 0
+        bu.bitunpack_natural.launches = 0
+        full_path = phase_lineitem_full(cols, tmpdir, device)
+        full = {"K1": bu.bitunpack_tiled.launches, "K3": bu.bitunpack_natural.launches}
+        if min(full.values()) <= 0:
+            raise AssertionError(f"the lineitem_full path did not launch K1 and K3: {full}")
+        k1_launches += full["K1"]
+        k3_launches += full["K3"]
+        torch.cuda.empty_cache()
+        # K3 over one scan of each file the paths scan: the two integer
+        # lineitem files, the orders file and the whole lineitem file
+        k3.update(k3_summary({**paths, "orders": o_path, "lineitem_full": full_path}, device))
         k2_k0 = phase_k2_k0(paths["bitpack"], cols["l_shipdate"], device, SEED)
     # K1 over every plane shape the paths decode: the host-encoded planes of
     # the resident table (Q1, Q6 and the general queries over it; Q6 over
@@ -774,7 +921,7 @@ def main() -> int:
                 # no single torch call unpacks BitPacker4x
                 "library_ms": None}
 
-    emit("launches", general_path=general)
+    emit("launches", general_path=general, lineitem_full_path=full)
     print(json.dumps({"kernels": [
         line("bitunpack_tiled", "bitunpack.cu", "222", k1_launches, k1),
         line("bitunpack_tiled_unseeded", "bitunpack.cu", "174", k2_k0["K2"]["launches"], k2_k0["K2"]),

@@ -126,7 +126,8 @@ def scan_groups(device):
         for name, flags in cs.FILES.items():
             path = os.path.join(tmpdir, f"lineitem_{name}.str")
             with cs.forcing(flags):
-                tpch.write_lineitem(path, cols, max_page_size=cs.PAGE_ROWS)
+                tpch.write_lineitem(path, cols, max_page_size=cs.PAGE_ROWS,
+                                    columns=tpch.INT_COLUMNS)
             for _col, (_codec, b), _pages, words in k3_launch_groups(path):
                 groups.append((b, torch.from_numpy(words.view(np.int32)).to(device)))
     return groups

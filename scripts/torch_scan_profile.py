@@ -2,13 +2,16 @@
 
     python3 scripts/torch_scan_profile.py [--rows N] [--out DIR]
 
-Writes the two files of ``chip_smoke.py`` (``dict`` and ``bitpack``, the
-same forcing flags and pages), scans each once to warm up, then once under
+Writes the files of ``chip_smoke.py`` (``dict`` and ``bitpack``, the seven
+integer columns; ``full``, the ten lineitem columns under the ``dict``
+flags with zone maps), scans each once to warm up, then once under
 ``cProfile`` (host: the functions with the most own time) and once under
 ``torch.profiler`` (device: busy time as the sum of the CUDA events, idle
-share against the scan's wall time, the largest device entries by name).
-Prints one JSON line per file and writes ``<DIR>/scan_profile.json``
-(``--out``, default ``_chip/`` in the checkout, git-ignored).
+share against the scan's wall time, the largest device entries by name);
+``full_q6_pruned`` is Q6's four columns of the full file, pruned by
+``q6_pruning_predicates``.  Prints one JSON line per scan and writes
+``<DIR>/scan_profile.json`` (``--out``, default ``_chip/`` in the
+checkout, git-ignored).
 """
 
 from __future__ import annotations
@@ -34,11 +37,11 @@ from strawboat_tpu_torch.benchsuite import tpch  # noqa: E402
 from strawboat_tpu_torch.exec import scan_file  # noqa: E402
 
 
-def host_profile(path, device, top: int = 12):
+def host_profile(path, device, top: int = 12, **scan):
     prof = cProfile.Profile()
     t0 = time.perf_counter()
     prof.enable()
-    scan_file(path, device=device)
+    scan_file(path, device=device, **scan)
     torch.cuda.synchronize()
     prof.disable()
     wall = time.perf_counter() - t0
@@ -48,11 +51,11 @@ def host_profile(path, device, top: int = 12):
                    "tottime_s": v[2], "cumtime_s": v[3], "calls": v[1]} for f, v in rows]
 
 
-def device_profile(path, device, top: int = 8):
+def device_profile(path, device, top: int = 8, **scan):
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        scan_file(path, device=device)
+        scan_file(path, device=device, **scan)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = collections.Counter()
@@ -81,22 +84,31 @@ def main() -> int:
                "native_available": native.available(), "native_error": native.load_error(),
                "files": {}}
     cols = tpch.generate_lineitem(1.0, seed=cs.SEED, rows=args.rows)
+    q6 = {"columns": ("l_shipdate", "l_discount", "l_quantity", "l_extendedprice"),
+          "predicates": tpch.q6_pruning_predicates()}
+    files = [(name, flags, tpch.INT_COLUMNS, False) for name, flags in cs.FILES.items()]
+    files.append(("full", cs.FILES["dict"], tpch.LINEITEM_COLUMNS, True))
     with tempfile.TemporaryDirectory() as tmpdir:
-        for name, flags in cs.FILES.items():
+        for name, flags, columns, zone_maps in files:
             path = os.path.join(tmpdir, f"lineitem_{name}.str")
             with cs.forcing(flags):
                 t0 = time.perf_counter()
-                tpch.write_lineitem(path, cols, max_page_size=cs.PAGE_ROWS)
+                tpch.write_lineitem(path, cols, max_page_size=cs.PAGE_ROWS, columns=columns,
+                                    zone_maps=zone_maps)
                 write_s = time.perf_counter() - t0
-            scan_file(path, device=device)  # warm-up
-            torch.cuda.synchronize()
-            host_wall, host_top = host_profile(path, device)
-            facts = {"write_s": write_s, "bytes": os.path.getsize(path),
-                     "cprofile_wall_s": host_wall, "host_top": host_top,
-                     **device_profile(path, device)}
-            results["files"][name] = facts
-            cs.emit("scan_profile", file=name, native_available=results["native_available"],
-                    **facts)
+            scans = {name: {}}
+            if name == "full":
+                scans["full_q6_pruned"] = q6
+            for scan_name, scan in scans.items():
+                scan_file(path, device=device, **scan)  # warm-up
+                torch.cuda.synchronize()
+                host_wall, host_top = host_profile(path, device, **scan)
+                facts = {"write_s": write_s, "bytes": os.path.getsize(path),
+                         "cprofile_wall_s": host_wall, "host_top": host_top,
+                         **device_profile(path, device, **scan)}
+                results["files"][scan_name] = facts
+                cs.emit("scan_profile", file=scan_name,
+                        native_available=results["native_available"], **facts)
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "scan_profile.json"), "w") as f:
         json.dump(results, f, indent=1)

@@ -9,7 +9,7 @@ exact integer.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -18,6 +18,7 @@ import torch
 from ..exec.aggregate import grouped_aggregate
 from ..exec.expr import col
 from ..exec.join import hash_join
+from ..exec.pruning import Comparison
 from ..exec.query import Query
 from ..exec.resident import ResidentTable
 
@@ -48,8 +49,7 @@ Q1_Q6_COLUMNS = (
     "l_linestatus",
     "l_shipdate",
 )
-# the integer columns the port's writer and scan handle (the string
-# columns wait for the binary codecs)
+# the integer columns
 INT_COLUMNS = (
     "l_orderkey",
     "l_suppkey",
@@ -57,6 +57,19 @@ INT_COLUMNS = (
     "l_extendedprice",
     "l_discount",
     "l_tax",
+    "l_shipdate",
+)
+# every column, in the generator's order: seven integer, three utf8
+LINEITEM_COLUMNS = (
+    "l_orderkey",
+    "l_suppkey",
+    "l_quantity",
+    "l_extendedprice",
+    "l_discount",
+    "l_tax",
+    "l_returnflag",
+    "l_linestatus",
+    "l_shipmode",
     "l_shipdate",
 )
 
@@ -99,18 +112,31 @@ def generate_lineitem(
 # Q6: revenue from discounted small shipments in 1994
 
 
-def _write(path, cols: Dict[str, np.ndarray], max_page_size: int, options):
+def _write(path, cols: Dict[str, np.ndarray], max_page_size: int, options, zone_maps=False):
     from ..codecs import WriteOptions
     from ..write import write_file
 
-    options = options or WriteOptions(max_page_size=max_page_size)
+    if options is None:
+        options = WriteOptions(max_page_size=max_page_size, zone_maps=zone_maps)
+    elif zone_maps:
+        raise ValueError("pass zone_maps in options, not beside them")
     return write_file(path, cols, options=options)
 
 
-def write_lineitem(path, cols: Dict[str, np.ndarray], max_page_size: int = 65536, options=None):
-    """Write the integer lineitem columns through the port's writer (codecs
-    as the ``STRAWBOAT_*_COMPRESSION`` flags force them) → column metas."""
-    return _write(path, {k: cols[k] for k in INT_COLUMNS}, max_page_size, options)
+def write_lineitem(
+    path,
+    cols: Dict[str, np.ndarray],
+    max_page_size: int = 65536,
+    options=None,
+    columns: Sequence[str] = LINEITEM_COLUMNS,
+    zone_maps: bool = False,
+):
+    """Write lineitem's ``columns`` (default: all ten, the three utf8 flags
+    included) through the port's writer, codecs as the
+    ``STRAWBOAT_*_COMPRESSION`` flags force them, with zone maps when
+    ``zone_maps`` → column metas.  ``options``, when given, decides page
+    size and zone maps itself; ``zone_maps=True`` beside it raises."""
+    return _write(path, {k: cols[k] for k in columns}, max_page_size, options, zone_maps)
 
 
 def q6(table):
@@ -133,6 +159,11 @@ def q6(table):
     m = (sd >= 731) & (sd < 1096) & (disc >= 5) & (disc <= 7) & (qty < 24)
     prod = ep.to(torch.int64) * disc.to(torch.int64)
     return torch.where(m, prod, 0).sum(dtype=torch.int64)
+
+
+def q6_pruning_predicates():
+    """Q6's l_shipdate range as pruning atoms for ``scan_file``."""
+    return [Comparison("l_shipdate", "ge", 731), Comparison("l_shipdate", "lt", 1096)]
 
 
 def q6_numpy_reference(cols: Dict[str, np.ndarray]) -> int:
@@ -161,11 +192,10 @@ def q1_aggs():
     }
 
 
-def q1(rt, delta_days: int = Q1_DEFAULT_DELTA):
-    """TPC-H Q1 through the fluent Query API, ordered by the group keys."""
+def _q1(source, delta_days: int, device=None):
+    q = Query(source) if device is None else Query(source, device=device)
     return (
-        Query(rt)
-        .filter(col("l_shipdate") <= EPOCH_DAYS - delta_days)
+        q.filter(col("l_shipdate") <= EPOCH_DAYS - delta_days)
         .group_by("l_returnflag", "l_linestatus", num_groups=16)
         .agg(**q1_aggs())
         .order_by("key_l_returnflag", "key_l_linestatus")
@@ -173,12 +203,33 @@ def q1(rt, delta_days: int = Q1_DEFAULT_DELTA):
     )
 
 
+def q1(table, delta_days: int = Q1_DEFAULT_DELTA):
+    """TPC-H Q1 through the fluent Query API, ordered by the group keys: a
+    resident table takes the fused branch, a scanned ``DeviceTable`` the
+    sort-based ``hash_aggregate``."""
+    return _q1(table, delta_days)
+
+
+def q1_query(path: str, device, delta_days: int = Q1_DEFAULT_DELTA):
+    """Q1 over a file on ``device``: the scan reads the seven columns Q1
+    needs, its pages pruned by the l_shipdate filter's zone maps, and the
+    string keys order lexically."""
+    return _q1(path, delta_days, device)
+
+
+def _key_str(dictionary, code) -> str:
+    v = dictionary[int(code)]
+    return v.decode() if isinstance(v, bytes) else str(v)
+
+
 def q1_rows(res) -> Dict[Tuple[str, str], Dict[str, float]]:
-    """A grouped Q1 result → {(returnflag, linestatus): {aggregate: value}}."""
+    """A grouped Q1 result → {(returnflag, linestatus): {aggregate: value}};
+    keys decode from a ``str`` (resident) or ``bytes`` (scanned)
+    dictionary."""
     out = {}
     for i in range(int(res["n_groups"])):
-        flag = str(res["dict_l_returnflag"][int(res["key_l_returnflag"][i])])
-        status = str(res["dict_l_linestatus"][int(res["key_l_linestatus"][i])])
+        flag = _key_str(res["dict_l_returnflag"], res["key_l_returnflag"][i])
+        status = _key_str(res["dict_l_linestatus"], res["key_l_linestatus"][i])
         out[(flag, status)] = {
             name: (float if name.startswith("avg_") else int)(res[name][i])
             for name in Q1_AGG_NAMES

@@ -1,4 +1,4 @@
-"""Page framing and write options for flat integer pages.
+"""Page framing and write options.
 
 Counterpart of ``strawboat_tpu/codecs/__init__.py``.  Every compressed
 page body starts with the 9-byte header ``[codec u8][compressed_size u32
@@ -26,15 +26,16 @@ _HDR = struct.Struct("<BII")
 
 @dataclass
 class WriteOptions:
-    """The reference's ``WriteOptions`` without zone maps or sampling:
-    the port's writer has no ratio competition yet, so only
-    ``default_compression=NONE`` with ``default_compress_ratio=None`` is
-    accepted (``codecs/integer.py``)."""
+    """The reference's ``WriteOptions`` without sampling: the port's writer
+    has no ratio competition yet, so only ``default_compression=NONE`` with
+    ``default_compress_ratio=None`` is accepted (``codecs/integer.py``).
+    ``zone_maps`` writes the in-band zone block (``exec/pruning.py``)."""
 
     default_compression: Compression = Compression.NONE
     default_compress_ratio: Optional[float] = None
     max_page_size: Optional[int] = None
     forbidden_compressions: List[Compression] = field(default_factory=list)
+    zone_maps: bool = False
 
     def forbid(self, codec: Compression) -> "WriteOptions":
         return WriteOptions(
@@ -42,6 +43,7 @@ class WriteOptions:
             self.default_compress_ratio,
             self.max_page_size,
             list(self.forbidden_compressions) + [codec],
+            self.zone_maps,
         )
 
 

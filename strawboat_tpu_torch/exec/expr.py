@@ -5,8 +5,10 @@ Counterpart of ``strawboat_tpu/exec/expr.py``.  An expression evaluates to
 "null = filtered out" in :meth:`Expr.mask`.  String literals compare through
 the column's sorted host dictionary, so no per-row string work happens.
 
-The reference also collects zone-map pruning atoms for the file scan; the
-port has no file scan yet, so expressions carry none.
+A column-vs-number comparison carries a zone-map pruning atom
+(``pruning.Comparison``), and ``&`` concatenates them; every other
+composition clears them, and string comparisons make none, as in the
+reference.  ``Query`` hands a filter's atoms to the file scan.
 """
 
 from __future__ import annotations
@@ -19,6 +21,13 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from .pruning import Comparison
+
+_OP_NAMES = {
+    operator.gt: "gt", operator.ge: "ge", operator.lt: "lt",
+    operator.le: "le", operator.eq: "eq", operator.ne: "ne",
+}
+
 
 @dataclass(frozen=True)
 class Expr:
@@ -26,6 +35,9 @@ class Expr:
     fn: Callable[[Any], Tuple[Any, Optional[torch.Tensor]]]
     # column names this expression reads (projection pushdown)
     refs: tuple = ()
+    # prunable conjunctive atoms (column-vs-literal comparisons); sound
+    # only under AND, so every other composition clears them
+    atoms: tuple = ()
 
     def _bin(self, other, op) -> "Expr":
         other_e = _as_expr(other)
@@ -35,7 +47,18 @@ class Expr:
             vb, mb = other_e.fn(t)
             return op(va, vb), _and_mask(ma, mb)
 
-        return Expr(f, self.refs + other_e.refs)
+        atoms = ()
+        if (
+            op in _OP_NAMES
+            and isinstance(self, ColExpr)
+            and not isinstance(other, Expr)
+            and isinstance(other, (int, float))
+        ):
+            # the literal keeps its type: an int compares exactly
+            atoms = (Comparison(self.name, _OP_NAMES[op], other),)
+        if op is _logical_and:
+            atoms = self.atoms + other_e.atoms
+        return Expr(f, self.refs + other_e.refs, atoms)
 
     def __gt__(self, o):
         return self._bin(o, operator.gt)

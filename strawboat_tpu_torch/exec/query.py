@@ -15,7 +15,8 @@ columns (dense sorted codes, at most 4096 composite groups) takes the fused
 branch first: the composite key ``Σ code_i · stride_i`` is a direct segment
 id, and the result comes back as host numpy.  Every other shape takes the
 general path, on the source's device: scan (a file through ``scan_file``,
-a resident table decoded with its padding mask), join, filter, then the
+its pages pruned by the filter's atoms; a resident table decoded with its
+padding mask; a ``DeviceTable`` as it is), join, filter, then the
 sort-based ``hash_aggregate``, ``scalar_aggregate``, ``sort_table`` or a
 projection; results are device tensors, and ``(DeviceTable, mask)`` for
 projections.  File sources run on ``device`` (default ``"cuda"``, which
@@ -43,7 +44,7 @@ from .aggregate import (
 from .expr import Expr
 from .join import hash_join
 from .resident import ResidentTable, _unpack_plane_tiled
-from .scan import DeviceColumn, DeviceTable, refuse_pruning, scan_file, unsigned_view
+from .scan import DeviceColumn, DeviceTable, scan_file, unsigned_view
 from .sort import _by_items, _dictionary_rank, head_table, sort_indices, sort_table, take_table
 
 _DATASETS = "ROADMAP.md 'Modules to port': datasets (Query over globs and lists of files)"
@@ -53,7 +54,7 @@ _MAX_FUSED_GROUPS = 4096
 
 @dataclass
 class Query:
-    path: Any  # a file path or a ResidentTable
+    path: Any  # a file path, a ResidentTable or a DeviceTable
     # file sources: the device the scan and the query run on (a resident
     # source runs on its table's device)
     device: Any = "cuda"
@@ -113,10 +114,13 @@ class Query:
     # -- execution ------------------------------------------------------
 
     def scan(self, device=None) -> DeviceTable:
-        """The source as a DeviceTable: a resident table's decoded tiled
-        columns (its padding mask in ``_base_mask``), or a file scanned on
-        ``device`` (default: the query's).  Only referenced columns are
-        decoded."""
+        """The source as a DeviceTable: a DeviceTable as it is, a resident
+        table's decoded tiled columns (its padding mask in ``_base_mask``),
+        or a file scanned on
+        ``device`` (default: the query's), its pages pruned by the filter's
+        atoms.  Only referenced columns are decoded."""
+        if isinstance(self.path, DeviceTable):
+            return self.path
         cols = self._referenced_columns()
         if isinstance(self.path, ResidentTable):
             # tiled order is a pure permutation: every order-invariant
@@ -125,9 +129,10 @@ class Query:
             return table
         if not isinstance(self.path, str) or any(c in self.path for c in "*?["):
             raise NotYetImplementedError(f"Query over {self.path!r} ({_DATASETS})")
-        if self._filter is not None:
-            refuse_pruning(self.path)
-        return scan_file(self.path, as_device(device or self.device), columns=cols)
+        # the filter's column-vs-literal atoms prune pages by zone maps
+        predicates = list(self._filter.atoms) if self._filter is not None else None
+        return scan_file(self.path, as_device(device or self.device), columns=cols,
+                         predicates=predicates)
 
     def run(self):
         """Grouped: a dict (``n_groups``, ``keys``, ``key_<col>``,

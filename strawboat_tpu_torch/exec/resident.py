@@ -700,9 +700,9 @@ def _encode_string(name, arr, tile: int, arrow_type, rows, device):
 
 
 def _encode_string_np(name, arr: np.ndarray, validity, tile, arrow_type, rows, device):
-    """numpy unicode/bytes → packed codes + GLOBAL SORTED dictionary.  Only
-    valid rows enter the dictionary; null rows take the code of the first
-    valid row, as arrow's dictionary_encode + fill_null(0) gives them."""
+    """numpy unicode/bytes → packed codes + GLOBAL SORTED dictionary: the
+    valid rows factorize into codes over their distinct values, and
+    :func:`_encode_string_codes` takes the rank and null decisions."""
     src = arr if validity is None else arr[validity]
     uniq = codes_src = None
     if len(src) and src.dtype.itemsize == 4:
@@ -717,22 +717,11 @@ def _encode_string_np(name, arr: np.ndarray, validity, tile, arrow_type, rows, d
             codes_src = d[1]
     if uniq is None:
         uniq, codes_src = np.unique(src, return_inverse=True)
-    if len(uniq) > _MAX_DICT:
-        raise _too_many_strings(name)
-    # lexicographic order (code points for unicode, bytes for binary) —
-    # arrow's sort order for utf8 and binary
-    order = np.argsort(uniq, kind="stable")
-    rank = np.empty(max(len(uniq), 1), dtype=np.uint32)
-    rank[order] = np.arange(len(order), dtype=np.uint32)
-    codes = np.zeros(rows, dtype=np.uint32)
-    if len(uniq):
-        if validity is None:
-            codes = rank[codes_src]
-        else:
-            codes[:] = rank[codes_src[0]]
-            codes[validity] = rank[codes_src]
-    host = uniq[order].astype(object)
-    return _string_column(name, codes, host, tile, arrow_type, rows, device)
+    codes = codes_src.reshape(-1)
+    if validity is not None:
+        codes = np.zeros(rows, dtype=codes_src.dtype)
+        codes[validity] = codes_src
+    return _encode_string_codes(name, codes, uniq, validity, tile, arrow_type, device)
 
 
 def _fill_invalid(vals: np.ndarray, validity) -> np.ndarray:
@@ -1023,6 +1012,10 @@ def make_resident(table, device, tile: Optional[int] = None) -> ResidentTable:
             lambda f: _encode_resident_column(f, table.column(f.name), tile, dev),
             fields,
         )
+    return _resident_table(names, encoded, tile)
+
+
+def _resident_table(names, encoded, tile: int) -> ResidentTable:
     if not encoded:
         raise OutOfSpecError("no loadable columns")
     out: Dict[str, ResidentColumn] = {}
@@ -1043,7 +1036,9 @@ def load_resident(
     to the host and take the host encoder (``make_resident`` of numpy
     columns), so the planes equal the reference's ``load_resident`` word
     for word: the host encoder takes the dictionary decisions the
-    device-direct one does not.  ``columns`` picks and orders columns;
+    device-direct one does not.  A string column comes back as its codes
+    and is encoded as ``dictionary[codes]`` would be
+    (:func:`_encode_string_codes`).  ``columns`` picks and orders columns;
     names the file lacks are skipped.  Globs and lists of files wait for
     the dataset layer."""
     from .scan import host_values, scan_file
@@ -1054,17 +1049,54 @@ def load_resident(
             "(ROADMAP.md 'Modules to port': datasets)"
         )
     dev = as_device(device)
+    tile = tile or TILE3D
     want = list(columns) if columns else None
     dt = scan_file(path, dev, columns=want)
     names = [n for n in want if n in dt.columns] if want is not None else list(dt.columns)
-    cols = {}
+    host = {}
     for n in names:
         c = dt[n]
-        vals = host_values(c)
-        if c.dtype == "date32":
-            vals = vals.astype("datetime64[D]")
-        if c.validity is not None:
-            vals = np.ma.MaskedArray(vals, mask=~c.validity.cpu().numpy())
-        cols[n] = vals
+        validity = None if c.validity is None else c.validity.cpu().numpy()
+        host[n] = (host_values(c), validity, c.dictionary, c.dtype)
     del dt
-    return make_resident(cols, dev, tile=tile)
+
+    def encode(n):
+        vals, validity, dictionary, dtype = host[n]
+        if dictionary is not None:
+            col = _encode_string_codes(n, vals, dictionary, validity, tile, dtype, dev)
+            if validity is not None:
+                col.validity_plane = _pack_plane(validity.astype(np.uint32), 1, tile, dev)
+            return col
+        if dtype == "date32":
+            vals = vals.astype("datetime64[D]")
+        if validity is not None:
+            vals = np.ma.MaskedArray(vals, mask=~validity)
+        return _encode_numpy_column(n, vals, tile, dev)
+
+    return _resident_table(names, _encode_all(encode, names), tile)
+
+
+def _encode_string_codes(name, codes: np.ndarray, dictionary: np.ndarray, validity,
+                         tile: int, arrow_type, device) -> ResidentColumn:
+    """Codes into ``dictionary`` (numpy unicode or bytes, or the scan's
+    object array of ``bytes``) → packed codes over the GLOBAL SORTED
+    dictionary, without building the strings: the distinct values of the
+    valid rows sorted (lexicographic, arrow's order for utf8 and binary;
+    byte order is utf8's code point order), each row their rank, null rows
+    the first valid row's, as arrow's ``dictionary_encode`` +
+    ``fill_null(0)`` gives them; utf8 values as ``str``."""
+    valid = codes if validity is None else codes[validity]
+    present = np.flatnonzero(np.bincount(valid, minlength=len(dictionary))) if len(valid) else valid[:0]
+    if len(present) > _MAX_DICT:
+        raise _too_many_strings(name)
+    values = dictionary[present]
+    order = np.argsort(values, kind="stable")
+    rank = np.zeros(max(len(dictionary), 1), dtype=np.uint32)
+    rank[present[order]] = np.arange(len(present), dtype=np.uint32)
+    out = rank[codes]
+    if validity is not None and len(valid):
+        out[~validity] = rank[valid[0]]
+    host = values[order].astype(object)
+    if str(arrow_type) in ("string", "large_string") and values.dtype.kind != "U":
+        host = np.array([v.decode("utf-8") for v in host], dtype=object)
+    return _string_column(name, out, host, tile, arrow_type, len(codes), device)

@@ -1,15 +1,19 @@
 """Device scan: host page planning, decode on the device.
 
 Counterpart of ``strawboat_tpu/exec/scan.py``: ``DeviceColumn`` /
-``DeviceTable`` and, for flat integer and date32 columns, ``scan_file``.
-The reference keeps a host copy of f64 columns (``host_exact``) because the
-TPU stores f64 as a float32 pair; float64 is native on the GPU, so the port
-does not.
+``DeviceTable`` and, for flat integer, date32 and string columns,
+``scan_file`` (pruned by zone maps under ``predicates``) and
+``scan_chunks``.  The reference keeps a host copy of f64 columns
+(``host_exact``) because the TPU stores f64 as a float32 pair; float64 is
+native on the GPU, so the port does not.
 
 ``dtype`` is the arrow type the column came from: a ``pa.DataType``, or its
-alias string (``"int64"``, ``"date32"``) when the table was built without
-pyarrow.  String/binary columns ride as dictionary codes; ``dictionary`` is
-then the host numpy object array of the dictionary's values.
+alias string (``"int64"``, ``"date32"``, ``"string"``) when the table was
+built without pyarrow.  String/binary columns ride as int32 dictionary
+codes; ``dictionary`` is then the host numpy object array of the
+dictionary's values: ``bytes`` for every string type when the column was
+scanned (the reference scan's ``pa.binary`` dictionary), ``str`` for a
+utf8 column of a resident table.
 
 Scanned values keep the column's width.  Unsigned columns follow
 ``device.py``: uint8 stays ``torch.uint8``, uint16/32/64 travel as the
@@ -18,17 +22,16 @@ signed torch type of the same width holding the same bits
 
 The scan plans pages on the host (headers, block widths, dictionaries) and
 decodes on the device with one launch per group: uniform-width bit-packed
-pages and dictionary index subpages of one width run kernel K3
-(``kernels/bitunpack.py``); pages whose blocks mix widths run the varwidth
-decoder; RLE / ONE_VALUE / FREQ / other DICT pages decode page by page in
-torch ops; raw pages (NONE, and LZ4 / Zstd / Snappy through
-the port's ``native`` library) decode on the host and upload once per run.
+pages and dictionary index subpages of one width (a string column's
+too) run kernel K3 (``kernels/bitunpack.py``); pages whose blocks mix
+widths run the varwidth decoder; RLE / ONE_VALUE / FREQ / other DICT pages
+decode page by page in torch ops; raw pages (NONE, and LZ4 / Zstd / Snappy
+through the port's ``native`` library) decode on the host and upload once
+per run.
 """
 
 from __future__ import annotations
 
-import os
-import struct
 from collections import defaultdict
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence
@@ -38,6 +41,7 @@ import torch
 
 from .. import native
 from ..codecs import decompress_raw, read_header
+from ..codecs.binary import decode_binary_page, factorize_slices, parse_len_prefixed
 from ..codecs.integer import parse_dict_values, parse_freq, parse_one_value, parse_rle
 from ..constants import Compression
 from ..device import as_device
@@ -57,10 +61,9 @@ from ..meta import ColumnMeta
 from ..read.levels import read_validity
 from ..read.reader import infer_schema, read_meta
 from ..schema import FLAT_INT_TYPES, Field
+from .pruning import check_predicates, prune_pages, read_zones
 
 _SCAN_TODO = "ROADMAP.md 'Modules to port': scan_file, what is left"
-_PRUNING = "ROADMAP.md 'Modules to port': scan_file, item 5.6, zone-map pruning"
-ZONE_MAGIC = 0x314D4E5A  # b"ZNM1" little-endian (reference exec/pruning.py)
 
 
 @dataclass
@@ -441,12 +444,17 @@ def _decode_structured_to_device(buf, pos: int, length: int, np_dtype: np.dtype,
 # one column (reference decode_column_pages_device, scan.py:594)
 
 
-def _plan_pages(file_bytes: np.ndarray, meta: ColumnMeta, nullable: bool):
+def _plan_pages(file_bytes: np.ndarray, meta: ColumnMeta, nullable: bool, keep=None):
     """→ [(length, validity or None, page bytes, position after the
-    validity prelude)] for every page of the column."""
+    validity prelude)] for every page of the column that ``keep`` (a
+    boolean mask over the page grid, None = all) keeps.  Dropped pages are
+    skipped unread, as the reference's ``Iterator::nth`` seeks."""
     plans = []
     pos = meta.offset
-    for page in meta.pages:
+    for i, page in enumerate(meta.pages):
+        if keep is not None and not keep[i]:
+            pos += page.length
+            continue
         buf = file_bytes[pos : pos + page.length]
         if len(buf) != page.length:
             raise OutOfSpecError("page past the end of the file")
@@ -455,6 +463,15 @@ def _plan_pages(file_bytes: np.ndarray, meta: ColumnMeta, nullable: bool):
         plans.append((length, validity, buf, p))
         pos += page.length
     return plans
+
+
+def _validity(plans, dev) -> Optional[torch.Tensor]:
+    """The column's validity on ``dev``, or None when no page has nulls."""
+    if all(v is None for _l, v, _b, _p in plans):
+        return None
+    return _to_device(
+        np.concatenate([np.ones(l, bool) if v is None else v for l, v, _b, _p in plans]), dev
+    )
 
 
 def _sort_jobs(plans, np_dtype):
@@ -501,16 +518,19 @@ def _sort_jobs(plans, np_dtype):
 
 
 def decode_column_pages_device(
-    file_bytes: np.ndarray, meta: ColumnMeta, field: Field, device
+    file_bytes: np.ndarray, meta: ColumnMeta, field: Field, device, keep=None
 ) -> DeviceColumn:
-    """Decode every page of a flat integer column onto ``device``."""
+    """Decode the pages ``keep`` keeps (None = all) of a flat integer,
+    date32 or string column onto ``device``."""
+    dev = as_device(device)
+    if field.is_flat_string:
+        return _decode_binary_column_device(file_bytes, meta, field, dev, keep)
     if not field.is_flat_int:
         raise NotYetImplementedError(
             f"scan of column {field.name!r} of type {field.dtype} ({_SCAN_TODO})"
         )
-    dev = as_device(device)
     np_dtype = np.dtype(FLAT_INT_TYPES[field.dtype])
-    plans = _plan_pages(file_bytes, meta, field.nullable)
+    plans = _plan_pages(file_bytes, meta, field.nullable, keep)
     raw_jobs, k3_jobs, bpv_jobs = _sort_jobs(plans, np_dtype)
 
     raw_host = {}
@@ -559,17 +579,204 @@ def decode_column_pages_device(
         values = torch.zeros(0, dtype=_torch_dtype(np_dtype), device=dev)
     else:
         values = tensors[0] if len(tensors) == 1 else torch.cat(tensors)
-    validity = None
-    if any(v is not None for _l, v, _b, _p in plans):
-        validity = _to_device(
-            np.concatenate([np.ones(l, bool) if v is None else v for l, v, _b, _p in plans]),
-            dev,
-        )
-    return DeviceColumn(field.name, field.dtype, values, validity)
+    return DeviceColumn(field.name, field.dtype, values, _validity(plans, dev))
+
+
+# ---------------------------------------------------------------------------
+# string columns as dictionary codes (reference scan.py:941-1169)
+
+
+def _dictionary_encode(offsets: np.ndarray, values: np.ndarray):
+    """Per-row encode of the rows of raw-framed pages (raw mode, FREQ,
+    ONE_VALUE) → (int64 codes, distinct slices in order of first
+    appearance).  A module-level seam: DICT pages never reach it."""
+    return factorize_slices(offsets[:-1], np.diff(offsets), values)
+
+
+def _binary_page_jobs(plans, large: bool):
+    """One entry per page: ("k3", words, n_blocks, b, page dictionary) for
+    a DICT page whose index subpage is uniform BITPACKING; ("host", codes,
+    page dictionary) for one whose codes are all 0 bits wide or raw;
+    ("dev", page bytes, index position, page dictionary) for any other
+    index subpage; ("raw", codes, page dictionary) for raw-mode, FREQ and
+    ONE_VALUE pages, their rows encoded page by page."""
+    jobs = []
+    for length, _v, buf, p in plans:
+        codec, _cs, _us, body = read_header(buf, p)
+        if codec != Compression.DICT:
+            offsets, values, _end = decode_binary_page(buf, p, length, large)
+            jobs.append(("raw", *_dictionary_encode(offsets, values)))
+            continue
+        icodec, icsize, _ius, ibody = read_header(buf, body)
+        vpos = ibody + icsize
+        if vpos + 4 > len(buf):
+            raise OutOfSpecError("binary dict page truncated")
+        count = int(np.frombuffer(buf, "<u4", 1, vpos)[0])
+        sets, _end = parse_len_prefixed(buf, vpos + 4, count)
+        if not sets:  # an all-null page: its codes are 0, one empty slice
+            sets = [b""]
+        if icodec == Compression.BITPACKING:
+            parsed = _parse_bp_page(buf, ibody, length)
+            if parsed is None:  # every block 0 bits wide: every code is 0
+                jobs.append(("host", np.zeros(length, dtype=np.int64), sets))
+                continue
+            if parsed[0] == "uniform":
+                jobs.append(("k3", parsed[1], parsed[2], parsed[3], sets))
+                continue
+        if icodec.raw_mode:
+            (raw,) = decompress_raw(icodec, [buf[ibody:vpos]], [length * 4])
+            jobs.append(("host", np.frombuffer(raw, "<u4", length).astype(np.int64), sets))
+        else:
+            jobs.append(("dev", buf, body, sets))
+    return jobs
+
+
+def _merge_dictionaries(parts: List[List[bytes]]):
+    """Page dictionaries pooled in order → (the global dictionary: each
+    distinct slice once, in order of first appearance in the pool, as
+    arrow's ``unique`` keeps them; the int64 remap of each pool entry into
+    it; each part's base in the pool)."""
+    pool = [x for part in parts for x in part]
+    index: Dict[bytes, int] = {}
+    remap = np.fromiter((index.setdefault(x, len(index)) for x in pool), np.int64, len(pool))
+    bases = np.zeros(len(parts) + 1, dtype=np.int64)
+    np.cumsum([len(part) for part in parts], out=bases[1:])
+    return np.array(list(index), dtype=object), remap, bases
+
+
+def _check_codes(codes: torch.Tensor, limit: torch.Tensor) -> None:
+    if bool((codes >= limit).any()):
+        raise OutOfSpecError("dictionary code out of range")
+
+
+def _decode_binary_column_device(file_bytes, meta, field: Field, dev, keep=None) -> DeviceColumn:
+    """A utf8 / binary column → int32 dictionary codes on ``dev`` and the
+    host dictionary: an object array of ``bytes`` for every string type
+    (the JAX scan's ``pa.binary`` dictionary, in its order).
+
+    DICT pages never re-encode rows: a uniform BITPACKING index subpage
+    goes through kernel K3, one launch per width over the group's pages,
+    then one gather adds each page's base and remaps into the global
+    dictionary; other index subpages decode on the device page by page
+    (raw and all-zero ones on the host).  Rows of raw-mode, FREQ and
+    ONE_VALUE pages are encoded on the host page by page
+    (:func:`_dictionary_encode`), so memory stays bounded by one page.
+    The global dictionary pools the page dictionaries in page order, the
+    raw pages' last, and keeps first appearances (reference
+    scan.py:1068-1083, which encodes the raw pages' rows as one column
+    and pools that dictionary last: a first appearance over the rows is
+    one over the raw pages' dictionaries in page order).
+    ``hash_aggregate`` orders groups by code, so the order is the
+    reference's."""
+    plans = _plan_pages(file_bytes, meta, field.nullable, keep)
+    jobs = _binary_page_jobs(plans, field.dtype.startswith("large_"))
+    pooled = ([idx for idx, j in enumerate(jobs) if j[0] != "raw"]
+              + [idx for idx, j in enumerate(jobs) if j[0] == "raw"])
+    dictionary, remap, bases = _merge_dictionaries([jobs[idx][-1] for idx in pooled])
+    # (base in the pool, dictionary size) of each page
+    page_base = {idx: (int(bases[i]), len(jobs[idx][-1])) for i, idx in enumerate(pooled)}
+    on_device = any(j[0] in ("k3", "dev") for j in jobs)
+    remap_dev = _to_device(remap.astype(np.int32), dev) if on_device else None
+
+    def remap_device(codes: torch.Tensor, base, limit) -> torch.Tensor:
+        """u32 page codes (int32 bits) → global codes, checked against
+        their page's dictionary size."""
+        codes = codes.to(torch.int64) & 0xFFFFFFFF
+        _check_codes(codes, limit)
+        return dict_gather_device(codes + base, remap_dev)
+
+    # one K3 launch per width; every page's base and size ride per slot
+    k3_slices = {}
+    for gkey, group in _k3_groups([(idx, Compression.DICT, j[1], j[2], j[3], None)
+                                   for idx, j in enumerate(jobs) if j[0] == "k3"]).items():
+        words = _to_device(np.concatenate([g[2] for g in group]), dev)
+        dec = bitunpack_natural_device(words, gkey[1])
+        slot_sizes = [g[3] * 128 for g in group]
+        base = _repeat_per_page([page_base[g[0]][0] for g in group], slot_sizes, len(dec), dev)
+        limit = _repeat_per_page([page_base[g[0]][1] for g in group], slot_sizes, len(dec), dev)
+        codes = remap_device(dec, base, limit)
+        off = 0
+        for g, n in zip(group, slot_sizes):
+            k3_slices[g[0]] = (codes, off)
+            off += n
+
+    parts_out: List[Any] = []
+    host_run: List[np.ndarray] = []
+
+    def flush_host():
+        if host_run:
+            parts_out.append(_to_device(np.concatenate(host_run).astype(np.int32), dev))
+            host_run.clear()
+
+    for idx, (j, (length, _v, _buf, _p)) in enumerate(zip(jobs, plans)):
+        if j[0] in ("raw", "host"):
+            base, size = page_base[idx]
+            if len(j[1]) and int(j[1].max()) >= size:
+                raise OutOfSpecError("dictionary code out of range")
+            host_run.append(remap[j[1] + base])
+        else:
+            flush_host()
+            if j[0] == "k3":
+                codes, off = k3_slices[idx]
+                parts_out.append(codes[off : off + length])
+            else:
+                base, size = page_base[idx]
+                dec, _end = _decode_structured_to_device(j[1], j[2], length, np.dtype(np.uint32), dev)
+                parts_out.append(remap_device(dec, base, size))
+    flush_host()
+    if not parts_out:
+        codes = torch.zeros(0, dtype=torch.int32, device=dev)
+    else:
+        codes = parts_out[0] if len(parts_out) == 1 else torch.cat(parts_out)
+    return DeviceColumn(field.name, field.dtype, codes.to(torch.int32), _validity(plans, dev),
+                        dictionary=dictionary)
 
 
 # ---------------------------------------------------------------------------
 # entry points (reference scan.py:1361-1512)
+
+
+def _open(path: str):
+    """(schema, metas, the file's bytes as a plain ndarray view of a map:
+    indexing a np.memmap costs ~20x more)."""
+    with open(path, "rb") as f:
+        schema = infer_schema(f)
+        metas = read_meta(f)
+    return schema, metas, np.memmap(path, dtype=np.uint8, mode="r").view(np.ndarray)
+
+
+def _selected(schema, metas, columns: Optional[Sequence[str]]):
+    """(meta, field) of each selected top-level column."""
+    i = 0
+    for field in schema:
+        meta = metas[i]
+        i += field.n_leaves
+        if columns is None or field.name in columns:
+            yield meta, field
+
+
+def page_keep_mask(path: str, metas, predicates) -> Optional[np.ndarray]:
+    """The zone maps' keep mask over the file's page grid, or None when
+    every page stays (no predicates, no zone block, nothing pruned).  A
+    predicate that is not a ``pruning.Comparison`` raises."""
+    if not predicates:
+        return None
+    predicates = check_predicates(predicates)
+    zones = read_zones(path)
+    if not zones:
+        return None
+    keep = prune_pages(zones, predicates, max((len(m.pages) for m in metas), default=0))
+    return None if keep.all() else keep
+
+
+def _scan(file_bytes, schema, metas, columns, dev, keep) -> DeviceTable:
+    out: Dict[str, DeviceColumn] = {}
+    num_rows = 0
+    for meta, field in _selected(schema, metas, columns):
+        col = decode_column_pages_device(file_bytes, meta, field, dev, keep)
+        out[field.name] = col
+        num_rows = len(col)
+    return DeviceTable(out, num_rows)
 
 
 def scan_file(
@@ -578,84 +785,72 @@ def scan_file(
     columns: Optional[Sequence[str]] = None,
     predicates: Optional[Sequence] = None,
 ) -> DeviceTable:
-    """Scan a strawboat file's flat integer and date32 columns onto
-    ``device`` (``"cuda"``, ``"cpu"``, a ``torch.device``).
+    """Scan a strawboat file's flat integer, date32 and string columns
+    onto ``device`` (``"cuda"``, ``"cpu"``, a ``torch.device``).
 
     ``columns`` picks columns by name (default: all; any other type then
-    raises ``NotYetImplementedError``).  ``predicates`` only prune where
-    the file has a zone block, which the port cannot read yet: such a file
-    raises ``NotYetImplementedError`` rather than scan unpruned; a file
-    without one scans whole, as in the reference.  Floats, strings,
-    decimals, booleans and nested columns are not ported yet."""
+    raises ``NotYetImplementedError``).  ``predicates`` (a list of
+    ``pruning.Comparison``, e.g. ``Expr.atoms``) drop the pages the file's
+    zone maps show cannot match, for every column, so the row grid stays
+    aligned; a file without zone maps scans whole, as in the reference.
+    String columns come back as int32 dictionary codes with the host
+    dictionary (``_decode_binary_column_device``).  Floats, decimals,
+    booleans and nested columns are not ported yet."""
     dev = as_device(device)
-    if predicates:
-        refuse_pruning(path)
-    out: Dict[str, DeviceColumn] = {}
-    num_rows = 0
-    for file_bytes, meta, field in _file_columns(path, columns):
-        col = decode_column_pages_device(file_bytes, meta, field, dev)
-        out[field.name] = col
-        num_rows = len(col)
-    return DeviceTable(out, num_rows)
+    schema, metas, file_bytes = _open(path)
+    keep = page_keep_mask(path, metas, predicates)
+    return _scan(file_bytes, schema, metas, columns, dev, keep)
 
 
-def has_zone_block(path: str) -> bool:
-    """Whether the file carries an in-band zone block: the locate step of
-    the reference's ``read_zones`` (``exec/pruning.py``), without parsing
-    the payload.  The block ends ``[u32 payload_len][u32 ZONE_MAGIC]``
-    right before the schema bytes."""
-    size = os.path.getsize(path)
-    if size < 32:
-        return False
-    with open(path, "rb") as f:
-        f.seek(size - 16)
-        schema_size, meta_size = struct.unpack("<II", f.read(8))
-        schema_start = size - 16 - meta_size - schema_size
-        if schema_start < 16:
-            return False
-        f.seek(schema_start - 8)
-        plen, magic = struct.unpack("<II", f.read(8))
-    return magic == ZONE_MAGIC and plen <= schema_start - 16
-
-
-def refuse_pruning(path: str) -> None:
-    """Raise where the reference would prune pages: a file with a zone
-    block, scanned under predicates."""
-    if has_zone_block(path):
-        raise NotYetImplementedError(f"{path}: a file with zone maps, under predicates ({_PRUNING})")
-
-
-def _file_columns(path: str, columns: Optional[Sequence[str]]):
-    """(file bytes, meta, field) of each selected top-level column."""
-    with open(path, "rb") as f:
-        schema = infer_schema(f)
-        metas = read_meta(f)
-    # a plain ndarray view of the map: indexing a np.memmap costs ~20x more
-    file_bytes = np.memmap(path, dtype=np.uint8, mode="r").view(np.ndarray)
-    i = 0
-    for field in schema:
-        meta = metas[i]
-        i += field.n_leaves
-        if columns is None or field.name in columns:
-            yield file_bytes, meta, field
+def scan_chunks(
+    path: str,
+    chunk_pages: int,
+    device,
+    columns: Optional[Sequence[str]] = None,
+    predicates: Optional[Sequence] = None,
+):
+    """The file as a stream of DeviceTables of ``chunk_pages`` pages each
+    on ``device``, pruned by ``predicates`` as in :func:`scan_file`; a
+    chunk whose pages are all pruned is skipped.  Each chunk decodes on
+    its own (dictionary codes index that chunk's dictionary).  Flat
+    columns only: a nested column raises."""
+    dev = as_device(device)
+    if chunk_pages < 1:
+        raise ValueError(f"chunk_pages must be at least 1, got {chunk_pages}")
+    schema, metas, file_bytes = _open(path)
+    for _meta, field in _selected(schema, metas, columns):
+        if field.children:
+            raise NotYetImplementedError(
+                f"scan_chunks of nested column {field.name!r} ({_SCAN_TODO}, item 5.5)")
+    n_pages = max((len(m.pages) for m in metas), default=0)
+    base = page_keep_mask(path, metas, predicates)
+    for start in range(0, n_pages, chunk_pages):
+        keep = np.zeros(n_pages, dtype=bool)
+        keep[start : start + chunk_pages] = True
+        if base is not None:
+            keep &= base
+        if keep.any():
+            yield _scan(file_bytes, schema, metas, columns, dev, keep)
 
 
 def k3_launch_groups(path: str, columns: Optional[Sequence[str]] = None):
     """What ``scan_file(path, columns=columns)`` hands kernel K3, one
     entry per launch: [(column, (codec, b), page indices, words (n_blocks,
-    4b) u32)].  For timing K3 alone at the scan's shapes."""
+    4b) u32)]; a string column's DICT index pages are ``(DICT, b)``.  For
+    timing K3 alone at the scan's shapes."""
     out = []
-    for file_bytes, meta, field in _file_columns(path, columns):
-        if not field.is_flat_int:
-            continue
+    schema, metas, file_bytes = _open(path)
+    for meta, field in _selected(schema, metas, columns):
         plans = _plan_pages(file_bytes, meta, field.nullable)
-        _raw, k3_jobs, _bpv = _sort_jobs(plans, np.dtype(FLAT_INT_TYPES[field.dtype]))
+        if field.is_flat_string:
+            k3_jobs = [(idx, Compression.DICT, j[1], j[2], j[3], None)
+                       for idx, j in enumerate(_binary_page_jobs(plans, field.dtype.startswith("large_")))
+                       if j[0] == "k3"]
+        elif field.is_flat_int:
+            _raw, k3_jobs, _bpv = _sort_jobs(plans, np.dtype(FLAT_INT_TYPES[field.dtype]))
+        else:
+            continue
         for gkey, jobs in _k3_groups(k3_jobs).items():
             out.append((field.name, gkey, [j[0] for j in jobs],
                         np.concatenate([j[2] for j in jobs])))
     return out
-
-
-def scan_chunks(path: str, chunk_pages: int, columns=None, predicates=None):
-    """Not ported yet: a file as a stream of chunked DeviceTables."""
-    raise NotYetImplementedError(f"scan_chunks ({_SCAN_TODO})")

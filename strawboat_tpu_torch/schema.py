@@ -7,9 +7,10 @@ arrow2 writes; :func:`deserialize_schema` also takes the
 continuation-prefixed form pyarrow emits.
 
 A field is ``Field(name, dtype, nullable)``, with ``dtype`` the arrow alias
-string ``DeviceColumn.dtype`` uses (``"int64"``, ``"date32"``).  Every type
-parses, so a file with string or nested columns still opens and its integer
-columns scan; :func:`schema_to_bytes` writes only :data:`FLAT_INT_TYPES`.
+string ``DeviceColumn.dtype`` uses (``"int64"``, ``"date32"``,
+``"string"``).  Every type parses, so a file with float or nested columns
+still opens and its other columns scan; :func:`schema_to_bytes` writes
+:data:`WRITABLE_TYPES` with the bytes pyarrow writes for the same fields.
 """
 
 from __future__ import annotations
@@ -28,11 +29,14 @@ FLAT_INT_TYPES = {
     "uint8": "<u1", "uint16": "<u2", "uint32": "<u4", "uint64": "<u8",
     "date32": "<i4",
 }
+# utf8 and binary, with 32- or 64-bit offsets: the arrow aliases
+STRING_TYPES = ("string", "binary", "large_string", "large_binary")
+WRITABLE_TYPES = (*FLAT_INT_TYPES, *STRING_TYPES)
 
 _METADATA_V5 = 4  # MetadataVersion.V5
 _HEADER_SCHEMA = 1  # MessageHeader.Schema
 # Type union ids (Schema.fbs); only Int and Date are read in detail, the
-# rest by name (enough to refuse them and to count their leaves)
+# rest by name (enough to scan or refuse them and to count their leaves)
 _T_INT, _T_DATE = 2, 8
 _TYPE_NAMES = {
     1: "null", 3: "float", 4: "binary", 5: "string", 6: "bool", 7: "decimal",
@@ -56,6 +60,14 @@ class Field:
     def is_flat_int(self) -> bool:
         return (
             self.dtype in FLAT_INT_TYPES
+            and not self.children
+            and not self.dictionary_encoded
+        )
+
+    @property
+    def is_flat_string(self) -> bool:
+        return (
+            self.dtype in STRING_TYPES
             and not self.children
             and not self.dictionary_encoded
         )
@@ -170,108 +182,122 @@ def deserialize_schema(buf: bytes) -> List[Field]:
 # writing
 
 
-class _Table:
-    """A flatbuffer table to write: ``scalars`` are (slot, struct format,
-    value); ``refs`` are (slot, child) with a child a _Table, a _Vector of
-    tables or a str."""
-
-    def __init__(self, scalars=(), refs=()):
-        self.scalars = list(scalars)
-        self.refs = list(refs)
-
-
-class _Vector:
-    def __init__(self, items: Sequence[_Table]):
-        self.items = list(items)
-
-
-class _FlatWriter:
-    """Lays objects out front to back: every child after its parent, so
-    every uoffset points forward, as flatbuffers requires."""
+class _Builder:
+    """A flatbuffers builder as the C++ library lays buffers out: back to
+    front, every scalar at its natural alignment, a table's vtable right
+    in front of it and shared with an equal earlier one, defaults left
+    out.  With objects created in Arrow C++'s order, the bytes equal
+    pyarrow's ``Schema.serialize``."""
 
     def __init__(self):
-        self.buf = bytearray()
+        self.data = bytearray()  # the buffer's tail; objects are prepended
+        self.minalign = 1
+        self.vtables: List[int] = []
 
-    def _pad(self, align: int) -> None:
-        self.buf += b"\0" * (-len(self.buf) % align)
+    def _size(self) -> int:
+        return len(self.data)
 
-    def _patch(self, at: int, target: int) -> None:
-        struct.pack_into("<I", self.buf, at, target - at)
+    def _prepend(self, b: bytes) -> None:
+        self.data[0:0] = b
 
-    def write(self, obj) -> int:
-        if isinstance(obj, str):
-            data = obj.encode("utf-8")
-            self._pad(4)
-            pos = len(self.buf)
-            self.buf += struct.pack("<I", len(data)) + data + b"\0"
-            return pos
-        if isinstance(obj, _Vector):
-            self._pad(4)
-            pos = len(self.buf)
-            self.buf += struct.pack("<I", len(obj.items)) + b"\0" * (4 * len(obj.items))
-            for j, item in enumerate(obj.items):
-                self._patch(pos + 4 + 4 * j, self.write(item))
-            return pos
-        return self._write_table(obj)
+    def _prealign(self, n: int, align: int) -> None:
+        """Pad so that the buffer is ``align``-aligned after ``n`` more bytes."""
+        if n:
+            self.minalign = max(self.minalign, align)
+            self._prepend(b"\0" * ((-(self._size() + n)) % align))
 
-    def _write_table(self, t: _Table) -> int:
-        fields = [(slot, fmt, v) for slot, fmt, v in t.scalars]
-        fields += [(slot, "<I", child) for slot, child in t.refs]
-        # widest first, so each field sits at its natural alignment
-        fields.sort(key=lambda f: -struct.calcsize(f[1]))
-        n_slots = 1 + max((f[0] for f in fields), default=-1)
-        offsets = [0] * n_slots
-        inline = 4
-        for slot, fmt, _v in fields:
-            size = struct.calcsize(fmt)
-            inline += -inline % size
-            offsets[slot] = inline
-            inline += size
-        inline += -inline % 4
-        vtable = struct.pack(f"<HH{n_slots}H", 4 + 2 * n_slots, inline, *offsets)
-        self._pad(2)
-        vt_pos = len(self.buf)
-        self.buf += vtable
-        self._pad(4)
-        pos = len(self.buf)
-        self.buf += struct.pack("<i", pos - vt_pos) + b"\0" * (inline - 4)
-        for slot, fmt, v in fields:
-            if fmt != "<I":
-                struct.pack_into(fmt, self.buf, pos + offsets[slot], v)
-        for slot, child in t.refs:
-            self._patch(pos + offsets[slot], self.write(child))
-        return pos
+    def _push(self, fmt: str, value) -> int:
+        self._prealign(struct.calcsize(fmt), struct.calcsize(fmt))
+        self._prepend(struct.pack(fmt, value))
+        return self._size()
+
+    def _refer(self, off: int) -> int:
+        self._prealign(4, 4)
+        return self._size() - off + 4
+
+    def string(self, s: str) -> int:
+        b = s.encode("utf-8")
+        self._prealign(len(b) + 1, 4)
+        self._prepend(b + b"\0")
+        return self._push("<I", len(b))
+
+    def vector(self, offsets: Sequence[int]) -> int:
+        self._prealign(4 * len(offsets), 4)
+        for off in reversed(offsets):
+            self._push("<I", self._refer(off))
+        return self._push("<I", len(offsets))
+
+    def table(self, fields) -> int:
+        """``fields`` in the order flatc's ``Create*`` adds them (widest
+        first, later ids first): (id, struct format, value, default) for
+        scalars, (id, None, object offset, None) for references."""
+        start = self._size()
+        locs = []
+        for fid, fmt, value, default in fields:
+            if fmt is None:
+                loc = self._push("<I", self._refer(value))
+            elif value == default:
+                continue
+            else:
+                loc = self._push(fmt, value)
+            locs.append((loc, 4 + 2 * fid))
+        table = self._push("<i", 0)
+        vt = bytearray(max((v for _l, v in locs), default=2) + 2)
+        struct.pack_into("<HH", vt, 0, len(vt), table - start)
+        for loc, voff in locs:
+            struct.pack_into("<H", vt, voff, table - loc)
+        use = next((off for off in self.vtables
+                    if self.data[self._size() - off : self._size() - off + len(vt)] == vt), None)
+        if use is None:
+            self._prepend(bytes(vt))
+            use = self._size()
+            self.vtables.append(use)
+        struct.pack_into("<i", self.data, self._size() - table, use - table)
+        return table
+
+    def finish(self, root: int) -> bytes:
+        self._prealign(4, self.minalign)
+        self._push("<I", self._refer(root))
+        return bytes(self.data)
 
 
-def _field_table(f: Field) -> _Table:
-    if not f.is_flat_int:
-        raise NotYetImplementedError(
-            f"writing column {f.name!r} of type {f.dtype} "
-            "(ROADMAP.md 'Modules to port': scan_file, further types)"
-        )
+# alias → Type union id of the types without a type table payload
+_EMPTY_TYPE_IDS = {"binary": 4, "string": 5, "large_binary": 19, "large_string": 20}
+
+
+def _type_table(b: _Builder, f: Field) -> Tuple[int, int]:
+    """(Type union id, offset of the type table) of a writable field."""
+    if f.dtype in _EMPTY_TYPE_IDS:
+        return _EMPTY_TYPE_IDS[f.dtype], b.table([])
     if f.dtype == "date32":
-        type_id, type_table = _T_DATE, _Table(scalars=[(0, "<h", 0)])  # DAY
-    else:
-        signed = not f.dtype.startswith("u")
-        width = int(f.dtype.split("int")[1])
-        type_id = _T_INT
-        type_table = _Table(scalars=[(0, "<i", width), (1, "<B", int(signed))])
-    return _Table(
-        scalars=[(1, "<B", int(f.nullable)), (2, "<B", type_id)],
-        refs=[(0, f.name), (3, type_table), (5, _Vector([]))],
-    )
+        return _T_DATE, b.table([(0, "<h", 0, 1)])  # unit DAY (default MILLISECOND)
+    signed = not f.dtype.startswith("u")
+    width = int(f.dtype.split("int")[1])
+    return _T_INT, b.table([(0, "<i", width, 0), (1, "<B", int(signed), 0)])
 
 
 def schema_to_bytes(fields: Sequence[Field]) -> bytes:
     """Fields → the bare flatbuffers ``Message`` (MetadataVersion V5),
-    zero-padded to a multiple of 8 bytes as pyarrow pads it."""
-    schema = _Table(refs=[(1, _Vector([_field_table(f) for f in fields]))])
-    message = _Table(
-        scalars=[(0, "<h", _METADATA_V5), (1, "<B", _HEADER_SCHEMA)],
-        refs=[(2, schema)],
-    )
-    b = _FlatWriter()
-    b.buf += b"\0" * 4  # root uoffset
-    b._patch(0, b.write(message))
-    b._pad(8)
-    return bytes(b.buf)
+    zero-padded to a multiple of 8 bytes: pyarrow's bytes for the same
+    schema.  Writes :data:`WRITABLE_TYPES`."""
+    b = _Builder()
+    offsets = []
+    for f in fields:
+        if f.dtype not in WRITABLE_TYPES or f.children or f.dictionary_encoded:
+            raise NotYetImplementedError(
+                f"writing column {f.name!r} of type {f.dtype} "
+                "(ROADMAP.md 'Modules to port': scan_file, further types)"
+            )
+        # Arrow C++ creates the type table, the name, the children, the field
+        type_id, type_table = _type_table(b, f)
+        name = b.string(f.name)
+        children = b.vector([])
+        offsets.append(b.table([
+            (5, None, children, None), (3, None, type_table, None), (0, None, name, None),
+            (2, "<B", type_id, 0), (1, "<B", int(f.nullable), 0),
+        ]))
+    schema = b.table([(1, None, b.vector(offsets), None)])
+    message = b.table([(2, None, schema, None), (0, "<h", _METADATA_V5, 0),
+                       (1, "<B", _HEADER_SCHEMA, 0)])
+    out = b.finish(message)
+    return out + b"\0" * (-len(out) % 8)

@@ -1,19 +1,21 @@
-"""Writing flat integer columns to a strawboat file, without pyarrow.
+"""Writing flat integer and string columns to a strawboat file, without
+pyarrow.
 
 Counterpart of ``NativeWriter`` / ``write_file`` (``strawboat_tpu/write/
 writer.py``) and ``write_simple`` / ``_validity_prelude``
-(``strawboat_tpu/write/serialize.py``) for flat integer and date32
-columns.  The layout is the reference's:
+(``strawboat_tpu/write/serialize.py``) for flat integer, date32, utf8 and
+binary columns.  The layout is the reference's:
 
     "ARROW2" + 2 zero bytes
     per column, per page of ``max_page_size`` rows:
         [u32 def_len][bit-packed validity]   (nullable fields only)
-        [9-byte header][body]                (``codecs/integer.py``)
+        [9-byte header][body]                (``codecs/integer.py``,
+                                              ``codecs/binary.py``)
+    zone block (``options.zone_maps``: ``exec/pruning.py``)
     schema (bare flatbuffer), metas, [u32 schema_size][u32 meta_size],
     EOS marker (0xFFFFFFFF, then 0 as u32)
 
-Under the same forcing flags the page bytes and the metas equal the JAX
-writer's.  No zone maps.
+Under the same forcing flags the file's bytes equal the JAX writer's.
 """
 
 from __future__ import annotations
@@ -25,23 +27,81 @@ from typing import BinaryIO, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 
 from ..codecs import WriteOptions
+from ..codecs.binary import BinaryColumn, compress_binary, slice_keys
 from ..codecs.integer import compress_integer
 from ..constants import ARROW_MAGIC, CONTINUATION_MARKER
 from ..errors import NotYetImplementedError, OutOfSpecError
+from ..exec.pruning import ColumnZones, PageZone, compute_zones, zone_trailer
 from ..meta import ColumnMeta, PageMeta, serialize_metas
-from ..schema import FLAT_INT_TYPES, Field, schema_to_bytes
+from ..schema import FLAT_INT_TYPES, WRITABLE_TYPES, Field, schema_to_bytes
 from ..util.hybrid_rle import encode_validity_bitpacked
 
 
-def _numpy_alias(dtype: np.dtype) -> str:
+def _numpy_alias(arr: np.ndarray) -> str:
+    """The arrow type of a numpy column, as a ``pa.array`` of it has:
+    unicode → string, bytes → binary, an object array by its values."""
+    dtype = arr.dtype
     if dtype.kind == "M" and np.datetime_data(dtype)[0] == "D":
         return "date32"
     if dtype.kind in "iu":
         return str(dtype)
+    if dtype.kind == "U":
+        return "string"
+    if dtype.kind == "S":
+        return "binary"
+    if dtype.kind == "O":
+        kinds = {type(v) for v in arr if v is not None}
+        if kinds <= {str}:
+            return "string"
+        if kinds <= {bytes}:
+            return "binary"
+        raise OutOfSpecError(f"an object column of {sorted(k.__name__ for k in kinds)}")
     raise NotYetImplementedError(
-        f"writing numpy dtype {dtype}: the port writes {', '.join(FLAT_INT_TYPES)} "
+        f"writing numpy dtype {dtype}: the port writes {', '.join(WRITABLE_TYPES)} "
         "(ROADMAP.md 'Modules to port': scan_file, further types)"
     )
+
+
+def _fixed_width_column(mat: np.ndarray, null: Optional[np.ndarray]) -> BinaryColumn:
+    """The ``(n, width)`` uint8 rows of an ``S`` array (numpy drops
+    trailing NUL bytes, so a value's length is that of its bytes before
+    the trailing NULs) → byte slices; null rows take empty slices.  At most
+    7 bytes wide, the u64 keys come from the padded rows in one copy."""
+    n, width = mat.shape
+    nz = mat != 0
+    lens = np.where(nz.any(axis=1), width - np.argmax(nz[:, ::-1], axis=1), 0).astype(np.int64)
+    if null is not None:
+        lens[null] = 0
+    inside = np.arange(width) < lens[:, None]
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    keys = None
+    if width <= 7:
+        padded = np.zeros((n, 8), dtype=np.uint8)
+        padded[:, :width] = np.where(inside, mat, 0)
+        padded[:, 7] = lens
+        keys = padded.view("<u8").reshape(n)
+    return BinaryColumn(offsets, mat[inside], keys)
+
+
+def _binary_column(arr: np.ndarray, null: Optional[np.ndarray]) -> BinaryColumn:
+    """A unicode, bytes or object column → UTF-8 / raw byte slices."""
+    if arr.dtype.kind == "U":
+        points = arr.view(np.uint32).reshape(len(arr), -1)
+        if not points.size or int(points.max()) < 128:
+            # ASCII: each code point is its UTF-8 byte
+            return _fixed_width_column(points.astype(np.uint8), null)
+        arr = np.char.encode(arr, "utf-8")
+    if arr.dtype.kind == "S":
+        return _fixed_width_column(arr.view(np.uint8).reshape(len(arr), arr.dtype.itemsize), null)
+    items = [b"" if (v is None or (null is not None and null[i])) else
+             (v.encode("utf-8") if isinstance(v, str) else bytes(v)) for i, v in enumerate(arr)]
+    lens = np.array([len(v) for v in items], dtype=np.int64)
+    offsets = np.zeros(len(items) + 1, dtype=np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    values = np.frombuffer(b"".join(items), np.uint8)
+    keys = slice_keys(offsets[:-1], lens, values) if len(lens) and lens.max() <= 7 else None
+    return BinaryColumn(offsets, values, keys)
 
 
 def _prepare(columns: Mapping[str, np.ndarray], schema: Optional[Sequence[Field]]):
@@ -50,9 +110,7 @@ def _prepare(columns: Mapping[str, np.ndarray], schema: Optional[Sequence[Field]
     schema every field is nullable, as in a ``pa.table`` of the columns."""
     names = list(columns)
     if schema is None:
-        schema = [
-            Field(n, _numpy_alias(np.ma.getdata(columns[n]).dtype)) for n in names
-        ]
+        schema = [Field(n, _numpy_alias(np.ma.getdata(columns[n]))) for n in names]
     schema = list(schema)
     if [f.name for f in schema] != names:
         raise OutOfSpecError(f"schema names {[f.name for f in schema]} != columns {names}")
@@ -69,9 +127,21 @@ def _prepare(columns: Mapping[str, np.ndarray], schema: Optional[Sequence[Field]
         arr = np.asarray(arr)
         if arr.ndim != 1:
             raise OutOfSpecError(f"column {f.name!r} must be 1-D, got shape {arr.shape}")
+        if arr.dtype.kind == "O":
+            none = np.array([v is None for v in arr], dtype=bool)
+            if none.any():
+                validity = ~none if validity is None else (validity & ~none)
+        if validity is not None and not f.nullable:
+            raise OutOfSpecError(f"column {f.name!r} has nulls but is not nullable")
+        if rows is not None and len(arr) != rows:
+            raise OutOfSpecError(f"column {f.name!r} has {len(arr)} rows, not {rows}")
+        rows = len(arr)
+        if f.is_flat_string and arr.dtype.kind in "USO":
+            out.append((_binary_column(arr, None if validity is None else ~validity), validity))
+            continue
         if not f.is_flat_int:
             raise NotYetImplementedError(
-                f"writing column {f.name!r} of type {f.dtype} "
+                f"writing column {f.name!r} of type {f.dtype} from numpy {arr.dtype} "
                 "(ROADMAP.md 'Modules to port': scan_file, further types)"
             )
         if arr.dtype.kind == "M":  # days since the epoch
@@ -84,32 +154,37 @@ def _prepare(columns: Mapping[str, np.ndarray], schema: Optional[Sequence[Field]
             if not np.can_cast(arr.dtype, storage):
                 raise OutOfSpecError(f"column {f.name!r}: {arr.dtype} does not fit {f.dtype}")
             arr = arr.astype(storage)
-        if validity is not None and not f.nullable:
-            raise OutOfSpecError(f"column {f.name!r} has nulls but is not nullable")
-        if rows is not None and len(arr) != rows:
-            raise OutOfSpecError(f"column {f.name!r} has {len(arr)} rows, not {rows}")
-        rows = len(arr)
         out.append((np.ascontiguousarray(arr), validity))
     return schema, out, rows or 0
 
 
-def write_page(values: np.ndarray, validity: Optional[np.ndarray], nullable: bool,
+def write_page(values, validity: Optional[np.ndarray], field: Field,
                options: WriteOptions) -> bytes:
     """One simple page: the validity prelude of a nullable field, then the
-    integer page (``write_simple``)."""
+    integer or binary page (``write_simple``)."""
     out = b""
-    if nullable:
+    if field.nullable:
         if validity is None:
             out = np.uint32(0).tobytes()
         else:
             body = encode_validity_bitpacked(validity)
             out = np.uint32(len(body)).tobytes() + body
+    if isinstance(values, BinaryColumn):
+        return out + compress_binary(values, validity, options, field.dtype.startswith("large_"))
     return out + compress_integer(values, validity, options)
 
 
-def _encode_pages(fields, data, spans, options) -> List[List[bytes]]:
+def _page_slice(values, off: int, ln: int):
+    if isinstance(values, BinaryColumn):
+        keys = None if values.keys is None else values.keys[off : off + ln]
+        return BinaryColumn(values.offsets[off : off + ln + 1], values.values, keys)
+    return values[off : off + ln]
+
+
+def _encode_pages(fields, data, spans, options):
     """Every page of every column, encoded in threads (the codecs' numpy
-    and native loops release the GIL)."""
+    and native loops release the GIL) → (pages per column, the zone of
+    each page of each integer column when ``options.zone_maps``)."""
     jobs: List[Tuple[int, int, int]] = [
         (ci, off, ln) for ci in range(len(fields)) for off, ln in spans
     ]
@@ -117,21 +192,32 @@ def _encode_pages(fields, data, spans, options) -> List[List[bytes]]:
     def encode(job):
         ci, off, ln = job
         values, validity = data[ci]
+        page_values = _page_slice(values, off, ln)
         page_validity = None if validity is None else validity[off : off + ln]
-        return write_page(values[off : off + ln], page_validity, fields[ci].nullable, options)
+        zone = None
+        if options.zone_maps and not isinstance(values, BinaryColumn):
+            zone = PageZone(*compute_zones(page_values, page_validity), ln)
+        return write_page(page_values, page_validity, fields[ci], options), zone
 
     workers = min(len(jobs), os.cpu_count() or 1)
     if workers <= 1:
-        pages = [encode(j) for j in jobs]
+        results = [encode(j) for j in jobs]
     else:
         with cf.ThreadPoolExecutor(max_workers=workers) as pool:
-            pages = list(pool.map(encode, jobs))
+            results = list(pool.map(encode, jobs))
     per_col = len(spans)
-    return [pages[ci * per_col : (ci + 1) * per_col] for ci in range(len(fields))]
+    pages, zones = [], {}
+    for ci, f in enumerate(fields):
+        col = results[ci * per_col : (ci + 1) * per_col]
+        pages.append([p for p, _z in col])
+        if col and col[0][1] is not None:
+            zones[f.name] = ColumnZones(f.name, [z for _p, z in col])
+    return pages, zones
 
 
-def _write_all(f: BinaryIO, fields, pages, spans) -> List[ColumnMeta]:
-    """Magic, pages, then the footer; returns the column metas."""
+def _write_all(f: BinaryIO, fields, pages, spans, zones) -> List[ColumnMeta]:
+    """Magic, pages, the zone block, then the footer; returns the column
+    metas."""
     f.write(ARROW_MAGIC + b"\x00\x00")
     offset = len(ARROW_MAGIC) + 2
     metas = []
@@ -142,6 +228,8 @@ def _write_all(f: BinaryIO, fields, pages, spans) -> List[ColumnMeta]:
         for p in col_pages:
             f.write(p)
             offset += len(p)
+    if zones:
+        f.write(zone_trailer(zones))
     schema_bytes = schema_to_bytes(fields)
     meta_bytes = serialize_metas(metas)
     f.write(schema_bytes)
@@ -162,18 +250,22 @@ def write_file(
     """Write ``{name: numpy column}`` as one strawboat file (one row group,
     pages of ``options.max_page_size`` rows) and return the column metas.
 
-    numpy integer columns keep their type and ``datetime64[D]`` becomes
-    date32; ``schema`` (a list of :class:`~strawboat_tpu_torch.schema.Field`)
-    overrides the types and the nullability."""
+    numpy integer columns keep their type, ``datetime64[D]`` becomes
+    date32, unicode arrays utf8 (``"string"``) and bytes arrays binary; an
+    object array of ``str`` or ``bytes`` takes ``None`` for null.
+    ``schema`` (a list of :class:`~strawboat_tpu_torch.schema.Field`)
+    overrides the types (``"large_string"``, ``"large_binary"``) and the
+    nullability.  ``options.zone_maps`` writes a zone of every page of the
+    integer and date32 columns."""
     options = options or WriteOptions()
     fields, data, rows = _prepare(columns, schema)
     step = max(min(options.max_page_size or rows, rows), 1)
     spans = [(off, min(step, rows - off)) for off in range(0, rows, step)]
-    pages = _encode_pages(fields, data, spans, options)
+    pages, zones = _encode_pages(fields, data, spans, options)
     own = isinstance(path_or_file, (str, os.PathLike))
     f = open(path_or_file, "wb") if own else path_or_file
     try:
-        return _write_all(f, fields, pages, spans)
+        return _write_all(f, fields, pages, spans, zones)
     finally:
         if own:
             f.close()

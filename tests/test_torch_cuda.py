@@ -147,3 +147,41 @@ def test_q3_general_path_on_card(cuda, tmp_path, monkeypatch):
     rt = load_resident(lp, cuda)
     assert int(tpch.q6(rt)) == tpch.q6_numpy_reference(cols)
     assert bu.bitunpack_tiled.launches > before
+
+
+def test_k3_on_string_index_pages_matches_plain_on_card(cuda, tmp_path, monkeypatch):
+    """The string columns' DICT index pages (widths 1-3) through K3 on the
+    card equal the plain version, and the scan of the file on the card
+    equals the scan on the CPU: codes, dictionary order, validity."""
+    from strawboat_tpu_torch.benchsuite import tpch
+    from strawboat_tpu_torch.constants import Compression
+    from strawboat_tpu_torch.exec import scan_file
+    from strawboat_tpu_torch.exec.scan import k3_launch_groups
+
+    monkeypatch.setenv("STRAWBOAT_DICT_COMPRESSION", "1")
+    monkeypatch.setenv("STRAWBOAT_BITPACK_COMPRESSION", "1")
+    cols = tpch.generate_lineitem(1.0, rows=300_000)
+    path = str(tmp_path / "lineitem.str")
+    tpch.write_lineitem(path, cols, max_page_size=8192, zone_maps=True)
+    strings = ["l_returnflag", "l_linestatus", "l_shipmode"]
+    groups = k3_launch_groups(path, strings)
+    assert {b for _c, (_k, b), _p, _w in groups} >= {2, 3}
+    for _col, (codec, b), _pages, words in groups:
+        assert codec == Compression.DICT
+        w = torch.from_numpy(words.view(np.int32)).to(cuda)
+        before = bu.bitunpack_natural.launches
+        got = bu.bitunpack_natural(w, 0, b)
+        torch.cuda.synchronize()
+        assert bu.bitunpack_natural.launches == before + 1
+        assert torch.equal(got.cpu(), bu.bitunpack_natural_plain(w.cpu(), 0, b)), b
+    before = bu.bitunpack_natural.launches
+    on_card = scan_file(path, cuda, columns=strings)
+    torch.cuda.synchronize()
+    assert bu.bitunpack_natural.launches == before + len(groups)
+    on_cpu = scan_file(path, "cpu", columns=strings)
+    for k in strings:
+        assert on_card[k].values.device.type == "cuda"
+        assert torch.equal(on_card[k].values.cpu(), on_cpu[k].values), k
+        assert list(on_card[k].dictionary) == list(on_cpu[k].dictionary), k
+        d = np.array([v.decode() for v in on_card[k].dictionary])
+        np.testing.assert_array_equal(d[on_card[k].values.cpu().numpy()], cols[k], err_msg=k)

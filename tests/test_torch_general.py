@@ -670,24 +670,27 @@ def test_query_api_matches_jax(tmp_path):
 
 
 def test_file_with_zone_block_raises_under_a_filter(tmp_path):
-    """The reference prunes pages of a file with zone maps under a filter;
-    the port cannot read zone blocks yet and raises instead of scanning
-    unpruned.  Without a filter, or on a file without a zone block, it
-    scans whole with the reference's answers."""
-    from strawboat_tpu_torch.exec.scan import has_zone_block
+    """A file with zone maps under a filter: the port prunes pages as the
+    reference does (it used to raise here) and answers alike; a predicate
+    it cannot use raises rather than scan unpruned.  Without a filter, or
+    on a file without a zone block, it scans whole with the reference's
+    answers."""
+    from strawboat_tpu_torch.exec.pruning import Comparison, read_zones
 
     cols = _q_api_cols()
     zpath = _write(tmp_path / "z.str", cols, zone_maps=True)
     plain = _write(tmp_path / "p.str", cols)
-    assert has_zone_block(zpath) and not has_zone_block(plain)
-    with pytest.raises(NotYetImplementedError, match="zone"):
-        Query(zpath, device="cpu").filter(col("d") < 600).agg(s=("sum", "v")).run()
-    with pytest.raises(NotYetImplementedError, match="zone"):
+    assert read_zones(zpath) is not None and read_zones(plain) is None
+    got, want = _both_queries(zpath, lambda q, c: q.filter(c("d") < 600).agg(s=("sum", "v")))
+    assert set(got) == set(want) and int(got["s"]) == int(want["s"])
+    pruned = scan_file(zpath, "cpu", predicates=[Comparison("d", "lt", 600)])
+    assert pruned.num_rows < len(cols["d"])
+    with pytest.raises(TypeError):
         scan_file(zpath, "cpu", predicates=["d < 600"])
     got, want = _both_queries(zpath, lambda q, c: q.group_by("k", num_groups=8).agg(s=("sum", "v")))
     _assert_same(got, want)
-    # predicates on a file without zone maps are ignored, as in the reference
-    t = scan_file(plain, "cpu", predicates=["d < 600"])
+    # predicates on a file without zone maps prune nothing, as in the reference
+    t = scan_file(plain, "cpu", predicates=[Comparison("d", "lt", 600)])
     np.testing.assert_array_equal(t["d"].values.numpy(), cols["d"])
 
 

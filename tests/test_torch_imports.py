@@ -2,13 +2,14 @@
 
 Runs in a subprocess: this test process already has JAX loaded (conftest).
 The child imports every module of the port, runs Q6 and Q1 over a small
-resident table built from numpy columns on the CPU, writes a small file
-with the port's writer and scans it back (dictionary and bit-packed
-pages), runs a grouped ``Query`` over the file, the Q3-shaped join of it
-with an orders file and ``load_resident`` of it, and checks
-``sys.modules`` afterwards: no ``jax``, no ``pyarrow``,
-no ``strawboat_tpu`` or ``strawboat_tpu.*``.  A source check holds every
-port file and ``chip_smoke.py`` to the same.
+resident table built from numpy columns on the CPU, writes the ten
+lineitem columns (three utf8) with zone maps through the port's writer
+and scans them back (dictionary and bit-packed pages, string codes),
+scans Q6 pruned by the zone maps and in chunks, runs Q1 and a grouped
+``Query`` over the file, the Q3-shaped join of it with an orders file and
+``load_resident`` of it, and checks ``sys.modules`` afterwards: no
+``jax``, no ``pyarrow``, no ``strawboat_tpu`` or ``strawboat_tpu.*``.  A
+source check holds every port file and ``chip_smoke.py`` to the same.
 """
 
 import os
@@ -33,7 +34,7 @@ for m in {modules!r}:
     importlib.import_module(m)
 from strawboat_tpu_torch.benchsuite import tpch
 from strawboat_tpu_torch.exec import Query, col, load_resident, make_resident, scan_file
-from strawboat_tpu_torch.exec.scan import host_values
+from strawboat_tpu_torch.exec.scan import host_values, scan_chunks
 cols = tpch.generate_lineitem(1.0, rows=5000)
 rt = make_resident({{k: cols[k] for k in tpch.Q1_Q6_COLUMNS}}, "cpu", tile=512)
 assert int(tpch.q6(rt)) == tpch.q6_numpy_reference(cols)
@@ -42,11 +43,19 @@ os.environ["STRAWBOAT_DICT_COMPRESSION"] = "1"
 os.environ["STRAWBOAT_BITPACK_COMPRESSION"] = "1"
 with tempfile.TemporaryDirectory() as d:
     path = os.path.join(d, "lineitem.str")
-    tpch.write_lineitem(path, cols, max_page_size=1024)
+    tpch.write_lineitem(path, cols, max_page_size=1024, zone_maps=True)
     table = scan_file(path, "cpu")
     for k in tpch.INT_COLUMNS:
         assert np.array_equal(host_values(table[k]), cols[k]), k
+    for k in ("l_returnflag", "l_linestatus", "l_shipmode"):
+        words = np.array([v.decode() for v in table[k].dictionary])
+        assert np.array_equal(words[host_values(table[k])], cols[k]), k
     assert int(tpch.q6(table)) == tpch.q6_numpy_reference(cols)
+    pruned = scan_file(path, "cpu", predicates=tpch.q6_pruning_predicates())
+    assert pruned.num_rows < 5000 and int(tpch.q6(pruned)) == tpch.q6_numpy_reference(cols)
+    chunks = list(scan_chunks(path, 2, "cpu", predicates=tpch.q6_pruning_predicates()))
+    assert sum(c.num_rows for c in chunks) == pruned.num_rows
+    assert tpch.q1_rows(tpch.q1_query(path, "cpu")) == tpch.q1_numpy_reference(cols)
     res = (Query(path, device="cpu").filter(col("l_shipdate") <= 2467)
            .group_by("l_suppkey", num_groups=8).agg(n=("count", "l_tax")).run())
     assert int(res["n"].sum()) == int((cols["l_shipdate"] <= 2467).sum())
@@ -70,6 +79,8 @@ def test_port_modules_listed():
     assert "strawboat_tpu_torch.exec.scan" in MODULES
     assert "strawboat_tpu_torch.write.writer" in MODULES
     assert "strawboat_tpu_torch.schema" in MODULES
+    assert "strawboat_tpu_torch.codecs.binary" in MODULES
+    assert "strawboat_tpu_torch.exec.pruning" in MODULES
 
 
 def test_port_runs_without_jax_or_pyarrow():

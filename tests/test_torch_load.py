@@ -240,7 +240,7 @@ def test_q6_over_both_loaders_equals_numpy(tmp_path, flags, kind):
            "bitpack": ("STRAWBOAT_BITPACK_COMPRESSION",)}[kind])
     cols = tpch.generate_lineitem(1.0, rows=30_000)
     path = str(tmp_path / "li.str")
-    tpch.write_lineitem(path, cols, max_page_size=4096)
+    tpch.write_lineitem(path, cols, max_page_size=4096, columns=tpch.INT_COLUMNS)
     ints = {k: cols[k] for k in tpch.INT_COLUMNS}
     if kind == "dict":
         rt = load_resident(path, "cpu", tile=TILE)

@@ -204,8 +204,14 @@ def test_scan_of_tpch_bench_file(tmp_path, flags):
     cols = tpch.generate_lineitem(1.0, seed=0, rows=140_000)
     got = _check_scan(path, cols, columns=list(tpch.INT_COLUMNS))
     assert int(tpch.q6(got)) == tpch.q6_numpy_reference(cols)
-    with pytest.raises(NotYetImplementedError):
-        scan_file(path, "cpu")  # the string columns wait for the binary codecs
+    # the string columns scan as dictionary codes, as in the JAX scan
+    whole = scan_file(path, "cpu")
+    ref = ref_scan(path)
+    for k in ("l_returnflag", "l_linestatus", "l_shipmode"):
+        np.testing.assert_array_equal(whole[k].values.numpy(), np.asarray(ref[k].values))
+        assert list(whole[k].dictionary) == ref[k].dictionary.to_pylist()
+        d = np.array([v.decode() for v in whole[k].dictionary])
+        np.testing.assert_array_equal(d[whole[k].values.numpy()], cols[k])
 
 
 # ---------------------------------------------------------------------------
@@ -284,19 +290,32 @@ def test_writer_raises_for_what_it_does_not_have(tmp_path, flags):
 
 
 def test_scan_raises_for_what_it_does_not_have(tmp_path, flags):
-    """Predicates prune only a file with a zone block, which the port
-    cannot read yet: it raises there; a file without one scans whole, as
-    the reference does."""
+    """Predicates prune a file with a zone block and leave a file without
+    one whole, as the reference does; a predicate the port cannot use
+    raises rather than scan unpruned; float columns, and nested columns in
+    ``scan_chunks``, are not ported yet."""
+    from strawboat_tpu_torch.exec.pruning import Comparison
+
     path = str(tmp_path / "x.str")
     write_file(path, {"a": np.arange(256, dtype=np.int32)})
-    np.testing.assert_array_equal(
-        scan_file(path, "cpu", predicates=[("a", "lt", 3)])["a"].values.numpy(), np.arange(256))
+    lt3 = [Comparison("a", "lt", 3)]
+    np.testing.assert_array_equal(scan_file(path, "cpu", predicates=lt3)["a"].values.numpy(),
+                                  np.arange(256))
     zpath = str(tmp_path / "z.str")
-    ref_write(zpath, _arrow({"a": np.arange(256, dtype=np.int32)}), options=RefOptions(zone_maps=True))
-    with pytest.raises(NotYetImplementedError):
+    ref_write(zpath, _arrow({"a": np.arange(256, dtype=np.int32)}),
+              options=RefOptions(zone_maps=True, max_page_size=64))
+    np.testing.assert_array_equal(scan_file(zpath, "cpu", predicates=lt3)["a"].values.numpy(),
+                                  np.arange(64))
+    with pytest.raises(TypeError):
         scan_file(zpath, "cpu", predicates=[("a", "lt", 3)])
+    fpath = str(tmp_path / "f.str")
+    ref_write(fpath, pa.table({"f": pa.array([1.5, 2.5])}))
     with pytest.raises(NotYetImplementedError):
-        port_scan.scan_chunks(path, 1)
+        scan_file(fpath, "cpu")
+    npath = str(tmp_path / "n.str")
+    ref_write(npath, pa.table({"l": pa.array([[1], [2, 3]])}))
+    with pytest.raises(NotYetImplementedError):
+        next(port_scan.scan_chunks(npath, 1, "cpu"))
     with pytest.raises(ValueError):
         scan_file(path, None)
 
@@ -321,13 +340,14 @@ def test_lineitem_scan_q6_and_k3_groups(tmp_path, flags):
     for names in ((DICT, BP), (BP,)):
         flags(names)
         path = str(tmp_path / f"lineitem_{len(names)}.str")
-        tpch.write_lineitem(path, cols, max_page_size=8192)
+        tpch.write_lineitem(path, cols, max_page_size=8192, columns=tpch.INT_COLUMNS)
         before = bu.bitunpack_natural.launches
         got = _check_scan(path, {k: cols[k] for k in tpch.INT_COLUMNS})
         assert bu.bitunpack_natural.launches == before
         assert int(tpch.q6(got)) == tpch.q6_numpy_reference(cols)
         jobs = {}
-        for file_bytes, meta, field in port_scan._file_columns(path, None):
+        schema, metas, file_bytes = port_scan._open(path)
+        for meta, field in port_scan._selected(schema, metas, None):
             plans = port_scan._plan_pages(file_bytes, meta, field.nullable)
             storage = np.dtype(port_scan.FLAT_INT_TYPES[field.dtype])
             _raw, k3, bpv = port_scan._sort_jobs(plans, storage)
