@@ -57,9 +57,23 @@ the whole lineitem file (K1's and K3's launches are counted over 13):
    ``tpch.q1_query`` over the file == numpy; ``load_resident`` of the ten
    columns with the fused Q1 and Q6 == numpy;
 
+the typed lineitem files (K1's and K3's launches are counted over 14):
+
+14. lineitem_typed — the ten lineitem columns with the money columns
+   typed: as ``decimal128(15, 2)`` under the ``dict`` flags with zone maps
+   (whole scan, every column equal to the generated one in unscaled ints;
+   Q6 over a scan pruned by the l_shipdate zones, Q1 through ``Query``
+   over the file, ``load_resident`` with the fused Q1 and Q6: all exact),
+   and as float64 under no flag (raw pages, through the streamed feed)
+   with zone maps (scanned whole twice; Q6 and Q1 over the scan, then
+   ``make_resident`` of the scan and the resident Q6 / Q1 through K1:
+   counts exact, sums and averages to rtol 1e-12); then l_extendedprice
+   as float64 under the PATAS flag and ``l_linestatus == "F"`` as a bool
+   column, written and scanned bit for bit;
+
 and last:
 
-14. k2_k0  — K2 and K0 bit-exact against their plain versions (b = 1..32),
+15. k2_k0  — K2 and K0 bit-exact against their plain versions (b = 1..32),
    then (their launches counted) l_shipdate's bit-packed pages decoded
    through K2's and K0's natural-order entry points == the generated column;
    each width group's lane count, times and bound are printed.
@@ -302,7 +316,8 @@ def phase_kernel_natural(device, seed: int) -> dict:
 def forcing(flags):
     """Set the STRAWBOAT_*_COMPRESSION flags for the block, then restore."""
     keys = ("STRAWBOAT_DICT_COMPRESSION", "STRAWBOAT_BITPACK_COMPRESSION",
-            "STRAWBOAT_RLE_COMPRESSION", "STRAWBOAT_FREQ_COMPRESSION")
+            "STRAWBOAT_RLE_COMPRESSION", "STRAWBOAT_FREQ_COMPRESSION",
+            "STRAWBOAT_PATAS_COMPRESSION")
     saved = {k: os.environ.pop(k, None) for k in keys}
     os.environ.update(flags)
     try:
@@ -645,9 +660,10 @@ def _host_column(c) -> np.ndarray:
 
 
 def _no_flag_scan(cols, tmpdir, device) -> dict:
-    """The ten columns written under no flag (raw NONE pages: the string
-    rows encode on the host page by page), scanned whole twice: the first
-    scan checked against the generated columns, the second timed alone."""
+    """The ten columns written under no flag (raw NONE pages: the integer
+    columns stream, the string rows encode on the host page by page),
+    scanned whole once and checked against the generated columns
+    (``scripts/torch_feed_compare.py`` times the scans of this file)."""
     from strawboat_tpu_torch.benchsuite import tpch
     from strawboat_tpu_torch.exec import scan_file
 
@@ -664,10 +680,7 @@ def _no_flag_scan(cols, tmpdir, device) -> dict:
         if not np.array_equal(_host_column(table[k]), cols[k]):
             raise AssertionError(f"scanned column {k} of the no-flag file != the generated column")
     del table
-    t0 = time.perf_counter()
-    scan_file(path, device)
-    torch.cuda.synchronize()
-    out.update(equal_to_numpy=True, second_scan_s=time.perf_counter() - t0)
+    out["equal_to_numpy"] = True
     os.remove(path)
     return out
 
@@ -744,6 +757,139 @@ def phase_lineitem_full(cols, tmpdir, device) -> str:
     emit("lineitem_full", rows=SF10_ROWS, page_rows=PAGE_ROWS, flags=FILES["dict"], zone_maps=True,
          **facts, max_memory_allocated=torch.cuda.max_memory_allocated(), nvidia_smi=nvidia_smi())
     return path
+
+
+def _close(what: str, got, want, exact: bool) -> None:
+    """An answer against numpy: equal when ``exact``, else to rtol 1e-12."""
+    if exact:
+        _check_equal(what, got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-12, err_msg=what)
+
+
+def _q1_typed(what: str, got, want, exact: bool) -> None:
+    if list(got) != list(want):
+        raise AssertionError(f"{what}: groups {list(got)} != numpy {list(want)}")
+    for key, aggs in want.items():
+        for name, w in aggs.items():
+            _close(f"{what} {key} {name}", got[key][name], w,
+                   exact and not name.startswith("avg_"))
+
+
+def _check_columns(what: str, table, want) -> None:
+    for k, w in want.items():
+        got = _host_column(table[k])
+        if (w.dtype.kind != "U" and got.dtype != w.dtype) or not np.array_equal(got, w):
+            raise AssertionError(f"{what}: column {k} != the generated column")
+
+
+def _write_typed(path, cols, flags, money) -> dict:
+    from strawboat_tpu_torch.benchsuite import tpch
+
+    with forcing(flags):
+        t0 = time.perf_counter()
+        tpch.write_lineitem(path, cols, max_page_size=PAGE_ROWS, zone_maps=True, money=money)
+    return {"write_s": time.perf_counter() - t0, "bytes": os.path.getsize(path), "flags": flags}
+
+
+def _timed_scan(path, device, **scan):
+    from strawboat_tpu_torch.exec import scan_file
+    from strawboat_tpu_torch.kernels import bitunpack as bu
+
+    before = bu.bitunpack_natural.launches
+    t0 = time.perf_counter()
+    table = scan_file(path, device, **scan)
+    torch.cuda.synchronize()
+    return table, time.perf_counter() - t0, bu.bitunpack_natural.launches - before
+
+
+def phase_lineitem_typed(cols, tmpdir, device):
+    """TPC-H lineitem with its money columns typed, every answer against
+    numpy: ``decimal128(15, 2)`` (exact) and float64 (sums to rtol 1e-12),
+    then a PATAS column and a bool column.  Returns the two lineitem
+    files' paths (their K3 groups join the kernel line) and the resident
+    table of the float64 scan (its planes join K1's)."""
+    from strawboat_tpu_torch.benchsuite import tpch
+    from strawboat_tpu_torch.codecs import WriteOptions
+    from strawboat_tpu_torch.exec import arena, load_resident, make_resident
+    from strawboat_tpu_torch.write import write_file
+
+    torch.cuda.reset_peak_memory_stats()
+    facts = {}
+    paths = {}
+
+    # decimal128(15, 2) money under the dict flags: DICT pages, K3 on codes
+    money = "decimal"
+    typed = tpch.typed_money(cols, money)
+    path = paths["lineitem_decimal"] = os.path.join(tmpdir, "lineitem_decimal.str")
+    f = facts[money] = _write_typed(path, cols, FILES["dict"], money)
+    table, f["scan_s"], f["k3_launches_scan"] = _timed_scan(path, device)
+    _check_columns("decimal file", table, typed)
+    del table
+    want6, want1 = tpch.q6_numpy_reference(cols, money), tpch.q1_numpy_reference(cols, money=money)
+    q6_cols = ("l_shipdate", "l_discount", "l_quantity", "l_extendedprice")
+    pruned, f["pruned_scan_s"], _ = _timed_scan(path, device, columns=q6_cols,
+                                                 predicates=tpch.q6_pruning_predicates())
+    _close("decimal Q6 over the pruned scan", int(tpch.q6(pruned, money)), want6, True)
+    f["pruned_rows"] = pruned.num_rows
+    del pruned
+    t0 = time.perf_counter()
+    _q1_typed("decimal Q1 over the file", tpch.q1_rows(tpch.q1_query(path, device, money=money)),
+              want1, True)
+    f["q1_query_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rt = load_resident(path, device)
+    torch.cuda.synchronize()
+    f["load_resident_s"], f["plane_bytes"] = time.perf_counter() - t0, _plane_bytes(rt)
+    _q1_typed("decimal fused Q1 over load_resident", tpch.q1_rows(tpch.q1(rt, money=money)),
+              want1, True)
+    _close("decimal Q6 over load_resident", int(tpch.q6(rt, money)), want6, True)
+    f.update(equal_to_numpy=True, revenue_unscaled=want6)
+    del rt
+
+    # float64 money under no flag: raw pages through the streamed feed
+    money = "float64"
+    typed = tpch.typed_money(cols, money)
+    path = paths["lineitem_float64"] = os.path.join(tmpdir, "lineitem_float64.str")
+    f = facts[money] = _write_typed(path, cols, {}, money)
+    table, f["first_scan_s"], f["k3_launches_scan"] = _timed_scan(path, device)
+    _check_columns("float64 file", table, typed)
+    del table
+    table, f["second_scan_s"], _ = _timed_scan(path, device)
+    f["pinned_arena_bytes"] = arena.pooled_bytes()
+    want6, want1 = tpch.q6_numpy_reference(cols, money), tpch.q1_numpy_reference(cols, money=money)
+    _close("float64 Q6 over the scan", float(tpch.q6(table, money)), want6, False)
+    _q1_typed("float64 Q1 over the scan", tpch.q1_rows(tpch.q1(table, money=money)), want1, False)
+    t0 = time.perf_counter()
+    rt = make_resident(table, device)
+    torch.cuda.synchronize()
+    f["make_resident_s"], f["plane_bytes"] = time.perf_counter() - t0, _plane_bytes(rt)
+    f["resident_planes"] = {k: {"kind": c.kind, "dict": c.is_dict, "bits": [b for _w, b in c.planes]}
+                            for k, c in rt.columns.items() if k in tpch.MONEY_COLUMNS}
+    del table
+    _close("float64 resident Q6", float(tpch.q6(rt, money)), want6, False)
+    _q1_typed("float64 resident Q1", tpch.q1_rows(tpch.q1(rt, money=money)), want1, False)
+    f.update(equal_to_numpy=True, revenue=want6,
+             resident_q6_warm_ms=wall_ms(lambda: float(tpch.q6(rt, money))),
+             resident_q1_warm_ms=wall_ms(lambda: tpch.q1(rt, money=money)))
+
+    # l_extendedprice under the PATAS flag, l_linestatus == "F" as bool
+    extra = {"l_extendedprice": typed["l_extendedprice"], "l_linestatus_f": cols["l_linestatus"] == "F"}
+    path = os.path.join(tmpdir, "patas_bool.str")
+    with forcing({"STRAWBOAT_PATAS_COMPRESSION": "1"}):
+        t0 = time.perf_counter()
+        write_file(path, extra, options=WriteOptions(max_page_size=PAGE_ROWS))
+    f = facts["patas_bool"] = {"write_s": time.perf_counter() - t0, "bytes": os.path.getsize(path)}
+    table, f["scan_s"], _ = _timed_scan(path, device)
+    for k, w in extra.items():
+        if table[k].values.cpu().numpy().tobytes() != w.tobytes():
+            raise AssertionError(f"scanned {k} of the PATAS/bool file != the generated column")
+    f.update(equal_to_numpy=True, true_rows=int(table["l_linestatus_f"].values.sum()))
+    del table
+    os.remove(path)
+    emit("lineitem_typed", rows=SF10_ROWS, page_rows=PAGE_ROWS, zone_maps=True, **facts,
+         max_memory_allocated=torch.cuda.max_memory_allocated(), nvidia_smi=nvidia_smi())
+    return paths, rt
 
 
 def k3_summary(paths, device) -> dict:
@@ -898,21 +1044,35 @@ def main() -> int:
         k1_launches += full["K1"]
         k3_launches += full["K3"]
         torch.cuda.empty_cache()
+        # the typed lineitem files: count only their launches
+        bu.bitunpack_tiled.launches = 0
+        bu.bitunpack_natural.launches = 0
+        typed_paths, float_rt = phase_lineitem_typed(cols, tmpdir, device)
+        typed = {"K1": bu.bitunpack_tiled.launches, "K3": bu.bitunpack_natural.launches}
+        if min(typed.values()) <= 0:
+            raise AssertionError(f"the lineitem_typed path did not launch K1 and K3: {typed}")
+        k1_launches += typed["K1"]
+        k3_launches += typed["K3"]
+        torch.cuda.empty_cache()
         # K3 over one scan of each file the paths scan: the two integer
-        # lineitem files, the orders file and the whole lineitem file
-        k3.update(k3_summary({**paths, "orders": o_path, "lineitem_full": full_path}, device))
+        # lineitem files, the orders file, the whole lineitem file and the
+        # typed ones
+        k3.update(k3_summary({**paths, "orders": o_path, "lineitem_full": full_path,
+                              **typed_paths}, device))
         k2_k0 = phase_k2_k0(paths["bitpack"], cols["l_shipdate"], device, SEED)
     # K1 over every plane shape the paths decode: the host-encoded planes of
     # the resident table (Q1, Q6 and the general queries over it; Q6 over
-    # load_resident decodes planes equal to these word for word) and the
-    # device-direct planes of make_resident(scan), once each
-    planes = [(w, b) for t in (rt, scan_rt) for c in t.columns.values() for w, b in c.planes]
+    # load_resident decodes planes equal to these word for word), the
+    # device-direct planes of make_resident(scan) and those of the float64
+    # money scan, once each
+    planes = [(w, b) for t in (rt, scan_rt, float_rt) for c in t.columns.values()
+              for w, b in c.planes]
     k1["ms"] = sum(event_ms(lambda w=w, b=b: bu.bitunpack_tiled(w, 0, b)) for w, b in planes)
     k1["plain_ms"] = sum(
         event_ms(lambda w=w, b=b: bu.bitunpack_tiled_plain(w, 0, b)) for w, b in planes
     )
     k1["bound_ms"] = sum(bound_ms(w.numel() * 4 * (b + 32) // b) for w, b in planes)
-    del rt, scan_rt, planes
+    del rt, scan_rt, float_rt, planes
 
     def line(name, src, replaces, launches, facts):
         return {"name": name, "route": "cuda", "source": CSRC + src, "replaces": PALLAS + replaces,
@@ -921,7 +1081,7 @@ def main() -> int:
                 # no single torch call unpacks BitPacker4x
                 "library_ms": None}
 
-    emit("launches", general_path=general, lineitem_full_path=full)
+    emit("launches", general_path=general, lineitem_full_path=full, lineitem_typed_path=typed)
     print(json.dumps({"kernels": [
         line("bitunpack_tiled", "bitunpack.cu", "222", k1_launches, k1),
         line("bitunpack_tiled_unseeded", "bitunpack.cu", "174", k2_k0["K2"]["launches"], k2_k0["K2"]),

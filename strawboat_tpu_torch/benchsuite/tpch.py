@@ -5,6 +5,12 @@ the reference's numpy bodies and return numpy columns (no pyarrow needed);
 the numpy references compute Q1 over dictionary codes, which stays fast at
 60 M rows.  Money columns are scaled int64 (cents), so every sum is an
 exact integer.
+
+The four money columns also come typed (:func:`typed_money`), as users of
+the format hold them: ``"decimal"`` is ``decimal128(15, 2)``, TPC-H's own
+type (unscaled int64 on the device, every sum exact), and ``"float64"``
+the Float64 cast of the pola-rs PDS-H data preparation (sums match to
+rtol 1e-12).  Q1 and Q6 take the layout as ``money``.
 """
 
 from __future__ import annotations
@@ -59,6 +65,9 @@ INT_COLUMNS = (
     "l_tax",
     "l_shipdate",
 )
+MONEY_COLUMNS = ("l_quantity", "l_extendedprice", "l_discount", "l_tax")
+MONEY_DECIMAL = "decimal128(15, 2)"
+MONEY_LAYOUTS = ("int", "decimal", "float64")
 # every column, in the generator's order: seven integer, three utf8
 LINEITEM_COLUMNS = (
     "l_orderkey",
@@ -112,7 +121,25 @@ def generate_lineitem(
 # Q6: revenue from discounted small shipments in 1994
 
 
-def _write(path, cols: Dict[str, np.ndarray], max_page_size: int, options, zone_maps=False):
+def typed_money(cols: Dict[str, np.ndarray], money: str) -> Dict[str, np.ndarray]:
+    """The columns with the money columns in the ``money`` layout: "int"
+    as generated (quantity in units, the rest in hundredths), "decimal"
+    the unscaled values of ``decimal128(15, 2)`` (quantity × 100), or
+    "float64" the values as doubles (quantity as is, the rest / 100)."""
+    if money not in MONEY_LAYOUTS:
+        raise ValueError(f"money layout {money!r} (one of {', '.join(MONEY_LAYOUTS)})")
+    out = dict(cols)
+    if money == "decimal":
+        out["l_quantity"] = cols["l_quantity"] * 100
+    elif money == "float64":
+        out["l_quantity"] = cols["l_quantity"].astype(np.float64)
+        for k in MONEY_COLUMNS[1:]:
+            out[k] = cols[k] / 100.0
+    return out
+
+
+def _write(path, cols: Dict[str, np.ndarray], max_page_size: int, options, zone_maps=False,
+           schema=None):
     from ..codecs import WriteOptions
     from ..write import write_file
 
@@ -120,7 +147,7 @@ def _write(path, cols: Dict[str, np.ndarray], max_page_size: int, options, zone_
         options = WriteOptions(max_page_size=max_page_size, zone_maps=zone_maps)
     elif zone_maps:
         raise ValueError("pass zone_maps in options, not beside them")
-    return write_file(path, cols, options=options)
+    return write_file(path, cols, schema=schema, options=options)
 
 
 def write_lineitem(
@@ -130,25 +157,48 @@ def write_lineitem(
     options=None,
     columns: Sequence[str] = LINEITEM_COLUMNS,
     zone_maps: bool = False,
+    money: str = "int",
 ):
     """Write lineitem's ``columns`` (default: all ten, the three utf8 flags
     included) through the port's writer, codecs as the
     ``STRAWBOAT_*_COMPRESSION`` flags force them, with zone maps when
-    ``zone_maps`` → column metas.  ``options``, when given, decides page
-    size and zone maps itself; ``zone_maps=True`` beside it raises."""
-    return _write(path, {k: cols[k] for k in columns}, max_page_size, options, zone_maps)
+    ``zone_maps`` → column metas.  ``cols`` are as generated; ``money``
+    picks the money columns' layout (:func:`typed_money`: "decimal" writes
+    them as ``decimal128(15, 2)`` fields).  ``options``, when given,
+    decides page size and zone maps itself; ``zone_maps=True`` beside it
+    raises."""
+    from ..schema import Field
+    from ..write.writer import _numpy_alias
+
+    typed = typed_money(cols, money)
+    data = {k: typed[k] for k in columns}
+    schema = None
+    if money == "decimal":
+        schema = [Field(k, MONEY_DECIMAL if k in MONEY_COLUMNS else _numpy_alias(v))
+                  for k, v in data.items()]
+    return _write(path, data, max_page_size, options, zone_maps, schema)
 
 
-def q6(table):
-    """TPC-H Q6: shipdate in [1994, 1995), discount in [5, 7] hundredths,
-    quantity < 24; sum(extendedprice * discount) as an int64 scalar.
+# Q6's literals per money layout: discount in [lo, hi] (TPC-H's 0.06 ± 0.01
+# written as the two literals, since 0.06 + 0.01 is not 0.07 in float64),
+# quantity below the third
+Q6_LITERALS = {"int": (5, 7, 24), "decimal": (5, 7, 2400), "float64": (0.05, 0.07, 24.0)}
+
+
+def q6(table, money: str = "int"):
+    """TPC-H Q6: shipdate in [1994, 1995), discount in [0.05, 0.07],
+    quantity < 24; sum(extendedprice * discount) as an int64 scalar
+    (unscaled for "decimal", a float64 for "float64").
 
     A resident table runs its fused ``filter_sum``; a scanned
     ``DeviceTable`` runs a few torch ops (compare, ``where``, product,
-    ``sum`` in int64), as the reference's ``q6(table)`` does."""
+    ``sum``), as the reference's ``q6(table)`` does."""
+    d_lo, d_hi, q_hi = Q6_LITERALS[money]
     if isinstance(table, ResidentTable):
+        # half-open bounds: the least value above d_hi closes the range
+        upper = np.nextafter(d_hi, np.inf) if money == "float64" else d_hi + 1
         return table.filter_sum(
-            {"l_shipdate": (731, 1096), "l_discount": (5, 8), "l_quantity": (None, 24)},
+            {"l_shipdate": (731, 1096), "l_discount": (d_lo, upper), "l_quantity": (None, q_hi)},
             value="l_extendedprice",
             product_with="l_discount",
         )
@@ -156,7 +206,9 @@ def q6(table):
     disc = table["l_discount"].values
     qty = table["l_quantity"].values
     ep = table["l_extendedprice"].values
-    m = (sd >= 731) & (sd < 1096) & (disc >= 5) & (disc <= 7) & (qty < 24)
+    m = (sd >= 731) & (sd < 1096) & (disc >= d_lo) & (disc <= d_hi) & (qty < q_hi)
+    if money == "float64":
+        return torch.where(m, ep * disc, 0.0).sum(dtype=torch.float64)
     prod = ep.to(torch.int64) * disc.to(torch.int64)
     return torch.where(m, prod, 0).sum(dtype=torch.int64)
 
@@ -166,10 +218,15 @@ def q6_pruning_predicates():
     return [Comparison("l_shipdate", "ge", 731), Comparison("l_shipdate", "lt", 1096)]
 
 
-def q6_numpy_reference(cols: Dict[str, np.ndarray]) -> int:
+def q6_numpy_reference(cols: Dict[str, np.ndarray], money: str = "int"):
+    """Q6 in numpy over generated columns (typed as ``money`` here)."""
+    cols = typed_money(cols, money)
+    d_lo, d_hi, q_hi = Q6_LITERALS[money]
     sd, disc = cols["l_shipdate"], cols["l_discount"]
     qty, ep = cols["l_quantity"], cols["l_extendedprice"]
-    m = (sd >= 731) & (sd < 1096) & (disc >= 5) & (disc <= 7) & (qty < 24)
+    m = (sd >= 731) & (sd < 1096) & (disc >= d_lo) & (disc <= d_hi) & (qty < q_hi)
+    if money == "float64":
+        return float((ep[m] * disc[m]).sum())
     return int((ep[m].astype(np.int64) * disc[m]).sum())
 
 
@@ -177,9 +234,10 @@ def q6_numpy_reference(cols: Dict[str, np.ndarray]) -> int:
 # Q1: pricing summary, all 8 aggregates, grouped by the two string flags
 
 
-def q1_aggs():
-    disc_price = col("l_extendedprice") * (100 - col("l_discount"))
-    charge = disc_price * (100 + col("l_tax"))
+def q1_aggs(money: str = "int"):
+    one = 1 if money == "float64" else 100  # 1.00 at the layout's scale
+    disc_price = col("l_extendedprice") * (one - col("l_discount"))
+    charge = disc_price * (one + col("l_tax"))
     return {
         "sum_qty": ("sum", "l_quantity"),
         "sum_base_price": ("sum", "l_extendedprice"),
@@ -192,29 +250,29 @@ def q1_aggs():
     }
 
 
-def _q1(source, delta_days: int, device=None):
+def _q1(source, delta_days: int, device=None, money: str = "int"):
     q = Query(source) if device is None else Query(source, device=device)
     return (
         q.filter(col("l_shipdate") <= EPOCH_DAYS - delta_days)
         .group_by("l_returnflag", "l_linestatus", num_groups=16)
-        .agg(**q1_aggs())
+        .agg(**q1_aggs(money))
         .order_by("key_l_returnflag", "key_l_linestatus")
         .run()
     )
 
 
-def q1(table, delta_days: int = Q1_DEFAULT_DELTA):
+def q1(table, delta_days: int = Q1_DEFAULT_DELTA, money: str = "int"):
     """TPC-H Q1 through the fluent Query API, ordered by the group keys: a
     resident table takes the fused branch, a scanned ``DeviceTable`` the
     sort-based ``hash_aggregate``."""
-    return _q1(table, delta_days)
+    return _q1(table, delta_days, money=money)
 
 
-def q1_query(path: str, device, delta_days: int = Q1_DEFAULT_DELTA):
+def q1_query(path: str, device, delta_days: int = Q1_DEFAULT_DELTA, money: str = "int"):
     """Q1 over a file on ``device``: the scan reads the seven columns Q1
     needs, its pages pruned by the l_shipdate filter's zone maps, and the
     string keys order lexically."""
-    return _q1(path, delta_days, device)
+    return _q1(path, delta_days, device, money)
 
 
 def _key_str(dictionary, code) -> str:
@@ -222,16 +280,22 @@ def _key_str(dictionary, code) -> str:
     return v.decode() if isinstance(v, bytes) else str(v)
 
 
+def _is_float(x) -> bool:
+    if isinstance(x, torch.Tensor):
+        return x.is_floating_point()
+    return np.asarray(x).dtype.kind == "f"
+
+
 def q1_rows(res) -> Dict[Tuple[str, str], Dict[str, float]]:
-    """A grouped Q1 result → {(returnflag, linestatus): {aggregate: value}};
-    keys decode from a ``str`` (resident) or ``bytes`` (scanned)
-    dictionary."""
+    """A grouped Q1 result → {(returnflag, linestatus): {aggregate: value}}
+    (float aggregates as ``float``, the others as ``int``); keys decode
+    from a ``str`` (resident) or ``bytes`` (scanned) dictionary."""
     out = {}
     for i in range(int(res["n_groups"])):
         flag = _key_str(res["dict_l_returnflag"], res["key_l_returnflag"][i])
         status = _key_str(res["dict_l_linestatus"], res["key_l_linestatus"][i])
         out[(flag, status)] = {
-            name: (float if name.startswith("avg_") else int)(res[name][i])
+            name: (float if _is_float(res[name]) else int)(res[name][i])
             for name in Q1_AGG_NAMES
         }
     return out
@@ -251,10 +315,14 @@ def dictionary_codes(arr: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def q1_numpy_reference(
-    cols: Dict[str, np.ndarray], delta_days: int = Q1_DEFAULT_DELTA
+    cols: Dict[str, np.ndarray], delta_days: int = Q1_DEFAULT_DELTA, money: str = "int"
 ) -> Dict[Tuple[str, str], Dict[str, float]]:
-    """Q1 in numpy over dictionary codes, exact int64 sums; averages are the
-    float64 quotient of the exact sum by the count."""
+    """Q1 in numpy over dictionary codes of generated columns (typed as
+    ``money`` here): exact int64 sums, float64 sums for "float64";
+    averages are the float64 quotient of the sum by the count."""
+    cols = typed_money(cols, money)
+    one = 1 if money == "float64" else 100
+    num = float if money == "float64" else int
     rf_vals, rf = dictionary_codes(cols["l_returnflag"])
     ls_vals, ls = dictionary_codes(cols["l_linestatus"])
     qty, ep = cols["l_quantity"], cols["l_extendedprice"]
@@ -268,20 +336,20 @@ def q1_numpy_reference(
         if not n:
             continue
         q, e, d, t = qty[g], ep[g], disc[g], tax[g]
-        dp = e * (100 - d)
-        ch = dp * (100 + t)
+        dp = e * (one - d)
+        ch = dp * (one + t)
         sums = {
-            "sum_qty": int(q.sum()),
-            "sum_base_price": int(e.sum()),
-            "sum_disc_price": int(dp.sum()),
-            "sum_charge": int(ch.sum()),
+            "sum_qty": num(q.sum()),
+            "sum_base_price": num(e.sum()),
+            "sum_disc_price": num(dp.sum()),
+            "sum_charge": num(ch.sum()),
         }
         key = (str(rf_vals[gi // len(ls_vals)]), str(ls_vals[gi % len(ls_vals)]))
         out[key] = {
             **sums,
             "avg_qty": sums["sum_qty"] / n,
             "avg_price": sums["sum_base_price"] / n,
-            "avg_disc": int(d.sum()) / n,
+            "avg_disc": num(d.sum()) / n,
             "count_order": n,
         }
     return out

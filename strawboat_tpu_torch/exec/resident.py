@@ -38,6 +38,7 @@ from ..kernels.bitunpack import TILE3D, bitunpack_tiled, transpose_words_host_ti
 from ..kernels.decode import dict_gather_device
 from ..util.bits import pack_blocks
 from .aggregate import segment_reduce
+from ..schema import decimal_params
 from .scan import DeviceColumn, DeviceTable, to_pa_array, unsigned_view
 
 _MAX_DICT = 1 << 20  # dictionary entries beyond this: plain planes instead
@@ -558,7 +559,8 @@ def _is_wide(arrow_type) -> bool:
     if arrow_type is None:
         return False
     if isinstance(arrow_type, str):
-        return arrow_type in ("int64", "uint64") or arrow_type.startswith("timestamp")
+        return (arrow_type in ("int64", "uint64") or arrow_type.startswith("timestamp")
+                or decimal_params(arrow_type) is not None)
     import pyarrow as pa
 
     t = arrow_type
@@ -824,9 +826,10 @@ def _numpy_arrow_alias(dtype: np.dtype) -> str:
     raise NotYetImplementedError(f"resident load of numpy dtype {dtype}")
 
 
-def _encode_numpy_column(name: str, arr, tile: int, device) -> ResidentColumn:
+def _encode_numpy_column(name: str, arr, tile: int, device, arrow_type=None) -> ResidentColumn:
     """One numpy column (a ``np.ma.MaskedArray`` for nulls: mask True =
-    null) → a flat resident column, encoded as its arrow counterpart."""
+    null) → a flat resident column, encoded as its arrow counterpart
+    (``arrow_type`` when given: a decimal alias over unscaled int64)."""
     validity = None
     if isinstance(arr, np.ma.MaskedArray):
         null = np.ma.getmaskarray(arr)
@@ -837,7 +840,7 @@ def _encode_numpy_column(name: str, arr, tile: int, device) -> ResidentColumn:
     if arr.ndim != 1:
         raise OutOfSpecError(f"column {name!r} must be 1-D, got shape {arr.shape}")
     rows = len(arr)
-    t = _numpy_arrow_alias(arr.dtype)
+    t = _numpy_arrow_alias(arr.dtype) if arrow_type is None else arrow_type
     if t in ("string", "binary"):
         col = _encode_string_np(name, arr, validity, tile, t, rows, device)
     elif t == "bool":
@@ -862,8 +865,9 @@ def _encode_numpy_column(name: str, arr, tile: int, device) -> ResidentColumn:
 # ---------------------------------------------------------------------------
 # Device-direct encode: a DeviceTable (a scan or join result on the device)
 # → planes, without a host round trip (reference resident.py:1276-1478).
-# Integers always take offset-stripped planes (no dictionary), f32 its bit
-# pattern, string codes remap onto the sorted dictionary.
+# Integers (and unscaled decimals) always take offset-stripped planes (no
+# dictionary), f32 its bit pattern, string codes remap onto the sorted
+# dictionary; f64 takes the host encoder, as in the reference.
 
 
 def _encode_int_device(c: DeviceColumn, tile: int, rows: int) -> ResidentColumn:
@@ -938,17 +942,20 @@ def _encode_device_column(c: DeviceColumn, tile: int, rows: int) -> ResidentColu
         planes = ((_pack_plane_device(v.to(torch.int32), 1, tile), 1),)
         col = ResidentColumn(c.name, planes, (0,), rows, "bool", arrow_type=c.dtype)
     elif vdt == torch.float64:
-        # the reference encodes f64 on the host (its exact bytes live there
-        # on the TPU); the port's scan makes no f64 column yet
-        raise NotYetImplementedError(
-            f"device-direct resident encode of f64 column {c.name!r} "
-            "(ROADMAP.md 'Modules to port': scan_file, item 5.1, floats)"
-        )
+        # the dictionary decisions of the host encoder, over the device
+        # column's values (exact on the GPU); null slots take the first
+        # valid value first, where the reference leaves them as they are
+        # (ROADMAP.md, reference faults: NaN bits there cost it the
+        # dictionary), so the planes differ from its only at null slots
+        vals = c.values[:rows].cpu().numpy().copy()
+        validity = None if c.validity is None else c.validity[:rows].cpu().numpy()
+        vals = _fill_invalid(vals, validity)
+        col = _encode_float(c.name, vals, tile, c.dtype, rows, c.values.device)
     elif vdt == torch.float32:
         col = _encode_f32_device(c, tile, rows)
     elif not vdt.is_floating_point and not vdt.is_complex:
         col = _encode_int_device(c, tile, rows)
-    else:
+    else:  # float16, as in the reference's loaders
         raise NotYetImplementedError(
             f"device-direct resident encode of column {c.name!r} dtype {vdt}/{c.dtype}"
         )
@@ -1038,8 +1045,10 @@ def load_resident(
     for word: the host encoder takes the dictionary decisions the
     device-direct one does not.  A string column comes back as its codes
     and is encoded as ``dictionary[codes]`` would be
-    (:func:`_encode_string_codes`).  ``columns`` picks and orders columns;
-    names the file lacks are skipped.  Globs and lists of files wait for
+    (:func:`_encode_string_codes`); a decimal as its unscaled int64 (also
+    decimal256, which the reference refuses); float16 raises, as there.
+    ``columns`` picks and orders columns; names the file lacks are
+    skipped.  Globs and lists of files wait for
     the dataset layer."""
     from .scan import host_values, scan_file
 
@@ -1071,7 +1080,8 @@ def load_resident(
             vals = vals.astype("datetime64[D]")
         if validity is not None:
             vals = np.ma.MaskedArray(vals, mask=~validity)
-        return _encode_numpy_column(n, vals, tile, dev)
+        return _encode_numpy_column(n, vals, tile, dev,
+                                    dtype if decimal_params(dtype) is not None else None)
 
     return _resident_table(names, _encode_all(encode, names), tile)
 

@@ -1,33 +1,43 @@
 """Device scan: host page planning, decode on the device.
 
 Counterpart of ``strawboat_tpu/exec/scan.py``: ``DeviceColumn`` /
-``DeviceTable`` and, for flat integer, date32 and string columns,
-``scan_file`` (pruned by zone maps under ``predicates``) and
-``scan_chunks``.  The reference keeps a host copy of f64 columns
+``DeviceTable`` and, for flat columns (integers, date32, strings, floats,
+bool, decimals), ``scan_file`` (pruned by zone maps under ``predicates``)
+and ``scan_chunks``.  The reference keeps a host copy of f64 columns
 (``host_exact``) because the TPU stores f64 as a float32 pair; float64 is
-native on the GPU, so the port does not.
+native on the GPU, so the port's device column is exact and ``to_arrow``
+reads it.
 
 ``dtype`` is the arrow type the column came from: a ``pa.DataType``, or its
-alias string (``"int64"``, ``"date32"``, ``"string"``) when the table was
-built without pyarrow.  String/binary columns ride as int32 dictionary
-codes; ``dictionary`` is then the host numpy object array of the
-dictionary's values: ``bytes`` for every string type when the column was
-scanned (the reference scan's ``pa.binary`` dictionary), ``str`` for a
-utf8 column of a resident table.
+alias string (``"int64"``, ``"date32"``, ``"string"``, ``"float64"``,
+``"bool"``, ``"decimal128(15, 2)"``) when the table was built without
+pyarrow.  String/binary columns ride as int32 dictionary codes;
+``dictionary`` is then the host numpy object array of the dictionary's
+values: ``bytes`` for every string type when the column was scanned (the
+reference scan's ``pa.binary`` dictionary), ``str`` for a utf8 column of a
+resident table.
 
 Scanned values keep the column's width.  Unsigned columns follow
 ``device.py``: uint8 stays ``torch.uint8``, uint16/32/64 travel as the
 signed torch type of the same width holding the same bits
-(:func:`host_values` views them back); date32 is int32 days.
+(:func:`host_values` views them back); date32 is int32 days; floats keep
+their width and every bit (NaN payloads, -0.0); bool is ``torch.bool``;
+a decimal of precision 18 or less is its unscaled int64 (wider ones
+raise, as in the reference).
 
 The scan plans pages on the host (headers, block widths, dictionaries) and
 decodes on the device with one launch per group: uniform-width bit-packed
-pages and dictionary index subpages of one width (a string column's
-too) run kernel K3 (``kernels/bitunpack.py``); pages whose blocks mix
-widths run the varwidth decoder; RLE / ONE_VALUE / FREQ / other DICT pages
-decode page by page in torch ops; raw pages (NONE, and LZ4 / Zstd / Snappy
-through the port's ``native`` library) decode on the host and upload once
-per run.
+pages and dictionary index subpages of one width (of string, float and
+decimal columns too) run kernel K3 (``kernels/bitunpack.py``), then a
+gather through the pages' dictionaries; pages whose blocks mix widths run
+the varwidth decoder; RLE / ONE_VALUE / FREQ / other DICT pages decode
+page by page in torch ops; PATAS pages decode on the host.  An integer or
+float column whose pages are all raw (NONE, and LZ4 / Zstd / Snappy
+through the port's ``native`` library) streams: pages decompress into
+pooled page-locked buffers in chunks of about 32 MB, each chunk copied to
+the card asynchronously while the next decompresses
+(:func:`_decode_raw_column_streamed`, ``exec/arena.py``); other raw pages
+decode on the host and upload once per run.
 """
 
 from __future__ import annotations
@@ -41,7 +51,10 @@ import torch
 
 from .. import native
 from ..codecs import decompress_raw, read_header
+from ..codecs import boolean as bool_codec
 from ..codecs.binary import decode_binary_page, factorize_slices, parse_len_prefixed
+from ..codecs.decimal import decompress_decimal, int64_rows, parse_dict as parse_decimal_dict
+from ..codecs.double import patas_decode
 from ..codecs.integer import parse_dict_values, parse_freq, parse_one_value, parse_rle
 from ..constants import Compression
 from ..device import as_device
@@ -56,11 +69,13 @@ from ..kernels.decode import (
     low32,
     prefix_sum_u32,
     rle_expand_device,
+    unpack_validity_device,
 )
 from ..meta import ColumnMeta
 from ..read.levels import read_validity
 from ..read.reader import infer_schema, read_meta
-from ..schema import FLAT_INT_TYPES, Field
+from ..schema import FLAT_FLOAT_TYPES, FLAT_INT_TYPES, Field, decimal_params
+from . import arena
 from .pruning import check_predicates, prune_pages, read_zones
 
 _SCAN_TODO = "ROADMAP.md 'Modules to port': scan_file, what is left"
@@ -109,6 +124,9 @@ def arrow_type(t):
     import pyarrow as pa
 
     if isinstance(t, str):
+        dec = decimal_params(t)
+        if dec is not None:
+            return (pa.decimal128 if dec[0] == 128 else pa.decimal256)(dec[1], dec[2])
         return pa.type_for_alias(t)
     return t
 
@@ -391,9 +409,9 @@ def _index_pages(gkey, idxs, slot_sizes, page_ref) -> None:
 
 
 def _decode_structured_to_device(buf, pos: int, length: int, np_dtype: np.dtype, device):
-    """Decode one integer page at ``pos`` → (values on ``device`` in the
-    column's torch type, end position).  Subpages (DICT indices, FREQ
-    exceptions) recurse."""
+    """Decode one integer or float page at ``pos`` → (values on ``device``
+    in the column's torch type, end position).  Subpages (DICT indices,
+    FREQ exceptions) recurse; PATAS decodes on the host."""
     codec, csize, _usize, body = read_header(buf, pos)
     end = body + csize
     if end > len(buf):
@@ -437,7 +455,9 @@ def _decode_structured_to_device(buf, pos: int, length: int, np_dtype: np.dtype,
             if delta:
                 out = low32(prefix_sum_u32(out))
         return _from_u32(out[:length], np_dtype), end
-    raise NotYetImplementedError(f"device decode of {codec.name} integer pages ({_SCAN_TODO})")
+    if codec == Compression.PATAS and np_dtype.kind == "f":
+        return _to_device(patas_decode(buf, body, length, np_dtype), device), end
+    raise NotYetImplementedError(f"device decode of {codec.name} pages of {np_dtype} ({_SCAN_TODO})")
 
 
 # ---------------------------------------------------------------------------
@@ -474,10 +494,12 @@ def _validity(plans, dev) -> Optional[torch.Tensor]:
     )
 
 
-def _sort_jobs(plans, np_dtype):
+def _sort_jobs(plans, np_dtype, parse_dict=None):
     """Split pages into raw pages (decoded on the host), K3 jobs (uniform
     BP pages and DICT pages with a uniform BP index subpage), and
-    mixed-width pages; the rest decode one by one."""
+    mixed-width pages; the rest decode one by one.  ``parse_dict(buf,
+    pos)``: a DICT page's dictionary in the column's dtype, or None to
+    leave the page to its own route (default: ``parse_dict_values``)."""
     raw_jobs = defaultdict(list)  # codec → [(idx, body bytes, nbytes)]
     k3_jobs, bpv_jobs = [], []
     for idx, (length, _v, buf, p) in enumerate(plans):
@@ -500,7 +522,12 @@ def _sort_jobs(plans, np_dtype):
             parsed = _parse_bp_page(buf, ibody, length)
             if parsed is None:
                 continue
-            dvals = parse_dict_values(buf, ibody + icsize, np_dtype)
+            if parse_dict is None:
+                dvals = parse_dict_values(buf, ibody + icsize, np_dtype)
+            else:
+                dvals = parse_dict(buf, ibody + icsize)
+                if dvals is None:
+                    continue
             is_delta = icodec == Compression.DELTA_BITPACKING
             if parsed[0] == "uniform" and not is_delta:
                 k3_jobs.append((idx, Compression.DICT, *parsed[1:], dvals))
@@ -517,20 +544,119 @@ def _sort_jobs(plans, np_dtype):
     return raw_jobs, k3_jobs, bpv_jobs
 
 
+_UPLOAD_CHUNK = 32 << 20  # decoded bytes per staged host → device copy
+_copy_streams: Dict[torch.device, Any] = {}
+
+
+def _copy_stream(dev: torch.device):
+    """The side stream the feed's copies run on (one per device)."""
+    if dev not in _copy_streams:
+        _copy_streams[dev] = torch.cuda.Stream(dev)
+    return _copy_streams[dev]
+
+
+def chunk_cuts(out_lens: Sequence[int], limit: int) -> List[tuple]:
+    """Pages cut into runs of consecutive pages, on page edges: a run takes
+    pages while its decoded bytes stay within ``limit``, and at least one
+    page → [(first page, end page)]."""
+    offsets = np.zeros(len(out_lens) + 1, dtype=np.int64)
+    np.cumsum(out_lens, out=offsets[1:])
+    cuts, start = [], 0
+    while start < len(out_lens):
+        end = start + 1
+        while end < len(out_lens) and offsets[end + 1] - offsets[start] <= limit:
+            end += 1
+        cuts.append((start, end))
+        start = end
+    return cuts
+
+
+def _decode_raw_column_streamed(plans, np_dtype: np.dtype, dev: torch.device):
+    """The values of a column whose pages are ALL raw-mode, or None when a
+    page is not (or the native library is missing).
+
+    Pages decompress on native threads straight into host memory, in
+    chunks of about ``_UPLOAD_CHUNK`` decoded bytes cut at page edges (one
+    native call per run of one codec).  On a CUDA device each chunk lands
+    in a page-locked buffer from ``exec/arena.py`` and is copied into its
+    slice of the column with ``non_blocking=True`` on a side stream, which
+    records an event; the consuming stream waits on every chunk's event,
+    and the buffer goes back to the pool with its event, so the next
+    chunk's decompression overlaps this chunk's copy and no buffer is
+    reused before its copy is done.  On the CPU the chunks decompress
+    straight into the column's own memory."""
+    if not plans or not native.available():
+        return None
+    jobs = []  # (codec, body bytes, decoded bytes)
+    for length, _v, buf, p in plans:
+        codec, csize, _us, body = read_header(buf, p)
+        if not codec.raw_mode:
+            return None
+        if body + csize > len(buf):
+            raise OutOfSpecError("raw page truncated")
+        jobs.append((int(codec), buf[body : body + csize], length * np_dtype.itemsize))
+    out_lens = np.array([j[2] for j in jobs], dtype=np.int64)
+    offsets = np.zeros(len(jobs) + 1, dtype=np.int64)
+    np.cumsum(out_lens, out=offsets[1:])
+    total = int(offsets[-1])
+    out = torch.empty(total, dtype=torch.uint8, device=dev)
+    on_card = dev.type == "cuda"
+    if on_card:
+        consumer = torch.cuda.current_stream(dev)
+        stream = _copy_stream(dev)
+        stream.wait_stream(consumer)  # out's memory may be in use before this
+        out.record_stream(stream)
+    else:
+        host_out = out.numpy()
+    for start, end in chunk_cuts(out_lens, _UPLOAD_CHUNK):
+        base, stop = int(offsets[start]), int(offsets[end])
+        stage = arena.acquire(stop - base, pin=True) if on_card else None
+        target = stage.numpy() if on_card else host_out[base:stop]
+        i = start
+        while i < end:  # one native call per run of one codec
+            j = i + 1
+            while j < end and jobs[j][0] == jobs[i][0]:
+                j += 1
+            native.decompress_batch_into(jobs[i][0], [x[1] for x in jobs[i:j]], target,
+                                         offsets[i:j] - base, out_lens[i:j])
+            i = j
+        if on_card:
+            with torch.cuda.stream(stream):
+                out[base:stop].copy_(stage, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(stream)
+            consumer.wait_event(done)
+            arena.release(stage, [done])
+    return out.view(_torch_dtype(np_dtype))
+
+
+def _column_np_dtype(field: Field) -> np.dtype:
+    if field.is_flat_int:
+        return np.dtype(FLAT_INT_TYPES[field.dtype])
+    return np.dtype(FLAT_FLOAT_TYPES[field.dtype])
+
+
 def decode_column_pages_device(
     file_bytes: np.ndarray, meta: ColumnMeta, field: Field, device, keep=None
 ) -> DeviceColumn:
-    """Decode the pages ``keep`` keeps (None = all) of a flat integer,
-    date32 or string column onto ``device``."""
+    """Decode the pages ``keep`` keeps (None = all) of a flat column onto
+    ``device``."""
     dev = as_device(device)
     if field.is_flat_string:
         return _decode_binary_column_device(file_bytes, meta, field, dev, keep)
-    if not field.is_flat_int:
+    if field.is_flat_bool:
+        return _decode_boolean_column(file_bytes, meta, field, dev, keep)
+    if field.is_flat_decimal:
+        return _decode_decimal_column(file_bytes, meta, field, dev, keep)
+    if not (field.is_flat_int or field.is_flat_float):
         raise NotYetImplementedError(
             f"scan of column {field.name!r} of type {field.dtype} ({_SCAN_TODO})"
         )
-    np_dtype = np.dtype(FLAT_INT_TYPES[field.dtype])
+    np_dtype = _column_np_dtype(field)
     plans = _plan_pages(file_bytes, meta, field.nullable, keep)
+    values = _decode_raw_column_streamed(plans, np_dtype, dev)
+    if values is not None:
+        return DeviceColumn(field.name, field.dtype, values, _validity(plans, dev))
     raw_jobs, k3_jobs, bpv_jobs = _sort_jobs(plans, np_dtype)
 
     raw_host = {}
@@ -579,6 +705,124 @@ def decode_column_pages_device(
         values = torch.zeros(0, dtype=_torch_dtype(np_dtype), device=dev)
     else:
         values = tensors[0] if len(tensors) == 1 else torch.cat(tensors)
+    return DeviceColumn(field.name, field.dtype, values, _validity(plans, dev))
+
+
+# ---------------------------------------------------------------------------
+# bool and decimal columns (reference scan.py:818-920)
+
+
+def _decode_boolean_column(file_bytes, meta, field: Field, dev, keep=None) -> DeviceColumn:
+    """A bool column → ``torch.bool`` on ``dev``: one upload of packed bits
+    and one expand on the device.  When every page is raw and every page
+    but the last holds a multiple of 8 rows, the pages' bitmaps are the
+    column's bitmap and go up as they are; otherwise RLE / ONE_VALUE pages
+    (and raw ones) decode on the host and the bits are packed again."""
+    plans = _plan_pages(file_bytes, meta, field.nullable, keep)
+    total = sum(length for length, _v, _b, _p in plans)
+    pages = []  # per page: its raw bitmap bytes, or its bools
+    for length, _v, buf, p in plans:
+        codec, csize, _us, body = read_header(buf, p)
+        if body + csize > len(buf):
+            raise OutOfSpecError("boolean page truncated")
+        if codec.raw_mode:
+            (raw,) = decompress_raw(codec, [buf[body : body + csize]], [(length + 7) // 8])
+            pages.append(np.asarray(raw, dtype=np.uint8))
+        elif codec == Compression.RLE:
+            pages.append(bool_codec.rle_decode(buf, body, length))
+        elif codec == Compression.ONE_VALUE:
+            pages.append(bool_codec.one_value_decode(buf, body, length))
+        else:
+            raise OutOfSpecError(f"unknown boolean codec {codec}")
+    if all(x.dtype == np.uint8 for x in pages) and all(l % 8 == 0 for l, _v, _b, _p in plans[:-1]):
+        packed = np.concatenate(pages) if pages else np.zeros(0, np.uint8)
+    else:
+        bits = [x if x.dtype == bool else np.unpackbits(x, count=l, bitorder="little").astype(bool)
+                for x, (l, _v, _b, _p) in zip(pages, plans)]
+        packed = np.packbits(np.concatenate(bits), bitorder="little")
+    values = unpack_validity_device(_to_device(packed, dev), total)
+    return DeviceColumn(field.name, field.dtype, values, _validity(plans, dev))
+
+
+def _host_indices(buf, pos: int, length: int):
+    """A DICT page's index subpage decoded on the host → (int64 codes,
+    end position)."""
+    codes, end = _decode_structured_to_device(buf, pos, length, np.dtype(np.uint32),
+                                              torch.device("cpu"))
+    return codes.numpy().view(np.uint32).astype(np.int64), end
+
+
+def _decimal_dict(width: int):
+    """A DICT page's dictionary of ``width``-byte decimals as unscaled
+    int64 (one zero for an all-null page, whose codes are 0), or None
+    when an entry is wider than int64."""
+
+    def parse(buf, pos):
+        lo, fits = int64_rows(parse_decimal_dict(buf, pos, width))
+        if not fits.all():
+            return None
+        return lo if len(lo) else np.zeros(1, dtype=np.int64)
+
+    return parse
+
+
+def _decode_decimal_column(file_bytes, meta, field: Field, dev, keep=None) -> DeviceColumn:
+    """A decimal128 / decimal256 column → unscaled int64 on ``dev``
+    (precision 18 or less: 10^18 < 2^63).  A DICT page whose dictionary
+    holds int64 values only decodes its codes on the device (through K3
+    when they pack at one width) and gathers the int64 dictionary there;
+    every other page decodes on the host.  A wider decimal raises, as in
+    the reference, which checks every decoded row: here the host checks
+    the rows of the pages it decodes, and a DICT page goes to the device
+    only when every entry of its dictionary is an int64, so every row it
+    yields is one."""
+    width, precision, _scale = decimal_params(field.dtype)
+    width //= 8
+    plans = _plan_pages(file_bytes, meta, field.nullable, keep)
+    if not plans:
+        return DeviceColumn(field.name, field.dtype,
+                            torch.zeros(0, dtype=torch.int64, device=dev), None)
+    if precision > 18:
+        raise NotYetImplementedError(f"device scan of decimal {field.dtype} wider than int64")
+    i64 = np.dtype(np.int64)
+    parse_dict = _decimal_dict(width)
+    _raw, k3_jobs, bpv_jobs = _sort_jobs(plans, i64, parse_dict)
+    group_arrays: Dict = {}
+    page_ref: Dict = {}
+    if k3_jobs:
+        _decode_k3_groups(k3_jobs, i64, dev, group_arrays, page_ref)
+    if bpv_jobs:
+        _decode_varwidth_groups(bpv_jobs, i64, dev, group_arrays, page_ref)
+    parts: List[torch.Tensor] = []
+    host_run: List[np.ndarray] = []
+
+    def flush_host():
+        if host_run:
+            parts.append(_to_device(np.concatenate(host_run), dev))
+            host_run.clear()
+
+    for idx, (length, _v, buf, p) in enumerate(plans):
+        if idx in page_ref:
+            flush_host()
+            gkey, off, _slots = page_ref[idx]
+            parts.append(group_arrays[gkey][off : off + length])
+            continue
+        codec, _cs, _us, body = read_header(buf, p)
+        if codec == Compression.DICT:  # another index subpage, on the device
+            _ic, icsize, _ius, ibody = read_header(buf, body)
+            lo = parse_dict(buf, ibody + icsize)
+            if lo is not None:
+                flush_host()
+                codes, _end = _decode_structured_to_device(buf, body, length, np.dtype(np.uint32), dev)
+                parts.append(_gather_dicts(codes, [lo], [length], i64, dev))
+                continue
+        mat, _end = decompress_decimal(buf, p, length, width, _host_indices)
+        lo, fits = int64_rows(mat)
+        if not fits.all():
+            raise NotYetImplementedError(f"device scan of decimal {field.dtype} wider than int64")
+        host_run.append(lo)
+    flush_host()
+    values = parts[0] if len(parts) == 1 else torch.cat(parts)
     return DeviceColumn(field.name, field.dtype, values, _validity(plans, dev))
 
 
@@ -785,17 +1029,18 @@ def scan_file(
     columns: Optional[Sequence[str]] = None,
     predicates: Optional[Sequence] = None,
 ) -> DeviceTable:
-    """Scan a strawboat file's flat integer, date32 and string columns
-    onto ``device`` (``"cuda"``, ``"cpu"``, a ``torch.device``).
+    """Scan a strawboat file's flat columns onto ``device`` (``"cuda"``,
+    ``"cpu"``, a ``torch.device``).
 
-    ``columns`` picks columns by name (default: all; any other type then
+    ``columns`` picks columns by name (default: all; a nested column then
     raises ``NotYetImplementedError``).  ``predicates`` (a list of
     ``pruning.Comparison``, e.g. ``Expr.atoms``) drop the pages the file's
     zone maps show cannot match, for every column, so the row grid stays
     aligned; a file without zone maps scans whole, as in the reference.
     String columns come back as int32 dictionary codes with the host
-    dictionary (``_decode_binary_column_device``).  Floats, decimals,
-    booleans and nested columns are not ported yet."""
+    dictionary (``_decode_binary_column_device``), decimals as unscaled
+    int64 (``_decode_decimal_column``).  Nested columns are not ported
+    yet."""
     dev = as_device(device)
     schema, metas, file_bytes = _open(path)
     keep = page_keep_mask(path, metas, predicates)
@@ -836,8 +1081,8 @@ def scan_chunks(
 def k3_launch_groups(path: str, columns: Optional[Sequence[str]] = None):
     """What ``scan_file(path, columns=columns)`` hands kernel K3, one
     entry per launch: [(column, (codec, b), page indices, words (n_blocks,
-    4b) u32)]; a string column's DICT index pages are ``(DICT, b)``.  For
-    timing K3 alone at the scan's shapes."""
+    4b) u32)]; the DICT index pages of string, float and decimal columns
+    are ``(DICT, b)``.  For timing K3 alone at the scan's shapes."""
     out = []
     schema, metas, file_bytes = _open(path)
     for meta, field in _selected(schema, metas, columns):
@@ -846,8 +1091,11 @@ def k3_launch_groups(path: str, columns: Optional[Sequence[str]] = None):
             k3_jobs = [(idx, Compression.DICT, j[1], j[2], j[3], None)
                        for idx, j in enumerate(_binary_page_jobs(plans, field.dtype.startswith("large_")))
                        if j[0] == "k3"]
-        elif field.is_flat_int:
-            _raw, k3_jobs, _bpv = _sort_jobs(plans, np.dtype(FLAT_INT_TYPES[field.dtype]))
+        elif field.is_flat_decimal:
+            width = decimal_params(field.dtype)[0] // 8
+            k3_jobs = _sort_jobs(plans, np.dtype(np.int64), _decimal_dict(width))[1]
+        elif field.is_flat_int or field.is_flat_float:
+            k3_jobs = _sort_jobs(plans, _column_np_dtype(field))[1]
         else:
             continue
         for gkey, jobs in _k3_groups(k3_jobs).items():

@@ -1,9 +1,10 @@
 """The port's native host library: build at first use, bind with ctypes.
 
-Counterpart of ``strawboat_tpu/native/__init__.py``, with the five
-functions the port calls: :func:`available`, :func:`decompress_batch`,
-:func:`bp_walk`, :func:`bp_encode` and :func:`factorize`
-(``strawboat_native.cpp`` beside this file).
+Counterpart of ``strawboat_tpu/native/__init__.py``, with the functions
+the port calls: :func:`available`, :func:`decompress_batch`,
+:func:`decompress_batch_into`, :func:`bp_walk`, :func:`bp_encode`,
+:func:`factorize`, :func:`patas_decode_native` and
+:func:`patas_encode_native` (``strawboat_native.cpp`` beside this file).
 
 The library builds with ``g++`` at first use into ``build/`` beside this
 file (git-ignored), never at import.  It links liblz4 and libzstd, and
@@ -91,6 +92,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     for fn in (lib.sb_factorize_u64, lib.sb_factorize_u32):
         fn.restype = i64
         fn.argtypes = [p, i64, p, p, i64]
+    lib.sb_patas_decode.restype = ctypes.c_int
+    lib.sb_patas_decode.argtypes = [p, i64, i64, ctypes.c_int, p]
+    lib.sb_patas_encode.restype = i64
+    lib.sb_patas_encode.argtypes = [p, i64, ctypes.c_int, p]
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -133,11 +138,9 @@ def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-def decompress_batch(codec: int, inputs, out_lens) -> List[np.ndarray]:
-    """Decompress a batch of pages of one codec in parallel native threads.
-
-    inputs: bytes-like or uint8 arrays; out_lens: each page's decompressed
-    size.  Returns uint8 arrays."""
+def _run_batch(codec: int, inputs, out_ptrs, out_lens) -> None:
+    """Decompress page ``i`` of ``inputs`` into ``out_lens[i]`` bytes at
+    address ``out_ptrs[i]``, on native threads."""
     lib = _require()
     if codec == Compression.SNAPPY and not lib.sb_has_snappy():
         raise StrawboatError(
@@ -145,17 +148,42 @@ def decompress_batch(codec: int, inputs, out_lens) -> List[np.ndarray]:
             "library was built without Snappy"
         )
     n = len(inputs)
-    outs = [np.empty(int(size), dtype=np.uint8) for size in out_lens]
     in_bufs = [b if isinstance(b, np.ndarray) else np.frombuffer(b, dtype=np.uint8)
                for b in inputs]
     in_ptrs = (ctypes.c_void_p * n)(*[b.ctypes.data for b in in_bufs])
     in_lens = (ctypes.c_int64 * n)(*[b.size for b in in_bufs])
-    out_ptrs = (ctypes.c_void_p * n)(*[o.ctypes.data for o in outs])
-    out_sizes = (ctypes.c_int64 * n)(*[o.size for o in outs])
-    rc = lib.sb_decompress_batch(int(codec), n, in_ptrs, in_lens, out_ptrs, out_sizes, 0)
+    outs = (ctypes.c_void_p * n)(*out_ptrs)
+    sizes = (ctypes.c_int64 * n)(*[int(size) for size in out_lens])
+    rc = lib.sb_decompress_batch(int(codec), n, in_ptrs, in_lens, outs, sizes, 0)
     if rc != 0:
         raise OutOfSpecError(f"native batch decompression failed (rc={rc})")
+
+
+def decompress_batch(codec: int, inputs, out_lens) -> List[np.ndarray]:
+    """Decompress a batch of pages of one codec in parallel native threads.
+
+    inputs: bytes-like or uint8 arrays; out_lens: each page's decompressed
+    size.  Returns uint8 arrays."""
+    outs = [np.empty(int(size), dtype=np.uint8) for size in out_lens]
+    _run_batch(codec, inputs, [o.ctypes.data for o in outs], out_lens)
     return outs
+
+
+def decompress_batch_into(codec: int, inputs, out_buf: np.ndarray, out_offsets, out_lens) -> None:
+    """Decompress pages in parallel straight into one buffer: page ``i``
+    fills ``out_buf[out_offsets[i] : out_offsets[i] + out_lens[i]]``, with
+    no allocation per page.  ``out_buf``: a C-contiguous uint8 array that
+    holds every slice (checked)."""
+    if out_buf.dtype != np.uint8 or not out_buf.flags.c_contiguous:
+        raise TypeError("out_buf must be a C-contiguous uint8 array")
+    offs = np.asarray(out_offsets, dtype=np.int64)
+    lens = np.asarray(out_lens, dtype=np.int64)
+    if len(offs) != len(inputs) or len(lens) != len(inputs):
+        raise ValueError("one offset and one length per page")
+    if len(offs) and (offs.min() < 0 or int((offs + lens).max()) > out_buf.size):
+        raise ValueError("a page's slice lies outside out_buf")
+    base = out_buf.ctypes.data
+    _run_batch(codec, inputs, [base + int(o) for o in offs], lens)
 
 
 def bp_walk(buf: np.ndarray, body: int, n_blocks: int) -> Tuple[np.ndarray, int]:
@@ -197,3 +225,30 @@ def factorize(values: np.ndarray, max_uniq: int = 1 << 62):
     if n_uniq < 0:
         return None
     return codes, uniq[:n_uniq]
+
+
+def patas_decode_native(buf: np.ndarray, pos: int, length: int, dtype) -> np.ndarray:
+    """``length`` PATAS-coded f32 or f64 values at ``buf[pos:]`` → a numpy
+    array of ``dtype``.  Raises on a stream that ends early."""
+    lib = _require()
+    dtype = np.dtype(dtype)
+    width = dtype.itemsize
+    out = np.empty(length, dtype=np.uint64)
+    src = np.ascontiguousarray(buf[pos:], dtype=np.uint8)
+    rc = lib.sb_patas_decode(_ptr(src), src.size, length, width, _ptr(out))
+    if rc != 0:
+        raise OutOfSpecError(f"native patas decode failed (rc={rc})")
+    return out.astype(f"<u{width}").view(dtype)
+
+
+def patas_encode_native(values: np.ndarray) -> bytes:
+    """f32 or f64 values → their PATAS stream (the reference's layout)."""
+    lib = _require()
+    width = values.dtype.itemsize
+    bits = np.ascontiguousarray(values).view(f"<u{width}").astype(np.uint64)
+    n = len(bits)
+    if n == 0:
+        return b""
+    out = np.empty(n * (width + 2) + width, dtype=np.uint8)
+    written = lib.sb_patas_encode(_ptr(bits), n, width, _ptr(out))
+    return out[:written].tobytes()

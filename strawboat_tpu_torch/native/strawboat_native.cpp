@@ -4,13 +4,15 @@
 // Cut from strawboat_tpu/native/strawboat_native.cpp, keeping what the port
 // calls: batched page decompression (LZ4 block / Zstd / Snappy) over a
 // std::thread pool, the bit-packed block-header walk, the BitPacker4x page
-// encoder and the first-occurrence factorize.  Snappy is compiled in only
-// with -DSB_SNAPPY (where libsnappy exists); sb_has_snappy() says which.
+// encoder, the first-occurrence factorize and the PATAS float codec.
+// Snappy is compiled in only with -DSB_SNAPPY (where libsnappy exists);
+// sb_has_snappy() says which.
 //
 // Built as a plain C ABI shared library, loaded with ctypes.
 
 #include <algorithm>
 #include <atomic>
+#include <climits>
 #include <cstdint>
 #include <cstring>
 #include <thread>
@@ -212,4 +214,127 @@ extern "C" int64_t sb_factorize_u32(const uint32_t* vals, int64_t n,
                                     uint32_t* codes, uint32_t* uniq,
                                     int64_t max_uniq) {
   return factorize_impl<uint32_t>(vals, n, codes, uniq, max_uniq);
+}
+
+// ---------------------------------------------------------------------------
+// PATAS (f64/f32 via width parameter; semantics mirror patas.rs + the f32
+// equal-marker rule described in codecs/double.py)
+
+extern "C" int sb_patas_decode(const uint8_t* in, int64_t in_len, int64_t length,
+                    int width, uint64_t* out) {
+  if (length <= 0) return 0;
+  if (in_len < width) return -1;
+  const int wbits = width * 8;
+  const int equal_tz = wbits - 1;
+  const uint64_t mask = width == 8 ? ~0ull : ((1ull << wbits) - 1);
+  int64_t p = 0;
+  uint64_t first = 0;
+  std::memcpy(&first, in, (size_t)width);
+  out[0] = first;
+  p += width;
+  for (int64_t i = 1; i < length; ++i) {
+    if (p + 2 > in_len) return -2;
+    uint16_t packed;
+    std::memcpy(&packed, in + p, 2);
+    p += 2;
+    int diff = (packed >> 9) & 0x7F;
+    int sig = (packed >> 6) & 0x7;
+    int tz = packed & 0x3F;
+    if (tz < equal_tz && sig == 0) sig = 8;
+    if (sig > width && tz < 8) sig = width;
+    uint64_t val = 0;
+    if (sig > width) {
+      p += sig;  // reference read_value_custom returns default
+    } else {
+      if (p + sig > in_len) return -3;
+      std::memcpy(&val, in + p, (size_t)sig);
+      p += sig;
+    }
+    uint64_t prev = out[i - diff];
+    out[i] = ((val << tz) & mask) ^ prev;
+  }
+  return 0;
+}
+
+// Encode: out must have capacity length*(width+2)+width; returns bytes written.
+//
+// Reference-index lookup uses a windowed 8-way bucket table instead of the
+// reference's full hashmap: only references within the last 128 positions are
+// usable (patas.rs:63-66 falls back to i-1 otherwise), so entries older than
+// the window are semantically dead and their slots reusable.  In the
+// (astronomically unlikely) case a bucket overflows with live entries, we
+// fall back to i-1 — still a valid stream, identical on decode.
+namespace {
+struct PatasSlot { uint64_t val; int64_t idx; };
+constexpr int kPatasBuckets = 128;  // x8 slots = 1024 for a 128-entry window
+constexpr int kPatasWays = 8;
+
+static inline uint64_t patas_hash(uint64_t x) {
+  x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ull;
+  x = (x ^ (x >> 27)) * 0x94D049BB133111EBull;
+  return x ^ (x >> 31);
+}
+}  // namespace
+
+extern "C" int64_t sb_patas_encode(const uint64_t* bits, int64_t length, int width,
+                        uint8_t* out) {
+  if (length <= 0) return 0;
+  const int wbits = width * 8;
+  const uint64_t mask = width == 8 ? ~0ull : ((1ull << wbits) - 1);
+  PatasSlot table[kPatasBuckets][kPatasWays];
+  for (auto& b : table)
+    for (auto& s : b) s.idx = INT64_MIN;
+  auto lookup = [&](uint64_t v) -> int64_t {
+    auto& b = table[patas_hash(v) & (kPatasBuckets - 1)];
+    for (auto& s : b)
+      if (s.idx != INT64_MIN && s.val == v) return s.idx;
+    return 0;  // reference: indices.get(&val).unwrap_or(0)
+  };
+  auto insert = [&](uint64_t v, int64_t i) {
+    auto& b = table[patas_hash(v) & (kPatasBuckets - 1)];
+    PatasSlot* dead = nullptr;
+    PatasSlot* oldest = &b[0];
+    for (auto& s : b) {
+      if (s.idx != INT64_MIN && s.val == v) { s.idx = i; return; }
+      if (s.idx == INT64_MIN || s.idx < i - 128) dead = &s;
+      if (s.idx < oldest->idx) oldest = &s;
+    }
+    PatasSlot* slot = dead ? dead : oldest;
+    slot->val = v;
+    slot->idx = i;
+  };
+  int64_t p = 0;
+  std::memcpy(out + p, &bits[0], (size_t)width);
+  p += width;
+  insert(bits[0], 0);
+  for (int64_t i = 1; i < length; ++i) {
+    uint64_t val = bits[i];
+    int64_t ref_idx = lookup(val);
+    if (ref_idx > i || (i - ref_idx) >= 128) ref_idx = i - 1;
+    int diff = (int)(i - ref_idx);
+    uint64_t refer = bits[i - diff];
+    uint64_t x = val ^ refer;
+    int tz, lz;
+    if (x == 0) {
+      tz = wbits;
+      lz = wbits;
+    } else {
+      tz = __builtin_ctzll(x);
+      lz = __builtin_clzll(x) - (64 - wbits);
+    }
+    int is_equal = (tz == wbits) ? 1 : 0;
+    int sig_bits = is_equal ? 0 : wbits - tz - lz;
+    int sig_bytes = (sig_bits >> 3) + ((sig_bits & 7) ? 1 : 0);
+    uint16_t packed = (uint16_t)(((diff & 0x7F) << 9) | ((sig_bytes & 7) << 6) |
+                                 (tz - is_equal));
+    std::memcpy(out + p, &packed, 2);
+    p += 2;
+    if (sig_bytes) {
+      uint64_t payload = (x >> (tz - is_equal)) & mask;
+      std::memcpy(out + p, &payload, (size_t)sig_bytes);
+      p += sig_bytes;
+    }
+    insert(val, i);
+  }
+  return p;
 }

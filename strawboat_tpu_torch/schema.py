@@ -8,13 +8,16 @@ continuation-prefixed form pyarrow emits.
 
 A field is ``Field(name, dtype, nullable)``, with ``dtype`` the arrow alias
 string ``DeviceColumn.dtype`` uses (``"int64"``, ``"date32"``,
-``"string"``).  Every type parses, so a file with float or nested columns
-still opens and its other columns scan; :func:`schema_to_bytes` writes
-:data:`WRITABLE_TYPES` with the bytes pyarrow writes for the same fields.
+``"string"``, ``"float64"``, ``"bool"``, ``"decimal128(15, 2)"``).  Every
+type parses, so a file with nested columns still opens and its other
+columns scan; :func:`schema_to_bytes` writes the flat types (integers,
+date32, strings, floats, bool, decimal128 / decimal256) with the bytes
+pyarrow writes for the same fields.
 """
 
 from __future__ import annotations
 
+import re
 import struct
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
@@ -31,15 +34,34 @@ FLAT_INT_TYPES = {
 }
 # utf8 and binary, with 32- or 64-bit offsets: the arrow aliases
 STRING_TYPES = ("string", "binary", "large_string", "large_binary")
-WRITABLE_TYPES = (*FLAT_INT_TYPES, *STRING_TYPES)
+# alias → numpy dtype of the flat float types
+FLAT_FLOAT_TYPES = {"float16": "<f2", "float32": "<f4", "float64": "<f8"}
+BOOL_TYPE = "bool"
+# the exact types writable by name; a decimal is writable at any
+# precision and scale (:func:`decimal_params`)
+WRITABLE_TYPES = (*FLAT_INT_TYPES, *STRING_TYPES, *FLAT_FLOAT_TYPES, BOOL_TYPE)
+
+_DECIMAL = re.compile(r"^decimal(128|256)\((\d+), (-?\d+)\)$")
+
+
+def decimal_params(dtype) -> Optional[Tuple[int, int, int]]:
+    """(bit width, precision, scale) of a decimal alias such as
+    ``"decimal128(15, 2)"`` (pyarrow's spelling), else None."""
+    m = _DECIMAL.match(str(dtype))
+    return None if m is None else (int(m.group(1)), int(m.group(2)), int(m.group(3)))
+
+
+def decimal_alias(bit_width: int, precision: int, scale: int) -> str:
+    return f"decimal{bit_width}({precision}, {scale})"
 
 _METADATA_V5 = 4  # MetadataVersion.V5
 _HEADER_SCHEMA = 1  # MessageHeader.Schema
 # Type union ids (Schema.fbs); only Int and Date are read in detail, the
 # rest by name (enough to scan or refuse them and to count their leaves)
-_T_INT, _T_DATE = 2, 8
+_T_INT, _T_FLOAT, _T_BOOL, _T_DECIMAL, _T_DATE = 2, 3, 6, 7, 8
+_PRECISIONS = ("float16", "float32", "float64")  # FloatingPoint.precision
 _TYPE_NAMES = {
-    1: "null", 3: "float", 4: "binary", 5: "string", 6: "bool", 7: "decimal",
+    1: "null", 4: "binary", 5: "string", 6: "bool",
     9: "time", 10: "timestamp", 11: "interval", 12: "list", 13: "struct",
     14: "union", 15: "fixed_size_binary", 16: "fixed_size_list", 17: "map",
     18: "duration", 19: "large_binary", 20: "large_string", 21: "large_list",
@@ -68,6 +90,26 @@ class Field:
     def is_flat_string(self) -> bool:
         return (
             self.dtype in STRING_TYPES
+            and not self.children
+            and not self.dictionary_encoded
+        )
+
+    @property
+    def is_flat_float(self) -> bool:
+        return (
+            self.dtype in FLAT_FLOAT_TYPES
+            and not self.children
+            and not self.dictionary_encoded
+        )
+
+    @property
+    def is_flat_bool(self) -> bool:
+        return self.dtype == BOOL_TYPE and not self.children and not self.dictionary_encoded
+
+    @property
+    def is_flat_decimal(self) -> bool:
+        return (
+            decimal_params(self.dtype) is not None
             and not self.children
             and not self.dictionary_encoded
         )
@@ -140,6 +182,16 @@ def _type_alias(r: _Reader, type_id: int, t: Optional[int]) -> str:
     if type_id == _T_DATE:
         unit = r.scalar(t, 0, "<h", 1) if t is not None else 1  # default ms
         return "date32" if unit == 0 else "date64"
+    if type_id == _T_FLOAT:
+        precision = r.scalar(t, 0, "<h", 0) if t is not None else 0  # default HALF
+        if not 0 <= precision < len(_PRECISIONS):
+            raise OutOfSpecError(f"invalid schema bytes: float precision {precision}")
+        return _PRECISIONS[precision]
+    if type_id == _T_DECIMAL:
+        if t is None:
+            raise OutOfSpecError("invalid schema bytes: a decimal without its type table")
+        return decimal_alias(r.scalar(t, 2, "<i", 128), r.scalar(t, 0, "<i", 0),
+                             r.scalar(t, 1, "<i", 0))
     return _TYPE_NAMES.get(type_id, f"type{type_id}")
 
 
@@ -271,6 +323,15 @@ def _type_table(b: _Builder, f: Field) -> Tuple[int, int]:
         return _EMPTY_TYPE_IDS[f.dtype], b.table([])
     if f.dtype == "date32":
         return _T_DATE, b.table([(0, "<h", 0, 1)])  # unit DAY (default MILLISECOND)
+    if f.dtype in FLAT_FLOAT_TYPES:  # precision (default HALF)
+        return _T_FLOAT, b.table([(0, "<h", _PRECISIONS.index(f.dtype), 0)])
+    if f.dtype == BOOL_TYPE:
+        return _T_BOOL, b.table([])
+    dec = decimal_params(f.dtype)
+    if dec is not None:  # bitWidth (default 128), scale, precision
+        bit_width, precision, scale = dec
+        return _T_DECIMAL, b.table([(2, "<i", bit_width, 128), (1, "<i", scale, 0),
+                                    (0, "<i", precision, 0)])
     signed = not f.dtype.startswith("u")
     width = int(f.dtype.split("int")[1])
     return _T_INT, b.table([(0, "<i", width, 0), (1, "<B", int(signed), 0)])
@@ -279,14 +340,15 @@ def _type_table(b: _Builder, f: Field) -> Tuple[int, int]:
 def schema_to_bytes(fields: Sequence[Field]) -> bytes:
     """Fields → the bare flatbuffers ``Message`` (MetadataVersion V5),
     zero-padded to a multiple of 8 bytes: pyarrow's bytes for the same
-    schema.  Writes :data:`WRITABLE_TYPES`."""
+    schema.  Writes :data:`WRITABLE_TYPES` and decimals."""
     b = _Builder()
     offsets = []
     for f in fields:
-        if f.dtype not in WRITABLE_TYPES or f.children or f.dictionary_encoded:
+        writable = f.dtype in WRITABLE_TYPES or decimal_params(f.dtype) is not None
+        if not writable or f.children or f.dictionary_encoded:
             raise NotYetImplementedError(
                 f"writing column {f.name!r} of type {f.dtype} "
-                "(ROADMAP.md 'Modules to port': scan_file, further types)"
+                "(ROADMAP.md 'Modules to port': the nested scan)"
             )
         # Arrow C++ creates the type table, the name, the children, the field
         type_id, type_table = _type_table(b, f)

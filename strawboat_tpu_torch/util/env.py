@@ -13,6 +13,7 @@ DICT_ENV = "STRAWBOAT_DICT_COMPRESSION"
 RLE_ENV = "STRAWBOAT_RLE_COMPRESSION"
 FREQ_ENV = "STRAWBOAT_FREQ_COMPRESSION"
 BITPACK_ENV = "STRAWBOAT_BITPACK_COMPRESSION"
+PATAS_ENV = "STRAWBOAT_PATAS_COMPRESSION"
 
 
 def check_env(name: str) -> bool:
@@ -33,3 +34,7 @@ def check_freq_env() -> bool:
 
 def check_bitpack_env() -> bool:
     return check_env(BITPACK_ENV)
+
+
+def check_patas_env() -> bool:
+    return check_env(PATAS_ENV)

@@ -1,16 +1,16 @@
-"""Writing flat integer and string columns to a strawboat file, without
-pyarrow.
+"""Writing flat columns to a strawboat file, without pyarrow.
 
 Counterpart of ``NativeWriter`` / ``write_file`` (``strawboat_tpu/write/
 writer.py``) and ``write_simple`` / ``_validity_prelude``
-(``strawboat_tpu/write/serialize.py``) for flat integer, date32, utf8 and
-binary columns.  The layout is the reference's:
+(``strawboat_tpu/write/serialize.py``) for flat integer, date32, utf8,
+binary, float, bool and decimal columns.  The layout is the reference's:
 
     "ARROW2" + 2 zero bytes
     per column, per page of ``max_page_size`` rows:
         [u32 def_len][bit-packed validity]   (nullable fields only)
         [9-byte header][body]                (``codecs/integer.py``,
-                                              ``codecs/binary.py``)
+                                              ``binary.py``, ``double.py``,
+                                              ``boolean.py``, ``decimal.py``)
     zone block (``options.zone_maps``: ``exec/pruning.py``)
     schema (bare flatbuffer), metas, [u32 schema_size][u32 meta_size],
     EOS marker (0xFFFFFFFF, then 0 as u32)
@@ -28,12 +28,17 @@ import numpy as np
 
 from ..codecs import WriteOptions
 from ..codecs.binary import BinaryColumn, compress_binary, slice_keys
+from ..codecs.boolean import compress_boolean
+from ..codecs.decimal import compress_decimal, from_int64
+from ..codecs.double import compress_double
 from ..codecs.integer import compress_integer
 from ..constants import ARROW_MAGIC, CONTINUATION_MARKER
 from ..errors import NotYetImplementedError, OutOfSpecError
 from ..exec.pruning import ColumnZones, PageZone, compute_zones, zone_trailer
 from ..meta import ColumnMeta, PageMeta, serialize_metas
-from ..schema import FLAT_INT_TYPES, WRITABLE_TYPES, Field, schema_to_bytes
+from ..schema import (
+    FLAT_FLOAT_TYPES, FLAT_INT_TYPES, WRITABLE_TYPES, Field, decimal_params, schema_to_bytes,
+)
 from ..util.hybrid_rle import encode_validity_bitpacked
 
 
@@ -43,8 +48,10 @@ def _numpy_alias(arr: np.ndarray) -> str:
     dtype = arr.dtype
     if dtype.kind == "M" and np.datetime_data(dtype)[0] == "D":
         return "date32"
-    if dtype.kind in "iu":
+    if dtype.kind in "iuf":
         return str(dtype)
+    if dtype.kind == "b":
+        return "bool"
     if dtype.kind == "U":
         return "string"
     if dtype.kind == "S":
@@ -58,7 +65,7 @@ def _numpy_alias(arr: np.ndarray) -> str:
         raise OutOfSpecError(f"an object column of {sorted(k.__name__ for k in kinds)}")
     raise NotYetImplementedError(
         f"writing numpy dtype {dtype}: the port writes {', '.join(WRITABLE_TYPES)} "
-        "(ROADMAP.md 'Modules to port': scan_file, further types)"
+        "and decimals (ROADMAP.md 'Modules to port')"
     )
 
 
@@ -104,10 +111,25 @@ def _binary_column(arr: np.ndarray, null: Optional[np.ndarray]) -> BinaryColumn:
     return BinaryColumn(offsets, values, keys)
 
 
+def _decimal_matrix(name: str, arr: np.ndarray, width: int) -> np.ndarray:
+    """A decimal column's values → its ``(n, width)`` byte matrix: unscaled
+    integers (int64 at most) sign-extend, a uint8 matrix of that width is
+    taken as it is."""
+    if arr.ndim == 2 and arr.dtype == np.uint8 and arr.shape[1] == width:
+        return np.ascontiguousarray(arr)
+    if arr.ndim == 1 and arr.dtype.kind in "iu" and np.can_cast(arr.dtype, np.int64):
+        return from_int64(arr.astype(np.int64), width)
+    raise OutOfSpecError(
+        f"column {name!r}: a decimal takes unscaled integers or an (n, {width}) uint8 "
+        f"matrix, not {arr.dtype} of shape {arr.shape}")
+
+
 def _prepare(columns: Mapping[str, np.ndarray], schema: Optional[Sequence[Field]]):
     """→ (fields, [(storage values, validity or None)], rows).  A
-    ``np.ma.MaskedArray`` carries nulls (mask True = null); without a
-    schema every field is nullable, as in a ``pa.table`` of the columns."""
+    ``np.ma.MaskedArray`` carries nulls (mask True = null; a decimal
+    matrix's row is null where any of its mask is set); without a schema
+    every field is nullable, as in a ``pa.table`` of the columns, and a
+    decimal needs one."""
     names = list(columns)
     if schema is None:
         schema = [Field(n, _numpy_alias(np.ma.getdata(columns[n]))) for n in names]
@@ -121,11 +143,14 @@ def _prepare(columns: Mapping[str, np.ndarray], schema: Optional[Sequence[Field]
         validity = None
         if isinstance(arr, np.ma.MaskedArray):
             null = np.ma.getmaskarray(arr)
+            if null.ndim == 2:
+                null = null.any(axis=1)
             if null.any():
                 validity = ~null
             arr = np.ma.getdata(arr)
         arr = np.asarray(arr)
-        if arr.ndim != 1:
+        dec = decimal_params(f.dtype) if f.is_flat_decimal else None
+        if arr.ndim != 1 and dec is None:
             raise OutOfSpecError(f"column {f.name!r} must be 1-D, got shape {arr.shape}")
         if arr.dtype.kind == "O":
             none = np.array([v is None for v in arr], dtype=bool)
@@ -139,10 +164,19 @@ def _prepare(columns: Mapping[str, np.ndarray], schema: Optional[Sequence[Field]
         if f.is_flat_string and arr.dtype.kind in "USO":
             out.append((_binary_column(arr, None if validity is None else ~validity), validity))
             continue
+        if dec is not None:
+            out.append((_decimal_matrix(f.name, arr, dec[0] // 8), validity))
+            continue
+        if f.is_flat_bool and arr.dtype.kind == "b":
+            out.append((np.ascontiguousarray(arr), validity))
+            continue
+        if f.is_flat_float and arr.dtype.kind in "iuf":
+            out.append((np.ascontiguousarray(arr.astype(FLAT_FLOAT_TYPES[f.dtype])), validity))
+            continue
         if not f.is_flat_int:
             raise NotYetImplementedError(
                 f"writing column {f.name!r} of type {f.dtype} from numpy {arr.dtype} "
-                "(ROADMAP.md 'Modules to port': scan_file, further types)"
+                "(ROADMAP.md 'Modules to port')"
             )
         if arr.dtype.kind == "M":  # days since the epoch
             days = arr.astype("datetime64[D]").view(np.int64)
@@ -161,7 +195,7 @@ def _prepare(columns: Mapping[str, np.ndarray], schema: Optional[Sequence[Field]
 def write_page(values, validity: Optional[np.ndarray], field: Field,
                options: WriteOptions) -> bytes:
     """One simple page: the validity prelude of a nullable field, then the
-    integer or binary page (``write_simple``)."""
+    page of the field's codec family (``write_simple``)."""
     out = b""
     if field.nullable:
         if validity is None:
@@ -171,6 +205,12 @@ def write_page(values, validity: Optional[np.ndarray], field: Field,
             out = np.uint32(len(body)).tobytes() + body
     if isinstance(values, BinaryColumn):
         return out + compress_binary(values, validity, options, field.dtype.startswith("large_"))
+    if field.is_flat_decimal:
+        return out + compress_decimal(values, validity, options)
+    if field.is_flat_bool:
+        return out + compress_boolean(values, validity, options)
+    if field.is_flat_float:
+        return out + compress_double(values, validity, options)
     return out + compress_integer(values, validity, options)
 
 
@@ -184,7 +224,9 @@ def _page_slice(values, off: int, ln: int):
 def _encode_pages(fields, data, spans, options):
     """Every page of every column, encoded in threads (the codecs' numpy
     and native loops release the GIL) → (pages per column, the zone of
-    each page of each integer column when ``options.zone_maps``)."""
+    each page of each integer, date32 and float column when
+    ``options.zone_maps``: string, bool and decimal pages get none, as in
+    the JAX writer)."""
     jobs: List[Tuple[int, int, int]] = [
         (ci, off, ln) for ci in range(len(fields)) for off, ln in spans
     ]
@@ -195,7 +237,7 @@ def _encode_pages(fields, data, spans, options):
         page_values = _page_slice(values, off, ln)
         page_validity = None if validity is None else validity[off : off + ln]
         zone = None
-        if options.zone_maps and not isinstance(values, BinaryColumn):
+        if options.zone_maps and (fields[ci].is_flat_int or fields[ci].is_flat_float):
             zone = PageZone(*compute_zones(page_values, page_validity), ln)
         return write_page(page_values, page_validity, fields[ci], options), zone
 
@@ -250,13 +292,17 @@ def write_file(
     """Write ``{name: numpy column}`` as one strawboat file (one row group,
     pages of ``options.max_page_size`` rows) and return the column metas.
 
-    numpy integer columns keep their type, ``datetime64[D]`` becomes
-    date32, unicode arrays utf8 (``"string"``) and bytes arrays binary; an
-    object array of ``str`` or ``bytes`` takes ``None`` for null.
-    ``schema`` (a list of :class:`~strawboat_tpu_torch.schema.Field`)
-    overrides the types (``"large_string"``, ``"large_binary"``) and the
-    nullability.  ``options.zone_maps`` writes a zone of every page of the
-    integer and date32 columns."""
+    numpy integer, float and bool columns keep their type,
+    ``datetime64[D]`` becomes date32, unicode arrays utf8 (``"string"``)
+    and bytes arrays binary; an object array of ``str`` or ``bytes`` takes
+    ``None`` for null.  ``schema`` (a list of
+    :class:`~strawboat_tpu_torch.schema.Field`) overrides the types
+    (``"large_string"``, ``"large_binary"``, ``"float32"`` …) and the
+    nullability; a decimal column is an int64 array of unscaled values (or
+    an ``(n, W)`` uint8 matrix of W-byte values, for values beyond int64)
+    under a decimal field, e.g. ``Field("price", "decimal128(15, 2)")``.
+    ``options.zone_maps`` writes a zone of every page of the integer,
+    date32 and float columns."""
     options = options or WriteOptions()
     fields, data, rows = _prepare(columns, schema)
     step = max(min(options.max_page_size or rows, rows), 1)

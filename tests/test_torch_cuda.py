@@ -1,4 +1,5 @@
-"""The port's CUDA kernels, resident path and file scan on the card.
+"""The port's CUDA kernels, resident path, file scan and streamed feed on
+the card.
 
 Marked ``cuda``: every test skips where no CUDA device is usable.  Run on a
 machine with an H100 (``--noconftest``: the repo's conftest imports JAX,
@@ -185,3 +186,76 @@ def test_k3_on_string_index_pages_matches_plain_on_card(cuda, tmp_path, monkeypa
         assert list(on_card[k].dictionary) == list(on_cpu[k].dictionary), k
         d = np.array([v.decode() for v in on_card[k].dictionary])
         np.testing.assert_array_equal(d[on_card[k].values.cpu().numpy()], cols[k], err_msg=k)
+
+
+def test_k3_on_typed_dict_index_pages_matches_plain_on_card(cuda, tmp_path, monkeypatch):
+    """f32, f64 and decimal DICT pages whose codes pack at one width go
+    through K3 on the card, equal to its plain version, and the scan on the
+    card equals the scan on the CPU bit for bit."""
+    from strawboat_tpu_torch.codecs import WriteOptions
+    from strawboat_tpu_torch.constants import Compression
+    from strawboat_tpu_torch.exec import scan_file
+    from strawboat_tpu_torch.exec.scan import k3_launch_groups
+    from strawboat_tpu_torch.schema import Field
+    from strawboat_tpu_torch.write import write_file
+
+    monkeypatch.setenv("STRAWBOAT_DICT_COMPRESSION", "1")
+    monkeypatch.setenv("STRAWBOAT_BITPACK_COMPRESSION", "1")
+    rng = np.random.default_rng(6)
+    n = 300_000
+    cols = {"f32": (rng.integers(0, 60, n) * 0.5).astype(np.float32),
+            "f64": np.where(rng.random(n) < 0.01, -0.0, rng.integers(0, 11, n) * 0.01),
+            "d": rng.integers(0, 9, n) * 125}
+    path = str(tmp_path / "typed.str")
+    write_file(path, cols, schema=[Field("f32", "float32"), Field("f64", "float64"),
+                                   Field("d", "decimal128(15, 2)")],
+               options=WriteOptions(max_page_size=65536))
+    groups = k3_launch_groups(path)
+    assert {c for c, _g, _p, _w in groups} == set(cols)
+    for _col, (codec, b), _pages, words in groups:
+        assert codec == Compression.DICT
+        w = torch.from_numpy(words.view(np.int32)).to(cuda)
+        before = bu.bitunpack_natural.launches
+        got = bu.bitunpack_natural(w, 0, b)
+        torch.cuda.synchronize()
+        assert bu.bitunpack_natural.launches == before + 1
+        assert torch.equal(got.cpu(), bu.bitunpack_natural_plain(w.cpu(), 0, b)), b
+    before = bu.bitunpack_natural.launches
+    on_card = scan_file(path, cuda)
+    torch.cuda.synchronize()
+    assert bu.bitunpack_natural.launches == before + len(groups)
+    on_cpu = scan_file(path, "cpu")
+    for k, v in cols.items():
+        assert on_card[k].values.device.type == "cuda"
+        assert on_card[k].values.cpu().numpy().tobytes() == on_cpu[k].values.numpy().tobytes() == v.tobytes(), k
+
+
+@pytest.mark.parametrize("chunk", [None, 1 << 16])
+def test_streamed_feed_on_card_equals_pageable_route(cuda, tmp_path, monkeypatch, chunk):
+    """Raw integer and float pages stream through page-locked buffers:
+    back-to-back scans (the pool's buffers reused while copies may still
+    run; at 64 KB chunks, hundreds of them) equal the page route with
+    pageable copies, bit for bit."""
+    from strawboat_tpu_torch.exec import arena, scan_file
+    from strawboat_tpu_torch.exec import scan as port_scan
+    from strawboat_tpu_torch.write import write_file
+
+    rng = np.random.default_rng(7)
+    n = 2_000_000
+    cols = {"i64": rng.integers(-(2**62), 2**62, n), "f64": rng.normal(size=n),
+            "f32": rng.random(n).astype(np.float32), "u16": rng.integers(0, 1 << 16, n).astype(np.uint16)}
+    path = str(tmp_path / "raw.str")
+    write_file(path, cols)
+    if chunk is not None:
+        monkeypatch.setattr(port_scan, "_UPLOAD_CHUNK", chunk)
+    arena.clear()
+    scans = [scan_file(path, cuda) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert 0 < arena.pooled_bytes() <= arena.MAX_POOLED * max(chunk or 0, 16 << 20)
+    monkeypatch.setattr(port_scan, "_decode_raw_column_streamed", lambda *a: None)
+    pageable = scan_file(path, cuda)
+    for k, v in cols.items():
+        want = pageable[k].values.cpu().numpy()
+        assert want.tobytes() == v.tobytes(), k
+        for s in scans:
+            assert s[k].values.cpu().numpy().tobytes() == want.tobytes(), k

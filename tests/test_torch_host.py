@@ -102,7 +102,8 @@ def test_env_flags_match_reference(monkeypatch, value):
     pairs = [(env.check_dict_env, ref_env.check_dict_env, env.DICT_ENV),
              (env.check_rle_env, ref_env.check_rle_env, env.RLE_ENV),
              (env.check_freq_env, ref_env.check_freq_env, env.FREQ_ENV),
-             (env.check_bitpack_env, ref_env.check_bitpack_env, env.BITPACK_ENV)]
+             (env.check_bitpack_env, ref_env.check_bitpack_env, env.BITPACK_ENV),
+             (env.check_patas_env, ref_env.check_patas_env, env.PATAS_ENV)]
     for _port, _ref, name in pairs:
         monkeypatch.delenv(name, raising=False)
     for port_fn, ref_fn, name in pairs:
@@ -306,3 +307,52 @@ def test_native_unavailable_is_loud(monkeypatch):
                  lambda: native.decompress_batch(1, [b""], [0])):
         with pytest.raises(StrawboatError, match="native library"):
             call()
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_native_patas_matches_reference(both_native, dtype):
+    """PATAS streams: the native and Python encoders give the reference's
+    bytes (repeats within and beyond the 128-value window, NaN payloads,
+    ±0.0, ±inf), and both decoders give the values back bit for bit."""
+    from strawboat_tpu.codecs import double as ref_double
+    from strawboat_tpu_torch.codecs import double
+
+    rng = np.random.default_rng(9)
+    v = np.round(np.cumsum(rng.normal(size=3000)), 3).astype(dtype)
+    v[100:110] = v[99]
+    v[500] = v[300]  # beyond the window: refers to the previous value
+    v[700:706] = np.array([np.nan, np.uint64(0x7FF8000000000123).view(np.float64), -0.0, 0.0,
+                           np.inf, -np.inf]).astype(dtype)
+    enc = native.patas_encode_native(v)
+    assert enc == ref_native.patas_encode_native(v)
+    short = v[:200]
+    assert double._patas_encode_py(short) == ref_double._patas_encode_py(short)
+    buf = np.frombuffer(b"pad" + enc, np.uint8)
+    got = native.patas_decode_native(buf, 3, len(v), dtype)
+    assert got.dtype == dtype and got.tobytes() == v.tobytes()
+    assert ref_native.patas_decode_native(buf, 3, len(v), dtype).tobytes() == v.tobytes()
+    sbuf = np.frombuffer(double._patas_encode_py(short), np.uint8)
+    assert double._patas_decode_py(sbuf, 0, len(short), np.dtype(dtype)).tobytes() == short.tobytes()
+    with pytest.raises(OutOfSpecError):
+        native.patas_decode_native(buf[:100], 3, len(v), dtype)
+
+
+def test_native_decompress_batch_into_matches_reference(both_native):
+    """Pages decompress straight into their slices of one buffer, as the
+    reference's ``decompress_batch_into`` puts them; a slice outside the
+    buffer is refused before any native call."""
+    rng = np.random.default_rng(5)
+    pages = [rng.integers(0, 9, n).astype(np.int32).tobytes() for n in (1, 1000, 0, 4096)]
+    codec = constants.Compression.LZ4
+    comp = [_ref_compress(codec, p) for p in pages]
+    lens = np.array([len(p) for p in pages])
+    offs = np.concatenate([[0], np.cumsum(lens)[:-1]]) + 16
+    out = np.zeros(int(lens.sum()) + 16, np.uint8)
+    ref = np.zeros_like(out)
+    native.decompress_batch_into(int(codec), comp, out, offs, lens)
+    ref_native.decompress_batch_into(int(codec), comp, ref, offs, lens)
+    assert out.tobytes() == ref.tobytes() == bytes(16) + b"".join(pages)
+    with pytest.raises(ValueError):
+        native.decompress_batch_into(int(codec), comp, out[:-1], offs, lens)
+    with pytest.raises(OutOfSpecError):
+        native.decompress_batch_into(int(codec), comp[1:2], out, [0], [lens[1] - 4])

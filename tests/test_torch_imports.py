@@ -7,7 +7,9 @@ lineitem columns (three utf8) with zone maps through the port's writer
 and scans them back (dictionary and bit-packed pages, string codes),
 scans Q6 pruned by the zone maps and in chunks, runs Q1 and a grouped
 ``Query`` over the file, the Q3-shaped join of it with an orders file and
-``load_resident`` of it, and checks ``sys.modules`` afterwards: no
+``load_resident`` of it, writes and scans a column of each float, bool and
+decimal type (DICT pages, then PATAS) and loads them resident, and checks
+``sys.modules`` afterwards: no
 ``jax``, no ``pyarrow``, no ``strawboat_tpu`` or ``strawboat_tpu.*``.  A
 source check holds every port file and ``chip_smoke.py`` to the same.
 """
@@ -67,6 +69,33 @@ with tempfile.TemporaryDirectory() as d:
         tpch.q3_numpy_reference(cols, orders)
     rt2 = load_resident(path, "cpu", tile=512)
     assert int(tpch.q6(rt2)) == tpch.q6_numpy_reference(cols)
+    from strawboat_tpu_torch.schema import Field
+    from strawboat_tpu_torch.write import write_file
+    rng = np.random.default_rng(0)
+    typed = {{"f16": rng.integers(0, 9, 3000).astype(np.float16),
+             "f32": rng.random(3000).astype(np.float32),
+             "f64": np.ma.MaskedArray(rng.random(3000), mask=rng.random(3000) < 0.1),
+             "b": rng.random(3000) < 0.5,
+             "d128": rng.integers(-10**9, 10**9, 3000),
+             "d256": rng.integers(0, 7, 3000)}}
+    fields = [Field("f16", "float16"), Field("f32", "float32"), Field("f64", "float64"),
+              Field("b", "bool"), Field("d128", "decimal128(15, 2)"), Field("d256", "decimal256(18, 4)")]
+    for flags in ((), ("STRAWBOAT_PATAS_COMPRESSION",)):
+        for f in flags:
+            os.environ[f] = "1"
+        tpath = os.path.join(d, "typed.str")
+        names = [k for k in typed if not (flags and k == "f16")]
+        write_file(tpath, {{k: typed[k] for k in names}}, schema=[f for f in fields if f.name in names])
+        got = scan_file(tpath, "cpu")
+        for k in names:  # null slots of DICT pages repeat the previous value
+            ok = ~np.ma.getmaskarray(typed[k])
+            want = np.ma.getdata(typed[k])[ok]
+            assert got[k].values.numpy()[ok].tobytes() == want.tobytes(), k
+        assert np.array_equal(~got["f64"].validity.numpy(), np.ma.getmaskarray(typed["f64"]))
+        rt3 = load_resident(tpath, "cpu", columns=["f32", "f64", "b", "d128", "d256"], tile=512)
+        assert np.array_equal(rt3.decode_natural("d128").numpy(), typed["d128"])
+        for f in flags:
+            del os.environ[f]
 ref = sorted(m for m in sys.modules if m == "strawboat_tpu" or m.startswith("strawboat_tpu."))
 print(json.dumps({{"jax": "jax" in sys.modules, "pyarrow": "pyarrow" in sys.modules,
                   "strawboat_tpu": ref}}))

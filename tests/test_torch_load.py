@@ -225,8 +225,16 @@ def test_make_resident_of_decoded_resident_tables_equals_jax():
 
 
 def test_make_resident_of_f64_device_column_raises():
-    dt = DeviceTable({"x": DeviceColumn("x", "double", torch.zeros(10, dtype=torch.float64))}, 10)
-    with pytest.raises(NotYetImplementedError, match="f64"):
+    """An f64 device column encodes now, as the host encoder encodes its
+    values (``tests/test_torch_types.py`` holds it against the JAX
+    package); a float16 one still raises, as in the reference."""
+    x = torch.arange(10, dtype=torch.float64) / 4
+    rt = make_resident(DeviceTable({"x": DeviceColumn("x", "double", x)}, 10), "cpu", tile=TILE)
+    assert rt["x"].kind == "f64"
+    assert torch.equal(rt.decode_natural("x"), x)
+    _assert_same_planes(rt, make_resident({"x": x.numpy()}, "cpu", tile=TILE))
+    dt = DeviceTable({"x": DeviceColumn("x", "halffloat", x.to(torch.float16))}, 10)
+    with pytest.raises(NotYetImplementedError, match="float16"):
         make_resident(dt, "cpu", tile=TILE)
 
 

@@ -262,9 +262,10 @@ def test_dense_group_sum_matches_reference():
 def test_unported_query_shapes_raise():
     """What the port still lacks raises ``NotYetImplementedError`` naming
     ROADMAP.md: Query over globs and lists of files, nested resident
-    columns, device-direct f64 encode.  The shapes that raised before the
-    general path (non-dictionary keys, joins, distinct, projections) now
-    run it and match the JAX package (``tests/test_torch_general.py``)."""
+    columns.  The device-direct f64 encode runs now
+    (``tests/test_torch_types.py``), and so do the shapes that raised before
+    the general path (non-dictionary keys, joins, distinct, projections),
+    matching the JAX package (``tests/test_torch_general.py``)."""
     from strawboat_tpu.exec.expr import col as ref_col
     from strawboat_tpu.exec.query import Query as RefQuery
     from strawboat_tpu.exec.resident import make_resident as ref_make
@@ -278,8 +279,9 @@ def test_unported_query_shapes_raise():
             q.run()
     with pytest.raises(NotYetImplementedError, match="ROADMAP"):
         make_resident(pa.table({"l": pa.array([[1], [2, 3]])}), "cpu", tile=TILE)
-    with pytest.raises(NotYetImplementedError, match="ROADMAP"):
-        make_resident(rt.as_device_table(["f"])[0], "cpu", tile=TILE)
+    f_dt = rt.as_device_table(["f"])[0]
+    assert f_dt["f"].values.dtype == torch.float64
+    assert make_resident(f_dt, "cpu", tile=TILE)["f"].kind == "f64"
     with pytest.raises(ValueError, match="median"):
         Query(rt).group_by("g").agg(s=("median", "v")).run()
     # 20000 distinct ints over an 18-bit span: plain planes, no dictionary

@@ -347,11 +347,11 @@ def test_nested_and_device_table_inputs_raise():
     t = pa.table({"l": pa.array([[1, 2], [3]], pa.list_(pa.int64()))})
     with pytest.raises(NotYetImplementedError, match="ROADMAP"):
         port.make_resident(t, "cpu", tile=TILE)
-    # a DeviceTable encodes on the device now; f64 columns (the scan makes
-    # none yet) raise, and a table without columns is refused
-    f64 = port.DeviceColumn("x", "double", torch.zeros(4, dtype=torch.float64))
-    with pytest.raises(NotYetImplementedError, match="ROADMAP"):
-        port.make_resident(port.DeviceTable({"x": f64}, 4), "cpu", tile=TILE)
+    # a DeviceTable encodes on the device now (f64 columns too); float16
+    # raises, as in the reference, and a table without columns is refused
+    f16 = port.DeviceColumn("x", "float16", torch.zeros(4, dtype=torch.float16))
+    with pytest.raises(NotYetImplementedError, match="float16"):
+        port.make_resident(port.DeviceTable({"x": f16}, 4), "cpu", tile=TILE)
     with pytest.raises(OutOfSpecError):
         port.make_resident(port.DeviceTable({}, 0), "cpu", tile=TILE)
     with pytest.raises(ValueError):

@@ -56,9 +56,13 @@ def test_other_types_parse_with_their_leaf_counts():
     )
     got = port.deserialize_schema(ref.schema_to_bytes(schema))
     assert [f.name for f in got] == schema.names
-    assert [f.dtype for f in got[:5]] == ["string", "float", "bool", "decimal", "timestamp"]
+    assert [f.dtype for f in got[:5]] == ["string", "float64", "bool", "decimal128(15, 2)",
+                                          "timestamp"]
     assert [f.n_leaves for f in got] == [ref.n_leaf_columns(f.type) for f in schema]
     assert [f.is_flat_int for f in got] == [False] * 8 + [True]
+    assert [f.is_flat_float for f in got] == [False, True] + [False] * 7
+    assert [f.is_flat_bool for f in got] == [False, False, True] + [False] * 6
+    assert [f.is_flat_decimal for f in got] == [False] * 3 + [True] + [False] * 5
 
 
 def test_dictionary_field_is_not_a_flat_int():
@@ -68,10 +72,13 @@ def test_dictionary_field_is_not_a_flat_int():
 
 
 def test_writing_other_types_raises():
-    """Strings write now (``tests/test_torch_strings.py``); floats, booleans,
-    nested and dictionary-typed fields still raise."""
-    assert port.schema_to_bytes([port.Field("s", "string")])
-    for f in (port.Field("x", "float64"), port.Field("b", "bool"),
+    """Strings, floats, booleans and decimals write now
+    (``tests/test_torch_strings.py``, ``tests/test_torch_types.py``); nested,
+    dictionary-typed and other fields still raise."""
+    for f in (port.Field("s", "string"), port.Field("x", "float64"), port.Field("b", "bool"),
+              port.Field("d", "decimal256(40, 3)")):
+        assert port.schema_to_bytes([f])
+    for f in (port.Field("t", "timestamp"),
               port.Field("l", "list", children=(port.Field("item", "int64"),)),
               port.Field("d", "string", dictionary_encoded=True)):
         with pytest.raises(NotYetImplementedError):
