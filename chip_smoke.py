@@ -59,8 +59,8 @@ the whole lineitem file (K1's and K3's launches are counted over 13):
 
 the typed lineitem files (K1's and K3's launches are counted over 14):
 
-14. lineitem_typed — the ten lineitem columns with the money columns
-   typed: as ``decimal128(15, 2)`` under the ``dict`` flags with zone maps
+14. lineitem_typed — every 5th row (12 M, SF2) of the ten lineitem
+   columns with the money columns typed: as ``decimal128(15, 2)`` under the ``dict`` flags with zone maps
    (whole scan, every column equal to the generated one in unscaled ints;
    Q6 over a scan pruned by the l_shipdate zones, Q1 through ``Query``
    over the file, ``load_resident`` with the fused Q1 and Q6: all exact),
@@ -71,9 +71,23 @@ the typed lineitem files (K1's and K3's launches are counted over 14):
    as float64 under the PATAS flag and ``l_linestatus == "F"`` as a bool
    column, written and scanned bit for bit;
 
+the nested orders file (K1's and K3's launches are counted over 15):
+
+15. nested — TPC-H orders at SF10 (15 M rows, seed 1, in o_orderdate
+   order) with their 1–7 lineitems each (about 60 M, seed 0) nested as
+   ``o_lineitems`` list<struct<l_quantity, l_extendedprice, l_discount,
+   l_tax, l_shipdate, l_returnflag>> and ``o_lineprices`` list<int64>,
+   written under the ``dict`` flags with zone maps; scanned whole twice
+   (every column, offsets and leaf equal to numpy; the host time of the
+   level work beside the whole scan's); Q6 over the leaves and
+   ``list_segment_sum`` == numpy; a scan pruned by o_orderdate (1994),
+   row-aligned; ``scan_chunks`` of 32 pages; ``load_resident`` with
+   ``list_sum`` and every leaf decoded from its planes through K1;
+   ``make_resident`` of the scan's list column;
+
 and last:
 
-15. k2_k0  — K2 and K0 bit-exact against their plain versions (b = 1..32),
+16. k2_k0  — K2 and K0 bit-exact against their plain versions (b = 1..32),
    then (their launches counted) l_shipdate's bit-packed pages decoded
    through K2's and K0's natural-order entry points == the generated column;
    each width group's lane count, times and bound are printed.
@@ -114,6 +128,10 @@ SEEDS = (0, 0xA5A500FF)
 REPS = 20
 SCAN_REPS = 3
 PAGE_ROWS = 65536
+NESTED_ORDERS = 15_000_000  # SF10 orders (TPC-H spec 1.2: SF x 1.5 M)
+# lineitem_typed takes every 5th row (12 M, SF2, every ship date's range
+# kept); its SF10 numbers are in PERF.md (PR 6)
+TYPED_STRIDE = 5
 FILES = {
     "dict": {"STRAWBOAT_DICT_COMPRESSION": "1", "STRAWBOAT_BITPACK_COMPRESSION": "1"},
     "bitpack": {"STRAWBOAT_BITPACK_COMPRESSION": "1"},
@@ -576,8 +594,18 @@ def _resident_checks(rt, cols) -> dict:
             "q1_equal": True}
 
 
+def _all_planes(c):
+    """A resident column's planes, its validity plane and its children's."""
+    out = list(c.planes)
+    if c.validity_plane is not None:
+        out.append((c.validity_plane, 1))
+    for sub in ([c.child] if c.child is not None else []) + list((c.children or {}).values()):
+        out += _all_planes(sub)
+    return out
+
+
 def _plane_bytes(rt) -> int:
-    return sum(w.numel() * 4 for c in rt.columns.values() for w, _b in c.planes)
+    return sum(w.numel() * 4 for c in rt.columns.values() for w, _b in _all_planes(c))
 
 
 def _loader_checks(paths, cols, device):
@@ -887,9 +915,193 @@ def phase_lineitem_typed(cols, tmpdir, device):
     f.update(equal_to_numpy=True, true_rows=int(table["l_linestatus_f"].values.sum()))
     del table
     os.remove(path)
-    emit("lineitem_typed", rows=SF10_ROWS, page_rows=PAGE_ROWS, zone_maps=True, **facts,
+    emit("lineitem_typed", rows=len(cols["l_orderkey"]), page_rows=PAGE_ROWS, zone_maps=True, **facts,
          max_memory_allocated=torch.cuda.max_memory_allocated(), nvidia_smi=nvidia_smi())
     return paths, rt
+
+def _timed_levels():
+    """A timer around the scan's host level work (level expansion, the
+    concatenation of the pages' levels, the offsets composition), set on
+    the scan module for the block: {"seconds": total}."""
+    from strawboat_tpu_torch.exec import scan as scan_mod
+
+    spent = {"seconds": 0.0}
+    names = ("read_validity_nested", "_concat_levels", "_compose_offsets")
+    saved = {n: getattr(scan_mod, n) for n in names}
+
+    def timed(fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent["seconds"] += time.perf_counter() - t0
+        return run
+
+    @contextlib.contextmanager
+    def block():
+        for n in names:
+            setattr(scan_mod, n, timed(saved[n]))
+        try:
+            yield spent
+        finally:
+            for n in names:
+                setattr(scan_mod, n, saved[n])
+
+    return block()
+
+
+def _check_nested_scan(table, orders, li, offsets, device, rows=None) -> None:
+    """A scan of the nested orders file against numpy: every flat column,
+    the composed and stacked offsets (int64), every leaf (l_returnflag as
+    ``dictionary[codes]``); ``rows`` (a slice of orders) for a pruned scan."""
+    from strawboat_tpu_torch.benchsuite import tpch
+
+    rows = slice(None) if rows is None else rows
+    for k, v in orders.items():
+        if not np.array_equal(_host_column(table[k]), v[rows]):
+            raise AssertionError(f"nested file: column {k} != the generated column")
+    offs = offsets[rows.start or 0 : (rows.stop if rows.stop is not None else len(offsets) - 1) + 1]
+    lo, hi = int(offs[0]), int(offs[-1])
+    want = torch.from_numpy(offs - lo).to(device)
+    for k in ("o_lineprices",) + tuple(f"o_lineitems.{leaf}" for leaf in tpch.NESTED_LINEITEM):
+        c = table[k]
+        if c.offsets.dtype != torch.int64 or not torch.equal(c.offsets, want) \
+                or len(c.offsets_stack) != 1 or not torch.equal(c.offsets_stack[0], want):
+            raise AssertionError(f"nested file: offsets of {k} != numpy")
+        leaf = "l_extendedprice" if k == "o_lineprices" else k.split(".")[1]
+        if not np.array_equal(_host_column(c), li[leaf][lo:hi]):
+            raise AssertionError(f"nested file: leaf {k} != the generated lineitems")
+
+
+def phase_nested(tmpdir, device, seed: int = SEED) -> tuple:
+    """TPC-H orders with their lineitems nested at SF10: 15 M orders (seed
+    1, in o_orderdate order), 1–7 lineitems each (seed 0), about 60 M
+    lineitems; o_lineitems list<struct<…>> and o_lineprices list<int64>.
+    Write under the dict flags with zone maps, scan whole twice, Q6 over
+    the leaves and list_segment_sum, a scan pruned by o_orderdate, chunks,
+    load_resident (list_sum and every leaf through K1), make_resident of
+    the scan's list column; every answer against numpy.  Returns the
+    file's path and the resident table (their K3 groups and K1 planes join
+    the kernel line)."""
+    from strawboat_tpu_torch.benchsuite import tpch
+    from strawboat_tpu_torch.codecs import WriteOptions
+    from strawboat_tpu_torch.exec import load_resident, make_resident, scan_file
+    from strawboat_tpu_torch.exec.aggregate import list_segment_sum
+    from strawboat_tpu_torch.exec.pruning import Comparison
+    from strawboat_tpu_torch.exec.scan import DeviceTable, _open, page_keep_mask, scan_chunks
+    from strawboat_tpu_torch.kernels import bitunpack as bu
+    from strawboat_tpu_torch.write import write_file
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    orders = tpch.generate_orders(NESTED_ORDERS / 1_500_000, seed=1)
+    order = np.argsort(orders["o_orderdate"], kind="stable")  # loaded in date order
+    orders = {k: v[order] for k, v in orders.items()}
+    lengths = np.random.default_rng(seed).integers(1, 8, NESTED_ORDERS)
+    offsets = np.zeros(NESTED_ORDERS + 1, dtype=np.int64)
+    np.cumsum(lengths, out=offsets[1:])
+    li = tpch.generate_lineitem(1.0, seed=seed, rows=int(offsets[-1]))
+    cols, fields = tpch.nested_orders(orders, li, offsets)
+    facts = {"generate_s": time.perf_counter() - t0, "orders": NESTED_ORDERS,
+             "lineitems": int(offsets[-1]), "page_rows": PAGE_ROWS}
+    path = os.path.join(tmpdir, "orders_nested.str")
+    with forcing(FILES["dict"]):
+        t0 = time.perf_counter()
+        metas = write_file(path, cols, schema=fields,
+                           options=WriteOptions(max_page_size=PAGE_ROWS, zone_maps=True))
+    facts["write"] = {"seconds": time.perf_counter() - t0, "bytes": os.path.getsize(path),
+                      "leaf_columns": len(metas), "pages_per_column": len(metas[0].pages)}
+    del cols
+
+    scans = []
+    for i in range(2):  # cold, then warm; the warm table stays for the queries
+        before = bu.bitunpack_natural.launches
+        with _timed_levels() as levels:
+            t0 = time.perf_counter()
+            table = scan_file(path, device)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        scans.append({"seconds": seconds, "level_host_s": levels["seconds"],
+                      "k3_launches": bu.bitunpack_natural.launches - before})
+        if i == 0:
+            _check_nested_scan(table, orders, li, offsets, device)
+            del table
+    facts["scan"] = {"runs": scans, "warm_s": scans[1]["seconds"], "equal_to_numpy": True,
+                     "decoded_bytes": sum(c.values.numel() * c.values.element_size()
+                                          for c in table.columns.values())}
+
+    leaves = DeviceTable({k: table[f"o_lineitems.{k}"] for k in tpch.NESTED_LINEITEM}, 0)
+    _check_equal("Q6 over the o_lineitems leaves", int(tpch.q6(leaves)),
+                 tpch.q6_numpy_reference({k: v[: offsets[-1]] for k, v in li.items()}))
+    lp = table["o_lineprices"]
+    want_sums = np.add.reduceat(li["l_extendedprice"][: offsets[-1]], offsets[:-1])
+    got = list_segment_sum(lp.values, lp.offsets, len(lp))
+    if not np.array_equal(got.cpu().numpy(), want_sums):
+        raise AssertionError("list_segment_sum of o_lineprices != numpy")
+    facts["queries"] = {"q6_equal_to_numpy": True, "list_segment_sum_equal_to_numpy": True,
+                        "list_segment_sum_ms": event_ms(
+                            lambda: list_segment_sum(lp.values, lp.offsets, len(lp)), reps=5)}
+    del table, leaves, lp
+
+    preds = [Comparison("o_orderdate", "ge", 731), Comparison("o_orderdate", "lt", 1096)]
+    keep = page_keep_mask(path, _open(path)[1], preds)
+    t0 = time.perf_counter()
+    pruned = scan_file(path, device, predicates=preds)
+    torch.cuda.synchronize()
+    pages = np.flatnonzero(keep)
+    if len(pages) == 0 or not np.array_equal(pages, np.arange(pages[0], pages[-1] + 1)):
+        raise AssertionError(f"the o_orderdate pages kept are not one run: {pages}")
+    rows = slice(int(pages[0]) * PAGE_ROWS, min(int(pages[-1] + 1) * PAGE_ROWS, NESTED_ORDERS))
+    _check_nested_scan(pruned, orders, li, offsets, device, rows)
+    lp = pruned["o_lineprices"]
+    if not np.array_equal(list_segment_sum(lp.values, lp.offsets, len(lp)).cpu().numpy(),
+                          want_sums[rows]):
+        raise AssertionError("list_segment_sum over the pruned scan != numpy")
+    facts["pruned"] = {"pages_kept": int(keep.sum()), "pages": len(keep), "rows": pruned.num_rows,
+                       "seconds": time.perf_counter() - t0, "equal_to_numpy": True}
+    del pruned, lp
+
+    total, n_chunks = 0, 0
+    for chunk in scan_chunks(path, 32, device, columns=["o_lineprices"]):
+        c = chunk["o_lineprices"]
+        total += int(list_segment_sum(c.values, c.offsets, len(c)).sum())
+        n_chunks += 1
+    _check_equal("the chunk sums of o_lineprices", total, int(want_sums.sum()))
+    facts["chunks"] = {"chunks": n_chunks, "chunk_pages": 32, "equal_to_whole": True}
+
+    t0 = time.perf_counter()
+    rt = load_resident(path, device, columns=["o_orderkey", "o_lineprices", "o_lineitems"])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    before = bu.bitunpack_tiled.launches
+    if not np.array_equal(rt.list_sum("o_lineprices").cpu().numpy(), want_sums):
+        raise AssertionError("list_sum(o_lineprices) over load_resident != numpy")
+    if bu.bitunpack_tiled.launches == before:
+        raise AssertionError("list_sum did not launch K1")
+    item = rt["o_lineitems"].child.children
+    for k in tpch.NESTED_LINEITEM:
+        got = rt._natural(item[k]).cpu().numpy()
+        if item[k].kind == "str":
+            got = item[k].dictionary_host[got].astype(str)
+        if not np.array_equal(got, li[k][: offsets[-1]]):
+            raise AssertionError(f"leaf {k} decoded from its resident planes != the generated one")
+    facts["load_resident"] = {
+        "seconds": load_s, "plane_bytes": _plane_bytes(rt), "leaves_equal": True,
+        "list_sum_equal_to_numpy": True,
+        "list_sum_ms": event_ms(lambda: rt.list_sum("o_lineprices"), reps=5)}
+
+    scanned = scan_file(path, device, columns=["o_lineprices"])
+    t0 = time.perf_counter()
+    rt2 = make_resident(scanned, device)
+    torch.cuda.synchronize()
+    if not np.array_equal(rt2.list_sum("o_lineprices").cpu().numpy(), want_sums):
+        raise AssertionError("list_sum over make_resident(scan) != numpy")
+    facts["make_resident_scan"] = {"seconds": time.perf_counter() - t0, "list_sum_equal_to_numpy": True}
+    del scanned, rt2
+    emit("nested", **facts, max_memory_allocated=torch.cuda.max_memory_allocated(),
+         nvidia_smi=nvidia_smi())
+    return path, rt
 
 
 def k3_summary(paths, device) -> dict:
@@ -1047,32 +1259,45 @@ def main() -> int:
         # the typed lineitem files: count only their launches
         bu.bitunpack_tiled.launches = 0
         bu.bitunpack_natural.launches = 0
-        typed_paths, float_rt = phase_lineitem_typed(cols, tmpdir, device)
+        typed_paths, float_rt = phase_lineitem_typed(
+            {k: np.ascontiguousarray(v[::TYPED_STRIDE]) for k, v in cols.items()}, tmpdir, device)
         typed = {"K1": bu.bitunpack_tiled.launches, "K3": bu.bitunpack_natural.launches}
         if min(typed.values()) <= 0:
             raise AssertionError(f"the lineitem_typed path did not launch K1 and K3: {typed}")
         k1_launches += typed["K1"]
         k3_launches += typed["K3"]
         torch.cuda.empty_cache()
+        # the nested orders file: count only its launches
+        bu.bitunpack_tiled.launches = 0
+        bu.bitunpack_natural.launches = 0
+        nested_path, nested_rt = phase_nested(tmpdir, device)
+        nested = {"K1": bu.bitunpack_tiled.launches, "K3": bu.bitunpack_natural.launches}
+        if min(nested.values()) <= 0:
+            raise AssertionError(f"the nested path did not launch K1 and K3: {nested}")
+        k1_launches += nested["K1"]
+        k3_launches += nested["K3"]
+        torch.cuda.empty_cache()
         # K3 over one scan of each file the paths scan: the two integer
-        # lineitem files, the orders file, the whole lineitem file and the
-        # typed ones
+        # lineitem files, the orders file, the whole lineitem file, the
+        # typed ones and the nested orders file
         k3.update(k3_summary({**paths, "orders": o_path, "lineitem_full": full_path,
-                              **typed_paths}, device))
+                              **typed_paths, "orders_nested": nested_path}, device))
         k2_k0 = phase_k2_k0(paths["bitpack"], cols["l_shipdate"], device, SEED)
     # K1 over every plane shape the paths decode: the host-encoded planes of
     # the resident table (Q1, Q6 and the general queries over it; Q6 over
     # load_resident decodes planes equal to these word for word), the
-    # device-direct planes of make_resident(scan) and those of the float64
-    # money scan, once each
+    # device-direct planes of make_resident(scan), those of the float64
+    # money scan, and the nested table's lengths, leaf and validity planes,
+    # once each
     planes = [(w, b) for t in (rt, scan_rt, float_rt) for c in t.columns.values()
               for w, b in c.planes]
+    planes += [p for c in nested_rt.columns.values() for p in _all_planes(c)]
     k1["ms"] = sum(event_ms(lambda w=w, b=b: bu.bitunpack_tiled(w, 0, b)) for w, b in planes)
     k1["plain_ms"] = sum(
         event_ms(lambda w=w, b=b: bu.bitunpack_tiled_plain(w, 0, b)) for w, b in planes
     )
     k1["bound_ms"] = sum(bound_ms(w.numel() * 4 * (b + 32) // b) for w, b in planes)
-    del rt, scan_rt, float_rt, planes
+    del rt, scan_rt, float_rt, nested_rt, planes
 
     def line(name, src, replaces, launches, facts):
         return {"name": name, "route": "cuda", "source": CSRC + src, "replaces": PALLAS + replaces,
@@ -1081,7 +1306,8 @@ def main() -> int:
                 # no single torch call unpacks BitPacker4x
                 "library_ms": None}
 
-    emit("launches", general_path=general, lineitem_full_path=full, lineitem_typed_path=typed)
+    emit("launches", general_path=general, lineitem_full_path=full, lineitem_typed_path=typed,
+         nested_path=nested)
     print(json.dumps({"kernels": [
         line("bitunpack_tiled", "bitunpack.cu", "222", k1_launches, k1),
         line("bitunpack_tiled_unseeded", "bitunpack.cu", "174", k2_k0["K2"]["launches"], k2_k0["K2"]),

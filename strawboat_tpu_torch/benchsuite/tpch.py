@@ -385,6 +385,40 @@ def write_orders(path, cols: Dict[str, np.ndarray], max_page_size: int = 65536, 
     return _write(path, cols, max_page_size, options)
 
 
+# orders with their lineitems nested: one row per order, the order's
+# lineitems as a list of structs (the denormalized layout nested formats
+# were made for), and its prices as a list of int64
+NESTED_LINEITEM = ("l_quantity", "l_extendedprice", "l_discount", "l_tax", "l_shipdate",
+                   "l_returnflag")
+
+
+def nested_orders(orders: Dict[str, np.ndarray], lineitem: Dict[str, np.ndarray],
+                  offsets: np.ndarray):
+    """Order ``i`` owns lineitem rows ``[offsets[i], offsets[i + 1])`` →
+    (columns, fields) for ``write_file``: the orders columns, then
+    ``o_lineitems`` (list<struct<l_quantity, l_extendedprice, l_discount,
+    l_tax int64, l_shipdate date32, l_returnflag utf8>>) and
+    ``o_lineprices`` (list<int64>, each order's l_extendedprice)."""
+    from .. import columns as cm
+    from ..schema import Field, list_of
+    from ..write.writer import _binary_column, _numpy_alias
+
+    m = int(offsets[-1])
+    flag = _binary_column(lineitem["l_returnflag"][:m], None)
+    leaves = [cm.PrimitiveColumn("date32" if k == "l_shipdate" else "int64", None, lineitem[k][:m])
+              for k in NESTED_LINEITEM[:-1]]
+    leaves.append(cm.BinaryColumn("string", None, flag.offsets, flag.values))
+    item = Field("item", "struct", True, tuple(
+        Field(k, c.dtype) for k, c in zip(NESTED_LINEITEM, leaves)))
+    cols = dict(orders)
+    cols["o_lineitems"] = cm.ListColumn("list", None, offsets, cm.StructColumn("struct", None, leaves, m))
+    cols["o_lineprices"] = cm.ListColumn(
+        "list", None, offsets, cm.PrimitiveColumn("int64", None, lineitem["l_extendedprice"][:m]))
+    fields = [Field(k, _numpy_alias(v)) for k, v in orders.items()]
+    fields += [list_of("o_lineitems", item), list_of("o_lineprices", Field("item", "int64"))]
+    return cols, fields
+
+
 def q3_like(lineitem, orders, date_cut: int = 1000, num_groups: int = 8192):
     """Q3-shaped query over two DeviceTables: join lineitem → orders on the
     order key (orders is the unique-key build side), keep orders before

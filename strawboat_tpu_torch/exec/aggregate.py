@@ -15,7 +15,9 @@ Counterpart of ``strawboat_tpu/exec/aggregate.py``:
   prefix-sum differences, min / max and float sums through
   ``torch.segment_reduce``, labels and representative rows gathered at
   the range ends; only integer min / max beyond 2^53 scatter;
-- no keys (``scalar_aggregate``).
+- no keys (``scalar_aggregate``);
+- list rows (``list_segment_sum``): the same range reduction over a list
+  column's row → leaf offsets.
 
 u64 key images and labels travel as int64 holding the same bits
 (``device.py``); to order them the sign bit is flipped first.
@@ -348,6 +350,22 @@ def hash_aggregate(
         ftype = s.dtype if s.is_floating_point() else torch.float64
         result[name] = s.to(ftype) / c.clamp(min=1).to(ftype)
     return result
+
+
+def list_segment_sum(values: torch.Tensor, offsets: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Per-row sums of a flattened list column: row ``i`` sums
+    ``values[offsets[i]:offsets[i + 1]]`` (a ``DeviceListColumn``'s
+    composed offsets, any depth); rows past the offsets sum to 0.
+    Integer sums are int64, exact mod 2^64; float sums keep the values'
+    type (reference ``list_segment_sum``, aggregate.py:307)."""
+    off = offsets.to(torch.int64)
+    v = values if values.is_floating_point() else values.to(torch.int64)
+    if off.shape[0] == 0:
+        return torch.zeros(num_segments, dtype=v.dtype, device=v.device)
+    out = _range_reduce(v[: int(off[-1])], off, off[1:] - off[:-1], "sum")
+    if out.shape[0] < num_segments:
+        out = torch.cat([out, out.new_zeros(num_segments - out.shape[0])])
+    return out[:num_segments]
 
 
 def scalar_aggregate(values: torch.Tensor, mask: Optional[torch.Tensor], fn: str):

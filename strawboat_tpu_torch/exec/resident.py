@@ -1,7 +1,7 @@
 """Compressed-in-device-memory resident tables on torch.
 
-Counterpart of ``strawboat_tpu/exec/resident.py`` (flat columns).  A
-resident table keeps each column as 1–2 bit-packed PLANES of
+Counterpart of ``strawboat_tpu/exec/resident.py``.  A resident table
+keeps each column as 1–2 bit-packed PLANES of
 ``(n_tiles, bits, tile)`` int32 words on the device, plus a small sorted
 dictionary for dictionary-coded columns, and decodes on the fly inside each
 query through kernel K1 (``kernels/bitunpack.py``).
@@ -16,9 +16,16 @@ encode decisions (dictionary or plain, plane widths, offsets, the 8192-entry
 dictionary cut, the host/device pack threshold) are the reference's, so the
 planes match it word for word.
 
-Two fronts build a table: a ``pa.Table`` (pyarrow, imported lazily) and a
-mapping of numpy columns, for machines without pyarrow.  List, map and
-struct columns are not ported yet.
+A list column (list, large_list, fixed-size list, map) keeps a LENGTHS
+plane on the row grid and its flattened children as a child column over
+their own grid (a map's child is the struct of its keys and values); a
+struct column unnests into ``parent.child`` columns on the row grid and
+``struct_specs`` reassembles it.  ``list_sum`` sums each row's list
+through K1.
+
+Fronts: a ``pa.Table`` (pyarrow, imported lazily), a mapping of numpy
+columns or ``columns.py`` columns (for machines without pyarrow), a
+``DeviceTable``, and a file (``load_resident``).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import columns as cm
 from .. import native
 from ..device import U32_MASK, as_device, shr_u32, u64_to_i64, widen_i64, words_u32
 from ..errors import NotYetImplementedError, OutOfSpecError
@@ -38,12 +46,12 @@ from ..kernels.bitunpack import TILE3D, bitunpack_tiled, transpose_words_host_ti
 from ..kernels.decode import dict_gather_device
 from ..util.bits import pack_blocks
 from .aggregate import segment_reduce
-from ..schema import decimal_params
-from .scan import DeviceColumn, DeviceTable, to_pa_array, unsigned_view
+from ..schema import Field, decimal_params, fixed_size, int_storage
+from .aggregate import list_segment_sum
+from .scan import DeviceColumn, DeviceListColumn, DeviceTable, to_pa_array, unsigned_view
 
 _MAX_DICT = 1 << 20  # dictionary entries beyond this: plain planes instead
 _DEVICE_PACK_MIN = 1 << 16  # from this many rows the pack runs on the device
-_NESTED = "ROADMAP.md 'Modules to port': list_sum and nested resident columns"
 
 
 @dataclass
@@ -53,7 +61,7 @@ class ResidentColumn:
     planes: Tuple[Tuple[torch.Tensor, int], ...]
     shifts: Tuple[int, ...]  # bit position of each plane in the payload
     length: int  # true row count (tiled slots beyond are padding)
-    kind: str  # 'int' | 'f32' | 'f64' | 'bool' | 'str'
+    kind: str  # 'int' | 'f32' | 'f64' | 'bool' | 'str' | 'list' | 'struct'
     offset: int = 0  # unsigned 64-bit two's-complement image
     bit_shift: int = 0
     # int kind: decode to int64 when the arrow storage is 64-bit, even if
@@ -65,7 +73,14 @@ class ResidentColumn:
     dictionary: Optional[torch.Tensor] = None
     dictionary_host: Optional[np.ndarray] = None
     validity_plane: Optional[torch.Tensor] = None  # 1-bit plane; None = all valid
-    arrow_type: Any = None  # pa.DataType, or its alias string
+    # pa.DataType, or its alias string; a nested column's port Field
+    arrow_type: Any = None
+    # list kind: the planes hold each row's length; the flattened children
+    # are a column over their own grid (a list<list<…>>'s child is a list)
+    child: Optional["ResidentColumn"] = None
+    # struct kind: {field: column on the parent's grid}; a struct in a
+    # table unnests to `parent.field` columns (ResidentTable.struct_specs)
+    children: Optional[Dict[str, "ResidentColumn"]] = None
 
     @property
     def is_dict(self) -> bool:
@@ -114,6 +129,14 @@ def _slot_source_index(n_tiles: int, tile: int) -> np.ndarray:
     return np.broadcast_to(nat, shape).reshape(-1)
 
 
+def _pa_of(t):
+    """A column's type as a ``pa.DataType`` (from a port Field, an alias
+    string or a pa type)."""
+    if isinstance(t, Field):
+        return cm.pa_type(t)
+    return cm.arrow_type(t)
+
+
 def _unpack_plane_tiled(wt3: torch.Tensor, bits: int) -> torch.Tensor:
     """One packed plane → flat int32 (u32 bits) values in tiled-slot order."""
     return bitunpack_tiled(wt3, 0, bits).reshape(-1)
@@ -125,6 +148,9 @@ class ResidentTable:
     num_rows: int
     tile: int
     field_order: Optional[Sequence[str]] = None
+    # struct reassembly: {struct name: (((field, column name), ...),
+    # validity plane or None, type)}; the children are table columns
+    struct_specs: Optional[Dict[str, Any]] = None
     _bounds_cache: Dict = field(
         default_factory=dict, init=False, repr=False, compare=False
     )
@@ -161,21 +187,17 @@ class ResidentTable:
     @classmethod
     def from_reference(cls, rt_ref, device) -> "ResidentTable":
         """Port table over the arrays of a reference ``ResidentTable`` (or any
-        object shaped like one).  Each plane, validity plane and dictionary
-        is copied out with ``np.array``, which takes a JAX array as it is, so
-        no JAX import is needed here."""
+        object shaped like one), list and struct columns included.  Each
+        plane, validity plane and dictionary is copied out with
+        ``np.array``, which takes a JAX array as it is, so no JAX import is
+        needed here."""
         dev = as_device(device)
 
         def words(w):
             return torch.from_numpy(np.array(w, dtype=np.uint32).view(np.int32)).to(dev)
 
-        cols = {}
-        for name, c in rt_ref.columns.items():
-            if c.kind not in ("int", "f32", "f64", "bool", "str"):
-                raise NotYetImplementedError(
-                    f"{c.kind} column {name!r} ({_NESTED})"
-                )
-            cols[name] = ResidentColumn(
+        def column(name, c) -> ResidentColumn:
+            return ResidentColumn(
                 name,
                 tuple((words(w), b) for w, b in c.planes),
                 tuple(c.shifts),
@@ -193,9 +215,18 @@ class ResidentTable:
                     None if c.validity_plane is None else words(c.validity_plane)
                 ),
                 arrow_type=c.arrow_type,
+                child=None if c.child is None else column(c.child.name, c.child),
+                children=None if c.children is None else {
+                    k: column(v.name, v) for k, v in c.children.items()},
             )
-        return cls(cols, int(rt_ref.num_rows), int(rt_ref.tile),
-                   field_order=getattr(rt_ref, "field_order", None))
+
+        specs = getattr(rt_ref, "struct_specs", None)
+        return cls({name: column(name, c) for name, c in rt_ref.columns.items()},
+                   int(rt_ref.num_rows), int(rt_ref.tile),
+                   field_order=getattr(rt_ref, "field_order", None),
+                   struct_specs=None if specs is None else {
+                       k: (tuple(names), None if v is None else words(v), t)
+                       for k, (names, v, t) in specs.items()})
 
     # -- decode --------------------------------------------------------
 
@@ -263,11 +294,16 @@ class ResidentTable:
     # -- whole-table views ---------------------------------------------
 
     def as_device_table(self, columns: Optional[Sequence[str]] = None):
-        """Decoded tiled columns as a ``DeviceTable`` + padding mask."""
+        """Decoded tiled columns as a ``DeviceTable`` + padding mask.  A
+        list column raises: its leaves lie on their own grid (it serves
+        ``list_sum`` and ``to_arrow``)."""
         names = list(columns) if columns is not None else list(self.columns)
         cols = {}
         for n in names:
             c = self.columns[n]
+            if c.kind == "list":
+                raise NotYetImplementedError(
+                    f"list column {n!r} in as_device_table: lists serve list_sum and to_arrow")
             cols[n] = DeviceColumn(
                 n,
                 c.arrow_type,
@@ -277,24 +313,97 @@ class ResidentTable:
             )
         return DeviceTable(cols, self.tiled_slots), self.mask_tiled()
 
+    def _natural(self, c: ResidentColumn, with_dict: bool = True) -> torch.Tensor:
+        """An explicit column's values (a list's child too) in natural order."""
+        return self._decode_col(c, with_dict)[: c.length]
+
+    def _col_validity(self, c: ResidentColumn) -> Optional[np.ndarray]:
+        if c.validity_plane is None:
+            return None
+        return (_unpack_plane_tiled(c.validity_plane, 1) != 0)[: c.length].cpu().numpy()
+
+    def _materialize_pa(self, c: ResidentColumn):
+        """One column (or a list's or struct's child) → its natural-order
+        ``pa.Array`` (reference ``_materialize_pa``, resident.py:382)."""
+        import pyarrow as pa
+
+        valid = self._col_validity(c)
+        mask = None if valid is None else ~valid
+        t = _pa_of(c.arrow_type)
+        if c.kind == "struct":
+            children = [self._materialize_pa(cc) for cc in c.children.values()]
+            return pa.StructArray.from_arrays(children, fields=list(t),
+                                              mask=None if mask is None else pa.array(mask))
+        if c.kind == "list":
+            lengths = self._natural(c).cpu().numpy().astype(np.int64)
+            offsets = np.zeros(len(lengths) + 1, dtype=np.int64)
+            np.cumsum(lengths, out=offsets[1:])
+            child = self._materialize_pa(c.child)
+            bitmap = None if mask is None else pa.py_buffer(np.packbits(~mask, bitorder="little"))
+            if pa.types.is_map(t):
+                arr = pa.MapArray.from_arrays(pa.array(offsets.astype(np.int32)), child.field(0),
+                                              child.field(1),
+                                              mask=None if mask is None else pa.array(mask))
+            elif pa.types.is_fixed_size_list(t):  # every row keeps its slots
+                return pa.Array.from_buffers(t, len(lengths), [bitmap], children=[child])
+            else:
+                arr = pa.Array.from_buffers(pa.large_list(child.type), len(lengths),
+                                            [bitmap, pa.py_buffer(offsets)], children=[child])
+            return arr if arr.type == t else arr.cast(t)
+        vals = self._natural(c).cpu().numpy()
+        return to_pa_array(vals, mask, c.arrow_type,
+                           c.dictionary_host if c.kind == "str" else None)
+
+    def _materialize_name(self, n: str):
+        import pyarrow as pa
+
+        if self.struct_specs and n in self.struct_specs:
+            names, vplane, t = self.struct_specs[n]
+            children = [self._materialize_name(cn) for _sub, cn in names]
+            mask = None
+            if vplane is not None:
+                valid = (_unpack_plane_tiled(vplane, 1) != 0)[: self.num_rows].cpu().numpy()
+                mask = pa.array(~valid)
+            return pa.StructArray.from_arrays(children, fields=list(_pa_of(t)), mask=mask)
+        return self._materialize_pa(self.columns[n])
+
     def to_arrow(self, columns: Optional[Sequence[str]] = None):
-        """Natural-order host materialization as a ``pa.Table``."""
+        """Natural-order host materialization as a ``pa.Table``; a struct
+        reassembles from its ``parent.child`` columns."""
         import pyarrow as pa
 
         names = list(columns) if columns is not None else list(
             self.field_order or self.columns
         )
-        arrays = {}
-        for n in names:
-            c = self.columns[n]
-            vals = self.decode_natural(n).cpu().numpy()
-            valid = self.validity_natural(n)
-            mask = None if valid is None else ~valid.cpu().numpy()
-            arrays[n] = to_pa_array(
-                vals, mask, c.arrow_type,
-                c.dictionary_host if c.kind == "str" else None,
-            )
-        return pa.table(arrays)
+        return pa.table({n: self._materialize_name(n) for n in names})
+
+    def list_sum(self, name: str) -> torch.Tensor:
+        """Per-row sum of a list column of numbers: the lengths plane
+        decodes through K1 into int64 offsets (a cumsum; the reference's is
+        int32), the leaf planes through K1, null leaves and null rows
+        count 0, then ``list_segment_sum``.  Integer sums are int64, float
+        sums keep the leaf type.  A list of strings, bools, lists or
+        structs raises, as in the reference (resident.py:620-676)."""
+        c = self.columns[name]
+        if c.kind != "list":
+            raise OutOfSpecError(f"{name!r} is not a list column")
+        child = c.child
+        if child.kind not in ("int", "f32", "f64"):
+            raise NotYetImplementedError(f"list_sum over list<{child.kind}>")
+        lengths = self._natural(c).to(torch.int64)
+        offsets = torch.zeros(lengths.shape[0] + 1, dtype=torch.int64, device=lengths.device)
+        torch.cumsum(lengths, 0, out=offsets[1:])
+        vals = self._natural(child)
+        if not vals.is_floating_point():
+            vals = vals.to(torch.int64)
+        if child.validity_plane is not None:
+            cv = (_unpack_plane_tiled(child.validity_plane, 1) != 0)[: child.length]
+            vals = torch.where(cv, vals, torch.zeros((), dtype=vals.dtype, device=vals.device))
+        sums = list_segment_sum(vals, offsets, self.num_rows)
+        valid = self.validity_natural(name)
+        if valid is not None:
+            sums = torch.where(valid, sums, torch.zeros((), dtype=sums.dtype, device=sums.device))
+        return sums
 
     # -- bound translation ---------------------------------------------
 
@@ -558,8 +667,12 @@ def _is_wide(arrow_type) -> bool:
     decimal): decode ints to int64."""
     if arrow_type is None:
         return False
+    if isinstance(arrow_type, Field):
+        return False
     if isinstance(arrow_type, str):
-        return (arrow_type in ("int64", "uint64") or arrow_type.startswith("timestamp")
+        # duration too, which the reference does not load
+        return (arrow_type in ("int64", "uint64", "date64")
+                or arrow_type.startswith(("timestamp", "time64", "duration"))
                 or decimal_params(arrow_type) is not None)
     import pyarrow as pa
 
@@ -675,32 +788,6 @@ def _too_many_strings(name):
     )
 
 
-def _encode_string(name, arr, tile: int, arrow_type, rows, device):
-    """pa utf8/binary → packed codes + GLOBAL SORTED dictionary."""
-    import pyarrow as pa
-    import pyarrow.compute as pc
-
-    denc = arr.dictionary_encode()
-    if isinstance(denc, pa.ChunkedArray):
-        denc = denc.combine_chunks()
-    d = denc.dictionary
-    if len(d) > _MAX_DICT:
-        raise _too_many_strings(name)
-    order = pc.sort_indices(d).to_numpy(zero_copy_only=False)
-    rank = np.empty(max(len(d), 1), dtype=np.uint32)
-    rank[order] = np.arange(len(order), dtype=np.uint32)
-    indices = denc.indices
-    if indices.null_count:
-        # null indices are pinned to code 0; the validity plane masks them
-        indices = indices.fill_null(0)
-    codes_raw = indices.to_numpy(zero_copy_only=False).astype(np.int64)
-    codes = rank[codes_raw] if len(d) else np.zeros(rows, dtype=np.uint32)
-    sorted_pa = d.take(pa.array(order)) if len(d) else d
-    host = np.empty(len(sorted_pa), dtype=object)
-    host[:] = sorted_pa.to_pylist()
-    return _string_column(name, codes, host, tile, arrow_type, rows, device)
-
-
 def _encode_string_np(name, arr: np.ndarray, validity, tile, arrow_type, rows, device):
     """numpy unicode/bytes → packed codes + GLOBAL SORTED dictionary: the
     valid rows factorize into codes over their distinct values, and
@@ -736,76 +823,16 @@ def _fill_invalid(vals: np.ndarray, validity) -> np.ndarray:
 
 
 def _encode_resident_column(f, arr, tile: int, device) -> ResidentColumn:
-    """One pyarrow column → a flat resident column."""
+    """One pyarrow column → a resident column, through the column model.
+    A decimal wider than int64 (precision above 18, or decimal256) raises,
+    as in the reference's loader."""
     import pyarrow as pa
 
     arr = arr.combine_chunks() if isinstance(arr, pa.ChunkedArray) else arr
-    rows = len(arr)
     t = f.type
-    validity = None
-    if arr.null_count:
-        validity = ~np.asarray(arr.is_null())
-    if (
-        pa.types.is_string(t) or pa.types.is_binary(t)
-        or pa.types.is_large_string(t) or pa.types.is_large_binary(t)
-    ):
-        col = _encode_string(f.name, arr, tile, t, rows, device)
-    elif pa.types.is_boolean(t):
-        arr_f = arr.fill_null(False) if arr.null_count else arr
-        v01 = arr_f.to_numpy(zero_copy_only=False).astype(np.uint32)
-        planes = ((_pack_plane(v01, 1, tile, device), 1),)
-        col = ResidentColumn(f.name, planes, (0,), rows, "bool", arrow_type=t)
-    elif pa.types.is_floating(t):
-        if t.bit_width == 16:
-            raise NotYetImplementedError("resident load of float16")
-        # raw bit patterns from the values buffer: NaN / ±inf / -0.0 at
-        # non-null positions survive bit-exactly
-        npdt = np.dtype(np.float32 if t.bit_width == 32 else np.float64)
-        buf = arr.buffers()[1]
-        if buf is None:  # all-null arrays may carry no values buffer
-            vals = np.zeros(len(arr), dtype=npdt)
-        else:
-            vals = np.frombuffer(
-                buf, dtype=npdt, count=len(arr) + arr.offset
-            )[arr.offset:].copy()
-        vals = _fill_invalid(vals, validity)
-        col = _encode_float(f.name, np.ascontiguousarray(vals), tile, t, rows, device)
-    elif (
-        pa.types.is_integer(t) or pa.types.is_date(t)
-        or pa.types.is_timestamp(t) or pa.types.is_time(t)
-    ):
-        arr_f = arr.fill_null(0) if arr.null_count else arr
-        vals = np.ascontiguousarray(
-            arr_f.to_numpy(zero_copy_only=False).astype(np.int64)
-        )
-        col = _encode_int(f.name, vals, tile, t, rows, device)
-    elif pa.types.is_decimal(t) and t.bit_width == 128 and t.precision <= 18:
-        # unscaled int64 domain (predicates on decimals compare unscaled ints)
-        limbs = np.frombuffer(
-            arr.buffers()[1], dtype="<i8", count=2 * (len(arr) + arr.offset)
-        ).reshape(-1, 2)[arr.offset: arr.offset + len(arr)]
-        lo, hi = limbs[:, 0].copy(), limbs[:, 1]
-        if validity is not None:
-            lo[~validity] = 0
-            ok = (hi == (lo >> 63)) | ~validity
-        else:
-            ok = hi == (lo >> 63)
-        if not bool(np.all(ok)):
-            raise OutOfSpecError(
-                f"decimal column {f.name!r}: unscaled value exceeds int64 "
-                f"despite precision {t.precision}"
-            )
-        col = _encode_int(f.name, np.ascontiguousarray(lo), tile, t, rows, device)
-    elif pa.types.is_list(t) or pa.types.is_large_list(t) or pa.types.is_map(t) \
-            or pa.types.is_struct(t):
-        raise NotYetImplementedError(
-            f"resident load of nested column {f.name!r} type {t} ({_NESTED})"
-        )
-    else:
+    if pa.types.is_union(t) or (pa.types.is_decimal(t) and (t.bit_width != 128 or t.precision > 18)):
         raise NotYetImplementedError(f"resident load of column {f.name!r} type {t}")
-    if validity is not None:
-        col.validity_plane = _pack_plane(validity.astype(np.uint32), 1, tile, device)
-    return col
+    return _encode_model(f.name, cm.from_arrow(arr), cm.field_from_arrow(f), tile, device)
 
 
 def _numpy_arrow_alias(dtype: np.dtype) -> str:
@@ -964,6 +991,229 @@ def _encode_device_column(c: DeviceColumn, tile: int, rows: int) -> ResidentColu
     return col
 
 
+# ---------------------------------------------------------------------------
+# Nested columns: the host encoder over the column model (``columns.py``),
+# the reference's _encode_resident_column list / map / struct branches
+# (resident.py:1098-1180) without pyarrow.
+
+
+@dataclass
+class _Codes:
+    """A string column as codes into a host dictionary (a scan's)."""
+
+    dtype: str
+    validity: Optional[np.ndarray]
+    codes: np.ndarray
+    dictionary: np.ndarray
+
+    def __len__(self) -> int:
+        return len(self.codes)
+
+    def slice(self, offset: int, length: int) -> "_Codes":
+        v = None if self.validity is None else self.validity[offset : offset + length]
+        return _Codes(self.dtype, v, self.codes[offset : offset + length], self.dictionary)
+
+    def take(self, idx: np.ndarray) -> "_Codes":
+        v = None if self.validity is None else self.validity[idx]
+        return _Codes(self.dtype, v, self.codes[idx], self.dictionary)
+
+
+def _flatten_rows(col, offsets: np.ndarray, validity):
+    """A list's children in its row window, those under null rows left out
+    (arrow's ``list_flatten``)."""
+    base, end = int(offsets[0]), int(offsets[-1])
+    lens = np.diff(offsets)
+    if validity is None or not (lens[~validity] != 0).any():
+        return col.slice(base, end - base)
+    rows = np.flatnonzero(validity)
+    return col.take(cm._ranges(offsets[rows], lens[rows]))
+
+
+def _encode_model(name: str, col, f: Field, tile: int, device) -> ResidentColumn:
+    """One column of the host model (a string column may be ``_Codes``) →
+    a resident column.  A list's LENGTHS plane (null rows 0) lies on the
+    row grid and its children, flattened, form the child column ``name
+    + ".item"``; a map's child is the struct ``name + ".entries"`` of its
+    ``.key`` and ``.value`` columns; a struct keeps its children on its
+    grid.  A fixed-size list (which the reference does not load) keeps
+    every row's slots, so its lengths are all ``size``."""
+    rows = len(col)
+    validity = col.validity
+    if validity is not None and validity.all():
+        validity = None
+    t = f.dtype
+    if isinstance(col, (_Codes, cm.BinaryColumn)):
+        if isinstance(col, cm.BinaryColumn):
+            from ..codecs.binary import factorize_slices
+
+            starts = col.offsets[:-1].astype(np.int64)
+            codes, uniq = factorize_slices(starts, np.diff(col.offsets).astype(np.int64), col.values)
+            dictionary = np.empty(len(uniq), dtype=object)
+            dictionary[:] = uniq
+        else:
+            codes, dictionary = col.codes.astype(np.int64), col.dictionary
+        rc = _encode_string_codes(name, codes, dictionary, validity, tile, t, device)
+    elif isinstance(col, cm.BooleanColumn):
+        v01 = col.values.astype(np.uint32)
+        if validity is not None:
+            v01[~validity] = 0
+        rc = ResidentColumn(name, ((_pack_plane(v01, 1, tile, device), 1),), (0,), rows, "bool",
+                            arrow_type=t)
+    elif isinstance(col, cm.PrimitiveColumn) and decimal_params(t) is not None:
+        from ..codecs.decimal import int64_rows
+
+        vals = col.values
+        if vals.ndim == 2:
+            vals, fits = int64_rows(vals)
+            if validity is not None:
+                fits = fits | ~validity
+            if not fits.all():
+                raise OutOfSpecError(f"decimal column {name!r}: an unscaled value beyond int64")
+        vals = vals.astype(np.int64)
+        if validity is not None:
+            vals[~validity] = 0
+        rc = _encode_int(name, np.ascontiguousarray(vals), tile, t, rows, device)
+    elif isinstance(col, cm.PrimitiveColumn) and col.values.dtype.kind == "f":
+        if col.values.dtype == np.float16:
+            raise NotYetImplementedError("resident load of float16")
+        vals = _fill_invalid(col.values.copy(), validity)
+        rc = _encode_float(name, np.ascontiguousarray(vals), tile, t, rows, device)
+    elif isinstance(col, cm.PrimitiveColumn):
+        vals = col.values.astype(np.int64)
+        if validity is not None:
+            vals[~validity] = 0
+        rc = _encode_int(name, np.ascontiguousarray(vals), tile, t, rows, device)
+    elif isinstance(col, (cm.ListColumn, cm.FixedSizeListColumn)):
+        cf = f.children[0]
+        if isinstance(col, cm.FixedSizeListColumn):
+            lengths = np.full(rows, col.size, dtype=np.int64)
+            child = col.child
+        else:
+            offsets = col.offsets.astype(np.int64)
+            lengths = np.diff(offsets)
+            child = _flatten_rows(col.child, offsets, validity)
+            if validity is not None:
+                lengths[~validity] = 0
+        child_rc = _encode_model(f"{name}.item", child,
+                                 Field(f"{name}.item", cf.dtype, True, cf.children), tile, device)
+        rc = _lengths_column(name, lengths, tile, f, child_rc, device)
+    elif isinstance(col, cm.MapColumn):
+        offsets = col.offsets.astype(np.int64)
+        base, end = int(offsets[0]), int(offsets[-1])
+        entries = f.children[0]
+        key_f, value_f = entries.children
+        children = {
+            "key": _encode_model(f"{name}.key", col.keys.slice(base, end - base),
+                                 Field(f"{name}.key", key_f.dtype, True, key_f.children),
+                                 tile, device),
+            "value": _encode_model(f"{name}.value", col.items.slice(base, end - base),
+                                   Field(f"{name}.value", value_f.dtype, True, value_f.children),
+                                   tile, device),
+        }
+        ent = ResidentColumn(f"{name}.entries", (), (), end - base, "struct",
+                             arrow_type=entries, children=children)
+        rc = _lengths_column(name, np.diff(offsets), tile, f, ent, device)
+    elif isinstance(col, cm.StructColumn):
+        children = {
+            cf.name: _encode_model(f"{name}.{cf.name}", c,
+                                   Field(f"{name}.{cf.name}", cf.dtype, True, cf.children),
+                                   tile, device)
+            for c, cf in zip(col.children, f.children)
+        }
+        rc = ResidentColumn(name, (), (), rows, "struct", arrow_type=f, children=children)
+    else:
+        raise NotYetImplementedError(f"resident load of column {name!r} type {t}")
+    if validity is not None:
+        rc.validity_plane = _pack_plane(validity.astype(np.uint32), 1, tile, device)
+    return rc
+
+
+def _lengths_column(name, lengths: np.ndarray, tile, f: Field, child, device) -> ResidentColumn:
+    bits = _bits_of(int(lengths.max())) if len(lengths) and lengths.max() else 1
+    planes, shifts = _split_planes(lengths.astype(np.uint64), bits, tile, device)
+    return ResidentColumn(name, planes, shifts, len(lengths), "list", arrow_type=f, child=child)
+
+
+def _leaf_model(c: DeviceColumn, validity):
+    """A scanned leaf's values back on the host, as the column model."""
+    vals = c.values.cpu().numpy()
+    if c.dictionary is not None:
+        return _Codes(c.dtype, validity, vals, c.dictionary)
+    if vals.dtype == np.bool_:
+        return cm.BooleanColumn(c.dtype, validity, vals)
+    storage = int_storage(c.dtype)
+    if storage is not None and vals.dtype.itemsize == np.dtype(storage).itemsize:
+        vals = vals.view(storage)
+    return cm.PrimitiveColumn(c.dtype, validity, vals)
+
+
+def _np(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:
+    return None if t is None else t.cpu().numpy()
+
+
+def _list_model(c: DeviceListColumn):
+    """A ``DeviceListColumn`` → (its column model: a list per level of its
+    offsets stack over the leaf, its field: plain lists, or large lists
+    where the scanned level was one)."""
+    model = _leaf_model(c, _np(c.child_validity))
+    f = Field("item", c.dtype)
+    kinds = ["large_list" if lf.dtype == "large_list" else "list" for lf in c.level_fields]
+    for offs, valid, kind in reversed(list(zip(c.offsets_stack, c.list_validities, kinds))):
+        offs = offs.cpu().numpy()
+        model = cm.ListColumn(kind, _np(valid), offs, model)
+        f = Field("item", kind, True, (f,))
+    return model, Field(c.name, f.dtype, True, f.children)
+
+
+def _assemble(f: Field, leaves, depth: int = 0):
+    """A scanned nested field's leaves ((levels, leaf model) each) → its
+    column model (reference ``assemble_column``, read/deserialize.py:142)."""
+    if not f.is_nested:
+        return leaves[0][1]
+    level = leaves[0][0][depth]
+    validity = level.validity if level.nullable else None
+    if f.dtype == "struct":
+        children, i = [], 0
+        for cf in f.children:
+            children.append(_assemble(cf, leaves[i : i + cf.n_leaves], depth + 1))
+            i += cf.n_leaves
+        return cm.StructColumn(f.dtype, validity, children, level.length)
+    if f.dtype.startswith("map"):
+        key_f, value_f = f.children[0].children
+        n = key_f.n_leaves
+        return cm.MapColumn(f.dtype, validity, level.offsets,
+                            _assemble(key_f, leaves[:n], depth + 2),
+                            _assemble(value_f, leaves[n:], depth + 2))
+    child = _assemble(f.children[0], leaves, depth + 1)
+    size = fixed_size(f.dtype)
+    if size is not None:
+        return cm.FixedSizeListColumn(f.dtype, validity, size, child, level.length)
+    return cm.ListColumn(f.dtype, validity, level.offsets, child)
+
+
+def _host_encoder(dt: DeviceTable, tile: int, device):
+    """Encoding of a ``DeviceTable``'s columns on the host (the reference's
+    loaders' decisions, so planes match them word for word) →
+    ``encode(name)``: a flat column by name, a nested field of
+    ``dt.nested`` by its name (assembled from its leaves), or a
+    ``DeviceListColumn`` as its chain of lists."""
+
+    def encode(n):
+        if n in dt.nested:
+            f, leaves = dt.nested[n]
+            parts = [(leaf.levels, _leaf_model(dt[leaf.name], _np(
+                dt[leaf.name].child_validity if isinstance(dt[leaf.name], DeviceListColumn)
+                else dt[leaf.name].validity))) for leaf in leaves]
+            return _encode_model(n, _assemble(f, parts), f, tile, device)
+        c = dt[n]
+        if isinstance(c, DeviceListColumn):
+            model, f = _list_model(c)
+            return _encode_model(n, model, f, tile, device)
+        return _encode_model(n, _leaf_model(c, _np(c.validity)), Field(n, c.dtype), tile, device)
+
+    return encode
+
+
 def _make_resident_device(dt: DeviceTable, tile: int, device: torch.device) -> ResidentTable:
     rows = int(dt.num_rows)
     out: Dict[str, ResidentColumn] = {}
@@ -988,25 +1238,47 @@ def _encode_all(encode, items):
         return list(pool.map(encode, items))
 
 
-def make_resident(table, device, tile: Optional[int] = None) -> ResidentTable:
+def make_resident(table, device, tile: Optional[int] = None,
+                  schema: Optional[Sequence[Field]] = None) -> ResidentTable:
     """Build a resident table on ``device`` from a ``pa.Table``, from a
-    mapping ``{name: numpy column}``, or from a ``DeviceTable``.
+    mapping ``{name: numpy column or columns.py column}``, or from a
+    ``DeviceTable``.
 
     numpy columns encode as the arrow type the reference would see: int64 →
     int64 (decoded wide), int32 → int32, unicode → string, bytes → binary,
     float, bool, datetime64[D] → date32; a ``np.ma.MaskedArray`` carries
-    nulls.  A ``DeviceTable`` (a scan or join result) encodes on the device
-    itself, as the reference's device-direct encoder does: integers take
-    offset-stripped planes and never a dictionary."""
+    nulls.  A nested ``columns.py`` column (list, large_list, fixed-size
+    list, map, struct) needs its field in ``schema``.  A ``DeviceTable`` (a
+    scan or join result) encodes on the device itself, as the reference's
+    device-direct encoder does: integers take offset-stripped planes and
+    never a dictionary; a table with a ``DeviceListColumn`` encodes every
+    column on the host from the columns' own arrays, as the reference
+    falls back to its host encoder (resident.py:1492-1496)."""
     dev = as_device(device)
     tile = tile or TILE3D
     if isinstance(table, Mapping):
         names = list(table)
-        encoded = _encode_all(
-            lambda n: _encode_numpy_column(n, table[n], tile, dev), names
-        )
+        fields = {f.name: f for f in schema or ()}
+
+        def encode(n):
+            col = table[n]
+            if isinstance(col, cm.Column):
+                f = fields.get(n)
+                if f is None:
+                    if isinstance(col, (cm.ListColumn, cm.FixedSizeListColumn, cm.MapColumn,
+                                        cm.StructColumn)):
+                        raise OutOfSpecError(f"nested column {n!r} needs its field in schema")
+                    f = Field(n, col.dtype)
+                return _encode_model(n, col, f, tile, dev)
+            return _encode_numpy_column(n, col, tile, dev)
+
+        encoded = _encode_all(encode, names)
     elif isinstance(table, DeviceTable):
-        return _make_resident_device(table, tile, dev)
+        if not any(isinstance(c, DeviceListColumn) for c in table.columns.values()):
+            return _make_resident_device(table, tile, dev)
+        names = list(table.columns)
+        encoded = _encode_all(_host_encoder(DeviceTable(table.columns, table.num_rows), tile, dev),
+                              names)
     else:
         import pyarrow as pa
 
@@ -1023,15 +1295,33 @@ def make_resident(table, device, tile: Optional[int] = None) -> ResidentTable:
 
 
 def _resident_table(names, encoded, tile: int) -> ResidentTable:
+    """Admit the encoded columns on one row grid; a struct unnests into its
+    ``parent.child`` columns (recursively) and is recorded in
+    ``struct_specs`` (reference ``make_resident``, resident.py:1521-1559)."""
     if not encoded:
         raise OutOfSpecError("no loadable columns")
     out: Dict[str, ResidentColumn] = {}
-    first = encoded[0]
-    for name, col in zip(names, encoded):
-        if col.length != first.length or col.tiled_slots != first.tiled_slots:
+    specs: Dict[str, Any] = {}
+
+    def admit(name, col):
+        if col.kind == "struct":
+            for sub, child in col.children.items():
+                admit(f"{name}.{sub}", child)
+            specs[name] = (tuple((sub, f"{name}.{sub}") for sub in col.children),
+                           col.validity_plane, col.arrow_type)
+            return
+        first = next(iter(out.values()), None)
+        if first is not None and (col.length != first.length
+                                  or col.tiled_slots != first.tiled_slots):
             raise OutOfSpecError(f"resident columns disagree on row grid: {name!r}")
         out[name] = col
-    return ResidentTable(out, first.length, tile, field_order=names)
+
+    for name, col in zip(names, encoded):
+        admit(name, col)
+    if not out:
+        raise OutOfSpecError("no loadable columns")
+    rows = next(iter(out.values())).length
+    return ResidentTable(out, rows, tile, field_order=list(names), struct_specs=specs or None)
 
 
 def load_resident(
@@ -1040,17 +1330,18 @@ def load_resident(
     """Load one file's columns as a resident table on ``device``.
 
     The file scans onto ``device`` (``scan_file``), the columns come back
-    to the host and take the host encoder (``make_resident`` of numpy
-    columns), so the planes equal the reference's ``load_resident`` word
-    for word: the host encoder takes the dictionary decisions the
-    device-direct one does not.  A string column comes back as its codes
-    and is encoded as ``dictionary[codes]`` would be
-    (:func:`_encode_string_codes`); a decimal as its unscaled int64 (also
-    decimal256, which the reference refuses); float16 raises, as there.
-    ``columns`` picks and orders columns; names the file lacks are
-    skipped.  Globs and lists of files wait for
-    the dataset layer."""
-    from .scan import host_values, scan_file
+    to the host and take the host encoder, so the planes equal the
+    reference's ``load_resident`` word for word: the host encoder takes
+    the dictionary decisions the device-direct one does not.  A string
+    column comes back as its codes and is encoded as ``dictionary[codes]``
+    would be (:func:`_encode_string_codes`); a decimal as its unscaled
+    int64 (also decimal256, which the reference refuses); float16 raises,
+    as there.  A nested column assembles from its scanned leaves and
+    levels (lists, maps and structs at any depth; fixed-size lists and
+    durations too, which the reference refuses).  ``columns`` picks and
+    orders top-level columns; names the file lacks are skipped.  Globs
+    and lists of files wait for the dataset layer."""
+    from .scan import scan_file
 
     if not isinstance(path, str) or any(ch in path for ch in "*?["):
         raise NotYetImplementedError(
@@ -1061,29 +1352,13 @@ def load_resident(
     tile = tile or TILE3D
     want = list(columns) if columns else None
     dt = scan_file(path, dev, columns=want)
-    names = [n for n in want if n in dt.columns] if want is not None else list(dt.columns)
-    host = {}
-    for n in names:
-        c = dt[n]
-        validity = None if c.validity is None else c.validity.cpu().numpy()
-        host[n] = (host_values(c), validity, c.dictionary, c.dtype)
+    present = set(dt.columns) | set(dt.nested)
+    owner = {leaf.name: n for n, (_f, leaves) in dt.nested.items() for leaf in leaves}
+    names = [n for n in want if n in present] if want is not None else list(
+        dict.fromkeys(owner.get(n, n) for n in dt.columns))
+    encoded = _encode_all(_host_encoder(dt, tile, dev), names)
     del dt
-
-    def encode(n):
-        vals, validity, dictionary, dtype = host[n]
-        if dictionary is not None:
-            col = _encode_string_codes(n, vals, dictionary, validity, tile, dtype, dev)
-            if validity is not None:
-                col.validity_plane = _pack_plane(validity.astype(np.uint32), 1, tile, dev)
-            return col
-        if dtype == "date32":
-            vals = vals.astype("datetime64[D]")
-        if validity is not None:
-            vals = np.ma.MaskedArray(vals, mask=~validity)
-        return _encode_numpy_column(n, vals, tile, dev,
-                                    dtype if decimal_params(dtype) is not None else None)
-
-    return _resident_table(names, _encode_all(encode, names), tile)
+    return _resident_table(names, encoded, tile)
 
 
 def _encode_string_codes(name, codes: np.ndarray, dictionary: np.ndarray, validity,

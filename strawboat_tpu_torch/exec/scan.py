@@ -1,9 +1,11 @@
 """Device scan: host page planning, decode on the device.
 
 Counterpart of ``strawboat_tpu/exec/scan.py``: ``DeviceColumn`` /
-``DeviceTable`` and, for flat columns (integers, date32, strings, floats,
-bool, decimals), ``scan_file`` (pruned by zone maps under ``predicates``)
-and ``scan_chunks``.  The reference keeps a host copy of f64 columns
+``DeviceTable`` / ``DeviceListColumn`` and ``scan_file`` (pruned by zone
+maps under ``predicates``) and ``scan_chunks`` of flat columns (integers,
+temporal types, strings, floats, bool, decimals) and of nested ones
+(list, large_list, fixed-size list, map, struct: leaf by leaf, each leaf
+on the flat routes below, its levels expanded on the host).  The reference keeps a host copy of f64 columns
 (``host_exact``) because the TPU stores f64 as a float32 pair; float64 is
 native on the GPU, so the port's device column is exact and ``to_arrow``
 reads it.
@@ -43,13 +45,14 @@ decode on the host and upload once per run.
 from __future__ import annotations
 
 from collections import defaultdict
-from dataclasses import dataclass
+from dataclasses import dataclass, field as dataclass_field
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import native
+from ..columns import arrow_type, pa_type
 from ..codecs import decompress_raw, read_header
 from ..codecs import boolean as bool_codec
 from ..codecs.binary import decode_binary_page, factorize_slices, parse_len_prefixed
@@ -72,9 +75,14 @@ from ..kernels.decode import (
     unpack_validity_device,
 )
 from ..meta import ColumnMeta
-from ..read.levels import read_validity
+from ..read.levels import (
+    LIST, PRIMITIVE, STRUCT, NestedLevel, field_inits, leaf_fields, read_validity,
+    read_validity_nested,
+)
 from ..read.reader import infer_schema, read_meta
-from ..schema import FLAT_FLOAT_TYPES, FLAT_INT_TYPES, Field, decimal_params
+from ..schema import (
+    FLAT_FLOAT_TYPES, FLAT_INT_TYPES, Field, decimal_params, fixed_size, int_storage,
+)
 from . import arena
 from .pruning import check_predicates, prune_pages, read_zones
 
@@ -94,20 +102,69 @@ class DeviceColumn:
 
 
 @dataclass
+class DeviceListColumn(DeviceColumn):
+    """A column under list levels (list / large_list / fixed-size list /
+    map), on the device: ``values`` are the flattened leaf values (codes
+    with ``dictionary`` for strings), ``validity`` the rows' (the
+    outermost list level's), ``dtype`` the leaf's alias.
+
+    ``offsets`` is the COMPOSED row → leaf offsets (``n_rows + 1``,
+    int64), which segment ops such as ``list_segment_sum`` take at any
+    depth; ``offsets_stack`` holds each list level's zero-based int64
+    offsets (outer → inner) and ``list_validities`` their validities (None
+    where a level is not nullable), so that ``to_arrow`` rebuilds the
+    array; ``child_validity`` is the leaf values'.  ``level_fields`` are
+    the list levels' fields, outer → inner; ``to_arrow`` casts to the
+    outermost one's type.
+    Counterpart of the reference's ``DeviceListColumn`` (scan.py:1172),
+    whose offsets are int32."""
+
+    offsets: Optional[torch.Tensor] = None
+    child_validity: Optional[torch.Tensor] = None
+    offsets_stack: Optional[tuple] = None
+    list_validities: Optional[tuple] = None
+    level_fields: Optional[tuple] = None
+
+    def __len__(self) -> int:
+        return int(self.offsets.shape[0]) - 1
+
+
+@dataclass
+class NestedLeaf:
+    """One leaf of a scanned nested field: its column's name in the table,
+    its levels (host; offsets and validities over the scanned pages, a
+    fixed-size list's null rows holding their slots) and each level's
+    field.  ``load_resident`` assembles nested columns from these."""
+
+    name: str
+    levels: List[NestedLevel]
+    fields: List[Field]
+
+
+@dataclass
 class DeviceTable:
     columns: Dict[str, DeviceColumn]
     num_rows: int
+    # nested fields scanned: {field name: (field, [NestedLeaf per leaf])}
+    nested: Dict[str, Any] = dataclass_field(default_factory=dict)
 
     def __getitem__(self, name: str) -> DeviceColumn:
         return self.columns[name]
 
     def to_arrow(self, mask=None):
-        """Materialize (optionally mask-compacted) columns to a host table."""
+        """Materialize (optionally mask-compacted) columns to a host table;
+        list columns rebuild their nested arrays (a mask over them raises,
+        as in the reference)."""
         import pyarrow as pa
 
         sel = None if mask is None else np.flatnonzero(mask.cpu().numpy())
         arrays = {}
         for name, c in self.columns.items():
+            if isinstance(c, DeviceListColumn):
+                if sel is not None:
+                    raise NotYetImplementedError(f"mask-compacted export of list column {name!r}")
+                arrays[name] = _list_column_to_arrow(c)
+                continue
             vals = host_values(c)
             validity = None if c.validity is None else c.validity.cpu().numpy()
             if sel is not None:
@@ -119,16 +176,30 @@ class DeviceTable:
         return pa.table(arrays)
 
 
-def arrow_type(t):
-    """A ``pa.DataType``, or an alias string → ``pa.DataType`` (None stays)."""
+def _list_column_to_arrow(c: DeviceListColumn):
+    """A ``DeviceListColumn`` → its nested ``pa.Array``: the leaf, wrapped
+    in one list per level of ``offsets_stack`` (int64 offsets), then cast
+    to the field's type; where arrow cannot cast (a list of structs, a
+    map's key or value column) the result is the chain of plain lists, as
+    the reference's ``_list_column_to_arrow`` (:119) gives it."""
     import pyarrow as pa
 
-    if isinstance(t, str):
-        dec = decimal_params(t)
-        if dec is not None:
-            return (pa.decimal128 if dec[0] == 128 else pa.decimal256)(dec[1], dec[2])
-        return pa.type_for_alias(t)
-    return t
+    child_mask = None if c.child_validity is None else ~c.child_validity.cpu().numpy()
+    arr = to_pa_array(host_values(c), child_mask, c.dtype, c.dictionary)
+    plain = arr.type
+    for offs, valid in reversed(list(zip(c.offsets_stack, c.list_validities))):
+        offs = offs.cpu().numpy().astype(np.int64)
+        bitmap = None if valid is None else pa.py_buffer(
+            np.packbits(valid.cpu().numpy(), bitorder="little"))
+        arr = pa.Array.from_buffers(pa.large_list(arr.type), len(offs) - 1,
+                                    [bitmap, pa.py_buffer(offs)], children=[arr])
+        plain = pa.list_(plain)
+    for target in (pa_type(c.level_fields[0]), plain):
+        try:
+            return arr.cast(target)
+        except (pa.ArrowInvalid, pa.ArrowNotImplementedError):
+            pass
+    return arr  # offsets beyond int32: large lists
 
 
 def to_pa_array(vals: np.ndarray, null_mask, dtype, dictionary=None):
@@ -179,7 +250,7 @@ def host_values(c: DeviceColumn) -> np.ndarray:
     """A column's values on the host, unsigned alias types viewed back
     from their signed device view."""
     vals = c.values.cpu().numpy()
-    storage = FLAT_INT_TYPES.get(c.dtype) if isinstance(c.dtype, str) else None
+    storage = int_storage(c.dtype) if isinstance(c.dtype, str) else None
     if storage is not None and vals.dtype.itemsize == np.dtype(storage).itemsize:
         vals = vals.view(storage)
     return vals
@@ -395,6 +466,42 @@ def _decode_varwidth_groups(bpv_jobs, np_dtype, device, group_arrays, page_ref) 
             dec = _from_u32(dec, np_dtype)
         group_arrays[gkey] = dec
         _index_pages(gkey, [j[0] for j in jobs], slot_sizes, page_ref)
+
+
+def _decode_dict_raw_group(plans, np_dtype, device, group_arrays, page_ref,
+                           parse_dict=None) -> None:
+    """DICT pages whose index subpage is raw-mode (NONE, LZ4, Zstd,
+    Snappy; under the dict flags every page whose value count is not a
+    multiple of 128, which the writer cannot bit-pack: most nested leaf
+    pages): their codes decompress on the host, go up in one copy and
+    gather through each page's dictionary in one launch.  ``parse_dict``
+    as in :func:`_sort_jobs`."""
+    jobs = []  # (idx, index codec, index bytes, length, dictionary)
+    for idx, (length, _v, buf, p) in enumerate(plans):
+        if idx in page_ref:
+            continue
+        codec, _cs, _us, body = read_header(buf, p)
+        if codec != Compression.DICT:
+            continue
+        icodec, icsize, _ius, ibody = read_header(buf, body)
+        if not icodec.raw_mode:
+            continue
+        pos = ibody + icsize
+        dvals = parse_dict_values(buf, pos, np_dtype) if parse_dict is None else parse_dict(buf, pos)
+        if dvals is not None:
+            jobs.append((idx, icodec, buf[ibody:pos], length, dvals))
+    if not jobs:
+        return
+    codes = {}
+    for codec in {j[1] for j in jobs}:
+        mine = [j for j in jobs if j[1] == codec]
+        for j, raw in zip(mine, decompress_raw(codec, [j[2] for j in mine], [j[3] * 4 for j in mine])):
+            codes[j[0]] = np.frombuffer(raw, "<u4", j[3])
+    lengths = [j[3] for j in jobs]
+    dec = _gather_dicts(_to_device(np.concatenate([codes[j[0]] for j in jobs]), device),
+                        [j[4] for j in jobs], lengths, np_dtype, device)
+    group_arrays[("dict_raw",)] = dec
+    _index_pages(("dict_raw",), [j[0] for j in jobs], lengths, page_ref)
 
 
 def _index_pages(gkey, idxs, slot_sizes, page_ref) -> None:
@@ -632,7 +739,7 @@ def _decode_raw_column_streamed(plans, np_dtype: np.dtype, dev: torch.device):
 
 def _column_np_dtype(field: Field) -> np.dtype:
     if field.is_flat_int:
-        return np.dtype(FLAT_INT_TYPES[field.dtype])
+        return np.dtype(int_storage(field.dtype))
     return np.dtype(FLAT_FLOAT_TYPES[field.dtype])
 
 
@@ -642,18 +749,30 @@ def decode_column_pages_device(
     """Decode the pages ``keep`` keeps (None = all) of a flat column onto
     ``device``."""
     dev = as_device(device)
-    if field.is_flat_string:
-        return _decode_binary_column_device(file_bytes, meta, field, dev, keep)
-    if field.is_flat_bool:
-        return _decode_boolean_column(file_bytes, meta, field, dev, keep)
-    if field.is_flat_decimal:
-        return _decode_decimal_column(file_bytes, meta, field, dev, keep)
-    if not (field.is_flat_int or field.is_flat_float):
+    _check_flat(field)
+    return _decode_plans(_plan_pages(file_bytes, meta, field.nullable, keep), field, dev)
+
+
+def _check_flat(field: Field) -> None:
+    if not (field.is_flat_string or field.is_flat_bool or field.is_flat_decimal
+            or field.is_flat_int or field.is_flat_float):
         raise NotYetImplementedError(
             f"scan of column {field.name!r} of type {field.dtype} ({_SCAN_TODO})"
         )
+
+
+def _decode_plans(plans, field: Field, dev) -> DeviceColumn:
+    """A flat column's (or a nested leaf's) planned pages → its values on
+    ``dev``: strings as dictionary codes, bools, decimals, then integers
+    and floats (streamed when every page is raw, else K3 groups, the
+    varwidth decoder and page-by-page routes)."""
+    if field.is_flat_string:
+        return _decode_binary_column_device(plans, field, dev)
+    if field.is_flat_bool:
+        return _decode_boolean_column(plans, field, dev)
+    if field.is_flat_decimal:
+        return _decode_decimal_column(plans, field, dev)
     np_dtype = _column_np_dtype(field)
-    plans = _plan_pages(file_bytes, meta, field.nullable, keep)
     values = _decode_raw_column_streamed(plans, np_dtype, dev)
     if values is not None:
         return DeviceColumn(field.name, field.dtype, values, _validity(plans, dev))
@@ -670,6 +789,7 @@ def decode_column_pages_device(
         _decode_k3_groups(k3_jobs, np_dtype, dev, group_arrays, page_ref)
     if bpv_jobs:
         _decode_varwidth_groups(bpv_jobs, np_dtype, dev, group_arrays, page_ref)
+    _decode_dict_raw_group(plans, np_dtype, dev, group_arrays, page_ref)
 
     # assembly in page order: runs of host pages go up in one copy, group
     # slices that continue each other merge into one slice
@@ -712,13 +832,12 @@ def decode_column_pages_device(
 # bool and decimal columns (reference scan.py:818-920)
 
 
-def _decode_boolean_column(file_bytes, meta, field: Field, dev, keep=None) -> DeviceColumn:
+def _decode_boolean_column(plans, field: Field, dev) -> DeviceColumn:
     """A bool column → ``torch.bool`` on ``dev``: one upload of packed bits
     and one expand on the device.  When every page is raw and every page
     but the last holds a multiple of 8 rows, the pages' bitmaps are the
     column's bitmap and go up as they are; otherwise RLE / ONE_VALUE pages
     (and raw ones) decode on the host and the bits are packed again."""
-    plans = _plan_pages(file_bytes, meta, field.nullable, keep)
     total = sum(length for length, _v, _b, _p in plans)
     pages = []  # per page: its raw bitmap bytes, or its bools
     for length, _v, buf, p in plans:
@@ -766,7 +885,7 @@ def _decimal_dict(width: int):
     return parse
 
 
-def _decode_decimal_column(file_bytes, meta, field: Field, dev, keep=None) -> DeviceColumn:
+def _decode_decimal_column(plans, field: Field, dev) -> DeviceColumn:
     """A decimal128 / decimal256 column → unscaled int64 on ``dev``
     (precision 18 or less: 10^18 < 2^63).  A DICT page whose dictionary
     holds int64 values only decodes its codes on the device (through K3
@@ -778,7 +897,6 @@ def _decode_decimal_column(file_bytes, meta, field: Field, dev, keep=None) -> De
     yields is one."""
     width, precision, _scale = decimal_params(field.dtype)
     width //= 8
-    plans = _plan_pages(file_bytes, meta, field.nullable, keep)
     if not plans:
         return DeviceColumn(field.name, field.dtype,
                             torch.zeros(0, dtype=torch.int64, device=dev), None)
@@ -793,6 +911,7 @@ def _decode_decimal_column(file_bytes, meta, field: Field, dev, keep=None) -> De
         _decode_k3_groups(k3_jobs, i64, dev, group_arrays, page_ref)
     if bpv_jobs:
         _decode_varwidth_groups(bpv_jobs, i64, dev, group_arrays, page_ref)
+    _decode_dict_raw_group(plans, i64, dev, group_arrays, page_ref, parse_dict)
     parts: List[torch.Tensor] = []
     host_run: List[np.ndarray] = []
 
@@ -893,7 +1012,7 @@ def _check_codes(codes: torch.Tensor, limit: torch.Tensor) -> None:
         raise OutOfSpecError("dictionary code out of range")
 
 
-def _decode_binary_column_device(file_bytes, meta, field: Field, dev, keep=None) -> DeviceColumn:
+def _decode_binary_column_device(plans, field: Field, dev) -> DeviceColumn:
     """A utf8 / binary column → int32 dictionary codes on ``dev`` and the
     host dictionary: an object array of ``bytes`` for every string type
     (the JAX scan's ``pa.binary`` dictionary, in its order).
@@ -912,7 +1031,6 @@ def _decode_binary_column_device(file_bytes, meta, field: Field, dev, keep=None)
     one over the raw pages' dictionaries in page order).
     ``hash_aggregate`` orders groups by code, so the order is the
     reference's."""
-    plans = _plan_pages(file_bytes, meta, field.nullable, keep)
     jobs = _binary_page_jobs(plans, field.dtype.startswith("large_"))
     pooled = ([idx for idx, j in enumerate(jobs) if j[0] != "raw"]
               + [idx for idx, j in enumerate(jobs) if j[0] == "raw"])
@@ -977,6 +1095,222 @@ def _decode_binary_column_device(file_bytes, meta, field: Field, dev, keep=None)
 
 
 # ---------------------------------------------------------------------------
+# nested columns (reference scan.py:1172-1358 and read/batch_read.py:36-54)
+#
+# A nested field decodes leaf by leaf, page by page.  Each page's levels
+# expand on the host (``read_validity_nested``) into per-level offsets and
+# validities, concatenated over the pages by rebasing the offsets (the
+# reference concatenates assembled arrow arrays instead).  The leaf bodies
+# are ordinary codec pages: a nested page's plan is the flat plan
+# (leaf count, leaf validity, page bytes, position after the levels), so
+# leaf values take the flat device routes (K3 groups, the varwidth
+# decoder, the streamed raw feed, string codes), where the reference
+# decodes them on the host.
+
+
+def _level_fields(field: Field) -> List[List[Field]]:
+    """Per leaf of ``field``, the field of each of its levels (a map: the
+    map, its ``entries`` struct, then the key or the value)."""
+    out: List[List[Field]] = []
+
+    def walk(f: Field, parents: List[Field]) -> None:
+        if f.dtype == "struct":
+            for c in f.children:
+                walk(c, parents + [f])
+        elif f.dtype.startswith("map"):
+            entries = f.children[0]
+            for c in entries.children:
+                walk(c, parents + [f, entries])
+        elif f.is_nested:
+            walk(f.children[0], parents + [f])
+        else:
+            out.append(parents + [f])
+
+    walk(field, [])
+    return out
+
+
+def _leaf_names(field: Field) -> List[str]:
+    """The table column of each leaf, as the reference names them: a
+    struct's child is ``parent.child``, a list's leaves keep the list's
+    name, a map's are ``.key`` and ``.value``."""
+    out: List[str] = []
+
+    def walk(f: Field, name: str) -> None:
+        if f.dtype == "struct":
+            for c in f.children:
+                walk(c, f"{name}.{c.name}")
+        elif f.dtype.startswith("map"):
+            key, value = f.children[0].children
+            walk(key, name + ".key")
+            walk(value, name + ".value")
+        elif f.is_nested:
+            walk(f.children[0], name)
+        else:
+            out.append(name)
+
+    walk(field, field.name)
+    return out
+
+
+def _plan_nested_pages(file_bytes: np.ndarray, meta: ColumnMeta, init, keep=None,
+                       cache: Optional[Dict] = None):
+    """The kept pages of one nested leaf → (flat plans: (leaf count, leaf
+    validity or None, page bytes, position after the levels), the levels
+    over those pages).  ``cache`` (one per field) keeps each distinct
+    level section's expansion and each distinct run of pages' levels:
+    the leaves of one list of structs without nulls share their levels,
+    so they expand once."""
+    cache = {} if cache is None else cache
+    plans, page_keys = [], []
+    pos = meta.offset
+    for i, page in enumerate(meta.pages):
+        if keep is not None and not keep[i]:
+            pos += page.length
+            continue
+        buf = file_bytes[pos : pos + page.length]
+        if len(buf) != page.length or len(buf) < 12:
+            raise OutOfSpecError("page past the end of the file")
+        _rows, rep_len, def_len = (int(x) for x in np.frombuffer(buf, "<u4", 3, 0))
+        key = (bytes(buf[: 12 + rep_len + def_len]), page.num_values,
+               tuple((x.kind, x.nullable) for x in init))
+        if key not in cache:
+            state, leaf_validity, _r, p = read_validity_nested(buf, 0, page.num_values, init)
+            cache[key] = (state.levels, leaf_validity, p)
+        levels, leaf_validity, p = cache[key]
+        plans.append((levels[-1].length, leaf_validity, buf, p))
+        page_keys.append(key)
+        pos += page.length
+    run = ("run", tuple(page_keys), tuple((x.kind, x.nullable) for x in init))
+    if run not in cache:
+        cache[run] = _concat_levels([cache[k][0] for k in page_keys], init)
+    return plans, list(cache[run])
+
+
+def _concat_levels(page_levels, init) -> List[NestedLevel]:
+    """Per-page levels → one level per depth: lengths add up, validities
+    concatenate, offsets rebase onto the child count before the page."""
+    out = []
+    for d, lvl in enumerate(init):
+        parts = [levels[d] for levels in page_levels]
+        length = sum(p.length for p in parts)
+        validity = None
+        if any(p.validity is not None for p in parts):
+            validity = np.concatenate(
+                [np.ones(p.length, bool) if p.validity is None else p.validity for p in parts])
+        offsets = None
+        if lvl.kind == LIST:
+            offsets = np.zeros(length + 1, dtype=np.int64)
+            row = base = 0
+            for p in parts:
+                offsets[row + 1 : row + p.length + 1] = p.offsets[1:] + base
+                row += p.length
+                base += int(p.offsets[-1])
+        out.append(NestedLevel(lvl.kind, lvl.nullable, length, validity, offsets))
+    return out
+
+
+def _insert_fixed_size_slots(levels: List[NestedLevel], fields: List[Field],
+                             col: DeviceColumn) -> DeviceColumn:
+    """A fixed-size list's null rows own their ``size`` child slots in
+    arrow, but the writer drops them: put them back, null, at every level
+    below (a struct's children share its slots; a list's take empty
+    entries; leaf slots take zeros, on the device).  The reference does
+    this while assembling (read/deserialize.py:165-195)."""
+    for d, f in enumerate(fields):
+        size = fixed_size(f.dtype)
+        lvl = levels[d]
+        if size is None or lvl.validity is None or lvl.validity.all():
+            continue
+        rows = np.flatnonzero(lvl.validity)
+        src = np.full(lvl.length * size, -1, dtype=np.int64)
+        src[(rows[:, None] * size + np.arange(size)).reshape(-1)] = np.arange(len(rows) * size)
+        levels[d] = NestedLevel(LIST, lvl.nullable, lvl.length, lvl.validity,
+                                np.arange(lvl.length + 1, dtype=np.int64) * size)
+        kept = src >= 0
+        for e in range(d + 1, len(levels)):
+            c = levels[e]
+            validity = np.zeros(len(src), dtype=bool)
+            validity[kept] = True if c.validity is None else c.validity[src[kept]]
+            offsets = None
+            if c.kind == LIST:
+                lens = np.zeros(len(src), dtype=np.int64)
+                lens[kept] = np.diff(c.offsets)[src[kept]]
+                offsets = np.zeros(len(src) + 1, dtype=np.int64)
+                np.cumsum(lens, out=offsets[1:])
+            levels[e] = NestedLevel(c.kind, c.nullable, len(src), validity, offsets)
+            if c.kind == PRIMITIVE:
+                col = _gather_slots(col, src)
+            if c.kind != STRUCT:
+                break
+    return col
+
+
+def _gather_slots(col: DeviceColumn, src: np.ndarray) -> DeviceColumn:
+    """Leaf values at ``src`` (-1: a new null slot holding zero)."""
+    dev = col.values.device
+    idx = torch.from_numpy(src).to(dev)
+    ok = idx >= 0
+    if len(col.values):
+        values = torch.where(ok, col.values[idx.clamp(min=0)], torch.zeros((), dtype=col.values.dtype,
+                                                                            device=dev))
+        validity = ok if col.validity is None else ok & col.validity[idx.clamp(min=0)]
+    else:
+        values = torch.zeros(len(src), dtype=col.values.dtype, device=dev)
+        validity = ok
+    return DeviceColumn(col.name, col.dtype, values, validity, col.dictionary)
+
+
+def _compose_offsets(chain: List[np.ndarray]) -> np.ndarray:
+    """Per-level offsets, outer → inner, each zero-based → row → leaf
+    offsets (int64 throughout: the reference casts them to int32)."""
+    comp = chain[0]
+    for inner in chain[1:]:
+        comp = inner[comp]
+    return comp
+
+
+def _scan_nested(file_bytes, metas, field: Field, dev, keep):
+    """A nested field's kept pages → (its table columns, its NestedLeafs,
+    its row count)."""
+    inits = field_inits(field)
+    lfields = leaf_fields(field)
+    for lf in lfields:
+        _check_flat(lf)
+    leaves, cols, cache = [], [], {}
+    for meta, init, lf, fields, name in zip(metas, inits, lfields, _level_fields(field),
+                                            _leaf_names(field)):
+        plans, levels = _plan_nested_pages(file_bytes, meta, init, keep, cache)
+        col = _decode_plans(plans, Field(name, lf.dtype, lf.nullable), dev)
+        col = _insert_fixed_size_slots(levels, fields, col)
+        leaves.append(NestedLeaf(name, levels, fields))
+        cols.append(col)
+    rows = leaves[0].levels[0].length if leaves else 0
+    chains: Dict[tuple, tuple] = {}  # list levels → their tensors, shared by leaves
+    out = []
+    for leaf, col in zip(leaves, cols):
+        lists = [(lvl, f) for lvl, f in zip(leaf.levels, leaf.fields) if lvl.kind == LIST]
+        if not lists:
+            out.append(col)
+            continue
+        key = tuple(id(f) for _l, f in lists)
+        if key not in chains:
+            stack = [lvl.offsets for lvl, _f in lists]
+            comp = _to_device(_compose_offsets(stack), dev)
+            stack_t = tuple(comp if i == 0 and len(stack) == 1 else _to_device(o, dev)
+                            for i, o in enumerate(stack))
+            valids = tuple(None if not lvl.nullable or lvl.validity is None
+                           else _to_device(lvl.validity, dev) for lvl, _f in lists)
+            chains[key] = (comp, stack_t, valids)
+        comp, stack_t, valids = chains[key]
+        out.append(DeviceListColumn(
+            col.name, col.dtype, col.values, valids[0], col.dictionary, offsets=comp,
+            child_validity=col.validity, offsets_stack=stack_t, list_validities=valids,
+            level_fields=tuple(f for _l, f in lists)))
+    return out, leaves, rows
+
+
+# ---------------------------------------------------------------------------
 # entry points (reference scan.py:1361-1512)
 
 
@@ -989,14 +1323,20 @@ def _open(path: str):
     return schema, metas, np.memmap(path, dtype=np.uint8, mode="r").view(np.ndarray)
 
 
-def _selected(schema, metas, columns: Optional[Sequence[str]]):
-    """(meta, field) of each selected top-level column."""
+def _selected_leaves(schema, metas, columns: Optional[Sequence[str]]):
+    """(leaf metas, field) of each selected top-level column."""
     i = 0
     for field in schema:
-        meta = metas[i]
+        leaf_metas = metas[i : i + field.n_leaves]
         i += field.n_leaves
         if columns is None or field.name in columns:
-            yield meta, field
+            yield leaf_metas, field
+
+
+def _selected(schema, metas, columns: Optional[Sequence[str]]):
+    """(first leaf's meta, field) of each selected top-level column."""
+    for leaf_metas, field in _selected_leaves(schema, metas, columns):
+        yield leaf_metas[0], field
 
 
 def page_keep_mask(path: str, metas, predicates) -> Optional[np.ndarray]:
@@ -1015,12 +1355,18 @@ def page_keep_mask(path: str, metas, predicates) -> Optional[np.ndarray]:
 
 def _scan(file_bytes, schema, metas, columns, dev, keep) -> DeviceTable:
     out: Dict[str, DeviceColumn] = {}
+    nested: Dict[str, Any] = {}
     num_rows = 0
-    for meta, field in _selected(schema, metas, columns):
-        col = decode_column_pages_device(file_bytes, meta, field, dev, keep)
+    for leaf_metas, field in _selected_leaves(schema, metas, columns):
+        if field.is_nested:
+            cols, leaves, num_rows = _scan_nested(file_bytes, leaf_metas, field, dev, keep)
+            out.update((c.name, c) for c in cols)
+            nested[field.name] = (field, leaves)
+            continue
+        col = decode_column_pages_device(file_bytes, leaf_metas[0], field, dev, keep)
         out[field.name] = col
         num_rows = len(col)
-    return DeviceTable(out, num_rows)
+    return DeviceTable(out, num_rows, nested)
 
 
 def scan_file(
@@ -1029,18 +1375,20 @@ def scan_file(
     columns: Optional[Sequence[str]] = None,
     predicates: Optional[Sequence] = None,
 ) -> DeviceTable:
-    """Scan a strawboat file's flat columns onto ``device`` (``"cuda"``,
-    ``"cpu"``, a ``torch.device``).
+    """Scan a strawboat file onto ``device`` (``"cuda"``, ``"cpu"``, a
+    ``torch.device``).
 
-    ``columns`` picks columns by name (default: all; a nested column then
-    raises ``NotYetImplementedError``).  ``predicates`` (a list of
+    ``columns`` picks top-level columns by name (default: all).  ``predicates`` (a list of
     ``pruning.Comparison``, e.g. ``Expr.atoms``) drop the pages the file's
     zone maps show cannot match, for every column, so the row grid stays
     aligned; a file without zone maps scans whole, as in the reference.
     String columns come back as int32 dictionary codes with the host
     dictionary (``_decode_binary_column_device``), decimals as unscaled
-    int64 (``_decode_decimal_column``).  Nested columns are not ported
-    yet."""
+    int64 (``_decode_decimal_column``), temporal types as their int
+    storage.  A nested column becomes one column per leaf (``parent.child``
+    under a struct, ``.key`` / ``.value`` under a map): a
+    ``DeviceListColumn`` under list levels, a ``DeviceColumn`` otherwise;
+    ``DeviceTable.nested`` keeps each nested field's levels."""
     dev = as_device(device)
     schema, metas, file_bytes = _open(path)
     keep = page_keep_mask(path, metas, predicates)
@@ -1057,16 +1405,12 @@ def scan_chunks(
     """The file as a stream of DeviceTables of ``chunk_pages`` pages each
     on ``device``, pruned by ``predicates`` as in :func:`scan_file`; a
     chunk whose pages are all pruned is skipped.  Each chunk decodes on
-    its own (dictionary codes index that chunk's dictionary).  Flat
-    columns only: a nested column raises."""
+    its own (dictionary codes index that chunk's dictionary); nested
+    columns come in every chunk, as in :func:`scan_file`."""
     dev = as_device(device)
     if chunk_pages < 1:
         raise ValueError(f"chunk_pages must be at least 1, got {chunk_pages}")
     schema, metas, file_bytes = _open(path)
-    for _meta, field in _selected(schema, metas, columns):
-        if field.children:
-            raise NotYetImplementedError(
-                f"scan_chunks of nested column {field.name!r} ({_SCAN_TODO}, item 5.5)")
     n_pages = max((len(m.pages) for m in metas), default=0)
     base = page_keep_mask(path, metas, predicates)
     for start in range(0, n_pages, chunk_pages):
@@ -1082,23 +1426,31 @@ def k3_launch_groups(path: str, columns: Optional[Sequence[str]] = None):
     """What ``scan_file(path, columns=columns)`` hands kernel K3, one
     entry per launch: [(column, (codec, b), page indices, words (n_blocks,
     4b) u32)]; the DICT index pages of string, float and decimal columns
-    are ``(DICT, b)``.  For timing K3 alone at the scan's shapes."""
+    are ``(DICT, b)``, a nested field's leaves are named as in the scan.
+    For timing K3 alone at the scan's shapes."""
     out = []
     schema, metas, file_bytes = _open(path)
-    for meta, field in _selected(schema, metas, columns):
-        plans = _plan_pages(file_bytes, meta, field.nullable)
-        if field.is_flat_string:
-            k3_jobs = [(idx, Compression.DICT, j[1], j[2], j[3], None)
-                       for idx, j in enumerate(_binary_page_jobs(plans, field.dtype.startswith("large_")))
-                       if j[0] == "k3"]
-        elif field.is_flat_decimal:
-            width = decimal_params(field.dtype)[0] // 8
-            k3_jobs = _sort_jobs(plans, np.dtype(np.int64), _decimal_dict(width))[1]
-        elif field.is_flat_int or field.is_flat_float:
-            k3_jobs = _sort_jobs(plans, _column_np_dtype(field))[1]
+    for leaf_metas, field in _selected_leaves(schema, metas, columns):
+        if field.is_nested:
+            leaves = [(Field(name, lf.dtype, lf.nullable),
+                       _plan_nested_pages(file_bytes, meta, init)[0])
+                      for meta, init, lf, name in zip(leaf_metas, field_inits(field),
+                                                      leaf_fields(field), _leaf_names(field))]
         else:
-            continue
-        for gkey, jobs in _k3_groups(k3_jobs).items():
-            out.append((field.name, gkey, [j[0] for j in jobs],
-                        np.concatenate([j[2] for j in jobs])))
+            leaves = [(field, _plan_pages(file_bytes, leaf_metas[0], field.nullable))]
+        for f, plans in leaves:
+            if f.is_flat_string:
+                k3_jobs = [(idx, Compression.DICT, j[1], j[2], j[3], None)
+                           for idx, j in enumerate(_binary_page_jobs(plans, f.dtype.startswith("large_")))
+                           if j[0] == "k3"]
+            elif f.is_flat_decimal:
+                width = decimal_params(f.dtype)[0] // 8
+                k3_jobs = _sort_jobs(plans, np.dtype(np.int64), _decimal_dict(width))[1]
+            elif f.is_flat_int or f.is_flat_float:
+                k3_jobs = _sort_jobs(plans, _column_np_dtype(f))[1]
+            else:
+                continue
+            for gkey, jobs in _k3_groups(k3_jobs).items():
+                out.append((f.name, gkey, [j[0] for j in jobs],
+                            np.concatenate([j[2] for j in jobs])))
     return out

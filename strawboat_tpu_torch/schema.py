@@ -1,4 +1,4 @@
-"""Arrow IPC schema bytes without pyarrow, for flat fields.
+"""Arrow IPC schema bytes without pyarrow.
 
 Counterpart of ``strawboat_tpu/schema.py``, which serializes a
 ``pa.Schema``.  A file's schema is the bare flatbuffers ``Message`` whose
@@ -6,13 +6,18 @@ header is a ``Schema`` (Arrow's ``Message.fbs`` / ``Schema.fbs``), the form
 arrow2 writes; :func:`deserialize_schema` also takes the
 continuation-prefixed form pyarrow emits.
 
-A field is ``Field(name, dtype, nullable)``, with ``dtype`` the arrow alias
-string ``DeviceColumn.dtype`` uses (``"int64"``, ``"date32"``,
-``"string"``, ``"float64"``, ``"bool"``, ``"decimal128(15, 2)"``).  Every
-type parses, so a file with nested columns still opens and its other
-columns scan; :func:`schema_to_bytes` writes the flat types (integers,
-date32, strings, floats, bool, decimal128 / decimal256) with the bytes
-pyarrow writes for the same fields.
+A field is ``Field(name, dtype, nullable, children)``, with ``dtype`` the
+arrow alias string ``DeviceColumn.dtype`` uses (``"int64"``, ``"date32"``,
+``"string"``, ``"float64"``, ``"bool"``, ``"decimal128(15, 2)"``, the
+temporal aliases ``"timestamp[us]"``, ``"timestamp[ms, tz=UTC]"``,
+``"date64"``, ``"time32[ms]"``, ``"time64[ns]"``, ``"duration[s]"``).  A
+nested field is ``"list"``, ``"large_list"``, ``"fixed_size_list[N]"``,
+``"map"`` (``"map[keys_sorted]"``) or ``"struct"`` over its children,
+named as pyarrow names them: a list's child ``item``, a map's child the
+non-nullable struct ``entries`` of a non-nullable ``key`` and a ``value``
+(:func:`list_of`, :func:`map_of`).  Every type parses;
+:func:`schema_to_bytes` writes these types with the bytes pyarrow writes
+for the same fields.
 """
 
 from __future__ import annotations
@@ -26,12 +31,18 @@ from .constants import CONTINUATION_MARKER
 from .errors import NotYetImplementedError, OutOfSpecError
 
 # alias → numpy storage dtype of the flat integer types the port reads and
-# writes (date32 stores days since the epoch as int32)
+# writes (date32 stores days since the epoch as int32; the other temporal
+# types are their int32 / int64 counts of their unit, as arrow stores them)
+_UNITS = ("s", "ms", "us", "ns")
 FLAT_INT_TYPES = {
     "int8": "<i1", "int16": "<i2", "int32": "<i4", "int64": "<i8",
     "uint8": "<u1", "uint16": "<u2", "uint32": "<u4", "uint64": "<u8",
-    "date32": "<i4",
+    "date32": "<i4", "date64": "<i8",
+    **{f"timestamp[{u}]": "<i8" for u in _UNITS},
+    "time32[s]": "<i4", "time32[ms]": "<i4", "time64[us]": "<i8", "time64[ns]": "<i8",
+    **{f"duration[{u}]": "<i8" for u in _UNITS},
 }
+_TIMESTAMP = re.compile(r"^timestamp\[(s|ms|us|ns)(?:, tz=(.+))?\]$")
 # utf8 and binary, with 32- or 64-bit offsets: the arrow aliases
 STRING_TYPES = ("string", "binary", "large_string", "large_binary")
 # alias → numpy dtype of the flat float types
@@ -42,6 +53,28 @@ BOOL_TYPE = "bool"
 WRITABLE_TYPES = (*FLAT_INT_TYPES, *STRING_TYPES, *FLAT_FLOAT_TYPES, BOOL_TYPE)
 
 _DECIMAL = re.compile(r"^decimal(128|256)\((\d+), (-?\d+)\)$")
+NESTED_TYPES = ("list", "large_list", "map", "struct")  # and fixed_size_list[N]
+_FIXED_SIZE_LIST = re.compile(r"^fixed_size_list\[(\d+)\]$")
+
+
+def int_storage(dtype) -> Optional[str]:
+    """The numpy storage dtype of a flat integer or temporal alias
+    (a timestamp with any time zone included), else None."""
+    dtype = str(dtype)
+    got = FLAT_INT_TYPES.get(dtype)
+    if got is None and _TIMESTAMP.match(dtype):
+        return "<i8"
+    return got
+
+
+def fixed_size(dtype) -> Optional[int]:
+    """The list size of a ``"fixed_size_list[N]"`` alias, else None."""
+    m = _FIXED_SIZE_LIST.match(str(dtype))
+    return None if m is None else int(m.group(1))
+
+
+def is_nested_type(dtype) -> bool:
+    return dtype in NESTED_TYPES or dtype == "map[keys_sorted]" or fixed_size(dtype) is not None
 
 
 def decimal_params(dtype) -> Optional[Tuple[int, int, int]]:
@@ -56,9 +89,11 @@ def decimal_alias(bit_width: int, precision: int, scale: int) -> str:
 
 _METADATA_V5 = 4  # MetadataVersion.V5
 _HEADER_SCHEMA = 1  # MessageHeader.Schema
-# Type union ids (Schema.fbs); only Int and Date are read in detail, the
-# rest by name (enough to scan or refuse them and to count their leaves)
+# Type union ids (Schema.fbs) of the types read in detail; the rest by name
+# (enough to refuse them and to count their leaves)
 _T_INT, _T_FLOAT, _T_BOOL, _T_DECIMAL, _T_DATE = 2, 3, 6, 7, 8
+_T_TIME, _T_TIMESTAMP, _T_LIST, _T_STRUCT, _T_FSL, _T_MAP, _T_DURATION, _T_LARGE_LIST = (
+    9, 10, 12, 13, 16, 17, 18, 21)
 _PRECISIONS = ("float16", "float32", "float64")  # FloatingPoint.precision
 _TYPE_NAMES = {
     1: "null", 4: "binary", 5: "string", 6: "bool",
@@ -81,7 +116,7 @@ class Field:
     @property
     def is_flat_int(self) -> bool:
         return (
-            self.dtype in FLAT_INT_TYPES
+            int_storage(self.dtype) is not None
             and not self.children
             and not self.dictionary_encoded
         )
@@ -113,6 +148,10 @@ class Field:
             and not self.children
             and not self.dictionary_encoded
         )
+
+    @property
+    def is_nested(self) -> bool:
+        return is_nested_type(self.dtype)
 
     @property
     def n_leaves(self) -> int:
@@ -192,6 +231,22 @@ def _type_alias(r: _Reader, type_id: int, t: Optional[int]) -> str:
             raise OutOfSpecError("invalid schema bytes: a decimal without its type table")
         return decimal_alias(r.scalar(t, 2, "<i", 128), r.scalar(t, 0, "<i", 0),
                              r.scalar(t, 1, "<i", 0))
+    if type_id in (_T_TIME, _T_TIMESTAMP, _T_DURATION):
+        default = 0 if type_id == _T_TIMESTAMP else 1  # SECOND, else MILLISECOND
+        unit = r.scalar(t, 0, "<h", default) if t is not None else default
+        if not 0 <= unit < len(_UNITS):
+            raise OutOfSpecError(f"invalid schema bytes: time unit {unit}")
+        if type_id == _T_TIMESTAMP:
+            tz = r.string(r.ref(t, 1)) if t is not None else ""
+            return f"timestamp[{_UNITS[unit]}{', tz=' + tz if tz else ''}]"
+        if type_id == _T_DURATION:
+            return f"duration[{_UNITS[unit]}]"
+        width = r.scalar(t, 1, "<i", 32) if t is not None else 32
+        return f"time{width}[{_UNITS[unit]}]"
+    if type_id == _T_FSL:
+        return f"fixed_size_list[{r.scalar(t, 0, '<i', 0) if t is not None else 0}]"
+    if type_id == _T_MAP and t is not None and r.scalar(t, 0, "<B", 0):
+        return "map[keys_sorted]"
     return _TYPE_NAMES.get(type_id, f"type{type_id}")
 
 
@@ -314,7 +369,37 @@ class _Builder:
 
 
 # alias → Type union id of the types without a type table payload
-_EMPTY_TYPE_IDS = {"binary": 4, "string": 5, "large_binary": 19, "large_string": 20}
+_EMPTY_TYPE_IDS = {"binary": 4, "string": 5, "large_binary": 19, "large_string": 20,
+                   "list": _T_LIST, "large_list": _T_LARGE_LIST, "struct": _T_STRUCT}
+
+
+def list_of(name: str, item: Field, large: bool = False, nullable: bool = True) -> Field:
+    """A list field of ``item`` (pyarrow's child name is ``item``)."""
+    return Field(name, "large_list" if large else "list", nullable, (item,))
+
+
+def map_of(name: str, key: str, value: Field, nullable: bool = True,
+           keys_sorted: bool = False) -> Field:
+    """A map field: the non-nullable ``entries`` struct of a non-nullable
+    ``key`` of type ``key`` and ``value`` (renamed ``value``)."""
+    entries = Field("entries", "struct", False,
+                    (Field("key", key, False), Field("value", value.dtype, value.nullable,
+                                                     value.children)))
+    return Field(name, "map[keys_sorted]" if keys_sorted else "map", nullable, (entries,))
+
+
+def _writable(f: Field) -> bool:
+    if f.dictionary_encoded:
+        return False
+    if f.is_nested:
+        n = len(f.children)
+        if f.dtype.startswith("map"):
+            e = f.children[0] if n == 1 else None
+            return (e is not None and e.dtype == "struct" and not e.nullable
+                    and len(e.children) == 2 and not e.children[0].nullable)
+        return n >= 1 if f.dtype == "struct" else n == 1
+    return not f.children and (f.dtype in WRITABLE_TYPES or int_storage(f.dtype) is not None
+                               or decimal_params(f.dtype) is not None)
 
 
 def _type_table(b: _Builder, f: Field) -> Tuple[int, int]:
@@ -323,6 +408,24 @@ def _type_table(b: _Builder, f: Field) -> Tuple[int, int]:
         return _EMPTY_TYPE_IDS[f.dtype], b.table([])
     if f.dtype == "date32":
         return _T_DATE, b.table([(0, "<h", 0, 1)])  # unit DAY (default MILLISECOND)
+    if f.dtype == "date64":
+        return _T_DATE, b.table([(0, "<h", 1, 1)])
+    ts = _TIMESTAMP.match(f.dtype)
+    if ts is not None:  # timezone (a string made first), unit (default SECOND)
+        fields = [(0, "<h", _UNITS.index(ts.group(1)), 0)]
+        if ts.group(2):
+            fields.insert(0, (1, None, b.string(ts.group(2)), None))
+        return _T_TIMESTAMP, b.table(fields)
+    if f.dtype.startswith(("time32[", "time64[")):  # bitWidth (default 32), unit (default ms)
+        unit = _UNITS.index(f.dtype[7:-1])
+        return _T_TIME, b.table([(1, "<i", int(f.dtype[4:6]), 32), (0, "<h", unit, 1)])
+    if f.dtype.startswith("duration["):
+        return _T_DURATION, b.table([(0, "<h", _UNITS.index(f.dtype[9:-1]), 1)])
+    size = fixed_size(f.dtype)
+    if size is not None:  # listSize
+        return _T_FSL, b.table([(0, "<i", size, 0)])
+    if f.dtype.startswith("map"):  # keysSorted (default false)
+        return _T_MAP, b.table([(0, "<B", int(f.dtype == "map[keys_sorted]"), 0)])
     if f.dtype in FLAT_FLOAT_TYPES:  # precision (default HALF)
         return _T_FLOAT, b.table([(0, "<h", _PRECISIONS.index(f.dtype), 0)])
     if f.dtype == BOOL_TYPE:
@@ -337,27 +440,28 @@ def _type_table(b: _Builder, f: Field) -> Tuple[int, int]:
     return _T_INT, b.table([(0, "<i", width, 0), (1, "<B", int(signed), 0)])
 
 
+def _field(b: _Builder, f: Field, depth: int = 0) -> int:
+    if depth > 64 or not _writable(f):
+        raise NotYetImplementedError(f"writing column {f.name!r} of type {f.dtype}")
+    # Arrow C++ creates the children's fields, the type table, the name,
+    # the children vector, then the field
+    kids = [_field(b, c, depth + 1) for c in f.children]
+    type_id, type_table = _type_table(b, f)
+    name = b.string(f.name)
+    children = b.vector(kids)
+    return b.table([
+        (5, None, children, None), (3, None, type_table, None), (0, None, name, None),
+        (2, "<B", type_id, 0), (1, "<B", int(f.nullable), 0),
+    ])
+
+
 def schema_to_bytes(fields: Sequence[Field]) -> bytes:
     """Fields → the bare flatbuffers ``Message`` (MetadataVersion V5),
     zero-padded to a multiple of 8 bytes: pyarrow's bytes for the same
-    schema.  Writes :data:`WRITABLE_TYPES` and decimals."""
+    schema.  Writes :data:`WRITABLE_TYPES`, decimals, the temporal types
+    and the nested types over them."""
     b = _Builder()
-    offsets = []
-    for f in fields:
-        writable = f.dtype in WRITABLE_TYPES or decimal_params(f.dtype) is not None
-        if not writable or f.children or f.dictionary_encoded:
-            raise NotYetImplementedError(
-                f"writing column {f.name!r} of type {f.dtype} "
-                "(ROADMAP.md 'Modules to port': the nested scan)"
-            )
-        # Arrow C++ creates the type table, the name, the children, the field
-        type_id, type_table = _type_table(b, f)
-        name = b.string(f.name)
-        children = b.vector([])
-        offsets.append(b.table([
-            (5, None, children, None), (3, None, type_table, None), (0, None, name, None),
-            (2, "<B", type_id, 0), (1, "<B", int(f.nullable), 0),
-        ]))
+    offsets = [_field(b, f) for f in fields]
     schema = b.table([(1, None, b.vector(offsets), None)])
     message = b.table([(2, None, schema, None), (0, "<h", _METADATA_V5, 0),
                        (1, "<B", _HEADER_SCHEMA, 0)])

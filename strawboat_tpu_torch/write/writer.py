@@ -1,17 +1,21 @@
-"""Writing flat columns to a strawboat file, without pyarrow.
+"""Writing strawboat files, without pyarrow.
 
 Counterpart of ``NativeWriter`` / ``write_file`` (``strawboat_tpu/write/
-writer.py``) and ``write_simple`` / ``_validity_prelude``
-(``strawboat_tpu/write/serialize.py``) for flat integer, date32, utf8,
-binary, float, bool and decimal columns.  The layout is the reference's:
+writer.py``) and ``write_simple`` / ``write_nested_page`` / ``_take_leaf``
+(``strawboat_tpu/write/serialize.py``) for integer, temporal, utf8,
+binary, float, bool and decimal columns and the nested columns over them
+(list, large_list, fixed-size list, map, struct).  The layout is the
+reference's:
 
     "ARROW2" + 2 zero bytes
-    per column, per page of ``max_page_size`` rows:
-        [u32 def_len][bit-packed validity]   (nullable fields only)
+    per leaf column, per page of ``max_page_size`` (top-level) rows:
+        [u32 def_len][bit-packed validity]   (a nullable flat field), or
+        [u32 rows][u32 rep_len][u32 def_len][rep][def]   (a nested leaf)
         [9-byte header][body]                (``codecs/integer.py``,
                                               ``binary.py``, ``double.py``,
                                               ``boolean.py``, ``decimal.py``)
-    zone block (``options.zone_maps``: ``exec/pruning.py``)
+    zone block (``options.zone_maps``: ``exec/pruning.py``; flat integer,
+    temporal and float columns only)
     schema (bare flatbuffer), metas, [u32 schema_size][u32 meta_size],
     EOS marker (0xFFFFFFFF, then 0 as u32)
 
@@ -22,10 +26,12 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import os
+import re
 from typing import BinaryIO, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import columns as cm
 from ..codecs import WriteOptions
 from ..codecs.binary import BinaryColumn, compress_binary, slice_keys
 from ..codecs.boolean import compress_boolean
@@ -37,17 +43,22 @@ from ..errors import NotYetImplementedError, OutOfSpecError
 from ..exec.pruning import ColumnZones, PageZone, compute_zones, zone_trailer
 from ..meta import ColumnMeta, PageMeta, serialize_metas
 from ..schema import (
-    FLAT_FLOAT_TYPES, FLAT_INT_TYPES, WRITABLE_TYPES, Field, decimal_params, schema_to_bytes,
+    FLAT_FLOAT_TYPES, WRITABLE_TYPES, Field, decimal_params, int_storage, schema_to_bytes,
 )
-from ..util.hybrid_rle import encode_validity_bitpacked
+from ..util.hybrid_rle import encode_levels, encode_validity_bitpacked, get_bit_width
+from .nested import cum_sums, slice_nested, to_nested, write_levels
 
 
 def _numpy_alias(arr: np.ndarray) -> str:
     """The arrow type of a numpy column, as a ``pa.array`` of it has:
     unicode → string, bytes → binary, an object array by its values."""
     dtype = arr.dtype
-    if dtype.kind == "M" and np.datetime_data(dtype)[0] == "D":
-        return "date32"
+    if dtype.kind in "Mm":
+        unit = np.datetime_data(dtype)[0]
+        if dtype.kind == "M" and unit == "D":
+            return "date32"
+        if unit in ("s", "ms", "us", "ns"):
+            return f"{'timestamp' if dtype.kind == 'M' else 'duration'}[{unit}]"
     if dtype.kind in "iuf":
         return str(dtype)
     if dtype.kind == "b":
@@ -141,6 +152,16 @@ def _prepare(columns: Mapping[str, np.ndarray], schema: Optional[Sequence[Field]
     for f in schema:
         arr = columns[f.name]
         validity = None
+        if f.is_nested or isinstance(arr, cm.Column):
+            if not isinstance(arr, cm.Column):
+                raise OutOfSpecError(f"column {f.name!r} of type {f.dtype} takes a columns.Column")
+            if rows is not None and len(arr) != rows:
+                raise OutOfSpecError(f"column {f.name!r} has {len(arr)} rows, not {rows}")
+            rows = len(arr)
+            if f.is_nested:
+                out.append((arr, None))
+                continue
+            arr = _flat_arrays(arr)
         if isinstance(arr, np.ma.MaskedArray):
             null = np.ma.getmaskarray(arr)
             if null.ndim == 2:
@@ -178,18 +199,46 @@ def _prepare(columns: Mapping[str, np.ndarray], schema: Optional[Sequence[Field]
                 f"writing column {f.name!r} of type {f.dtype} from numpy {arr.dtype} "
                 "(ROADMAP.md 'Modules to port')"
             )
-        if arr.dtype.kind == "M":  # days since the epoch
+        if arr.dtype.kind == "M" and f.dtype == "date32":  # days since the epoch
             days = arr.astype("datetime64[D]").view(np.int64)
             if len(days) and (days.min() < -(2**31) or days.max() >= 2**31):
                 raise OutOfSpecError(f"column {f.name!r}: a date outside date32")
             arr = days.astype(np.int32)
-        storage = np.dtype(FLAT_INT_TYPES[f.dtype])
+        elif arr.dtype.kind in "Mm":  # counts of the field's unit
+            kind = ("M" if f.dtype.startswith(("timestamp", "date64"))
+                    else "m" if f.dtype.startswith("duration") else None)
+            if arr.dtype.kind != kind:
+                raise OutOfSpecError(f"column {f.name!r}: numpy {arr.dtype} for {f.dtype}")
+            unit = "ms" if f.dtype == "date64" else re.match(r"\w+\[(\w+)", f.dtype).group(1)
+            arr = arr.astype(f"<{kind}8[{unit}]").view(np.int64)
+        storage = np.dtype(int_storage(f.dtype))
         if arr.dtype != storage:
             if not np.can_cast(arr.dtype, storage):
                 raise OutOfSpecError(f"column {f.name!r}: {arr.dtype} does not fit {f.dtype}")
             arr = arr.astype(storage)
         out.append((np.ascontiguousarray(arr), validity))
     return schema, out, rows or 0
+
+
+def _flat_arrays(col):
+    """A flat ``columns.Column`` → the numpy (masked) array ``_prepare``
+    takes, or a codec ``BinaryColumn`` for strings."""
+    if isinstance(col, cm.BinaryColumn):
+        return _codec_binary(col)
+    if isinstance(col, (cm.PrimitiveColumn, cm.BooleanColumn)):
+        if col.validity is None:
+            return col.values
+        mask = ~col.validity if col.values.ndim == 1 else np.repeat(
+            ~col.validity[:, None], col.values.shape[1], axis=1)
+        return np.ma.MaskedArray(col.values, mask=mask)
+    raise NotYetImplementedError(f"writing a {type(col).__name__}")
+
+
+def _codec_binary(col: "cm.BinaryColumn") -> BinaryColumn:
+    offsets = col.offsets.astype(np.int64)
+    lens = np.diff(offsets)
+    keys = slice_keys(offsets[:-1], lens, col.values) if len(lens) and lens.max() <= 7 else None
+    return BinaryColumn(offsets, col.values, keys)
 
 
 def write_page(values, validity: Optional[np.ndarray], field: Field,
@@ -203,6 +252,12 @@ def write_page(values, validity: Optional[np.ndarray], field: Field,
         else:
             body = encode_validity_bitpacked(validity)
             out = np.uint32(len(body)).tobytes() + body
+    return out + _leaf_body(values, validity, field, options)
+
+
+def _leaf_body(values, validity: Optional[np.ndarray], field: Field, options: WriteOptions) -> bytes:
+    """The codec page (header and body) of a leaf's values."""
+    out = b""
     if isinstance(values, BinaryColumn):
         return out + compress_binary(values, validity, options, field.dtype.startswith("large_"))
     if field.is_flat_decimal:
@@ -214,6 +269,41 @@ def write_page(values, validity: Optional[np.ndarray], field: Field,
     return out + compress_integer(values, validity, options)
 
 
+def write_nested_page(nests, leaf: "cm.Column", field: Field, options: WriteOptions):
+    """One page of a nested leaf → (bytes, level count): the levels of the
+    page's rows, then the leaf values the levels reach (slots under null
+    ancestors dropped) through the leaf's codec."""
+    rep, deff, leaf_elems = write_levels(nests)
+    if len(leaf_elems) != len(leaf) or (len(leaf_elems) and (np.diff(leaf_elems) != 1).any()):
+        leaf = _take_leaf(leaf, leaf_elems)
+    cum_sum, cum_rep = cum_sums(nests)
+    rep_bytes = encode_levels(rep, get_bit_width(int(cum_rep[-1])))
+    def_bytes = encode_levels(deff, get_bit_width(int(cum_sum[-1])))
+    head = np.array([nests[0].length, len(rep_bytes), len(def_bytes)], dtype="<u4").tobytes()
+    body = b""
+    if not isinstance(leaf, cm.NullColumn):
+        if isinstance(leaf, cm.BinaryColumn):
+            values = _codec_binary(leaf)
+        elif field.is_flat_decimal:
+            values = _decimal_matrix(field.name, leaf.values, decimal_params(field.dtype)[0] // 8)
+        elif field.is_flat_int:
+            values = leaf.values.view(int_storage(field.dtype)) if leaf.values.dtype.kind in "Mm" \
+                else leaf.values.astype(int_storage(field.dtype), copy=False)
+        else:
+            values = leaf.values
+        body = _leaf_body(values, leaf.validity, field, options)
+    return head + rep_bytes + def_bytes + body, len(rep)
+
+
+def _take_leaf(leaf: "cm.Column", elems: np.ndarray) -> "cm.Column":
+    """Leaf slots by index (the null-ancestor compaction)."""
+    if len(elems) == 0:
+        return leaf.slice(0, 0)
+    if elems[0] >= 0 and (np.diff(elems) == 1).all():
+        return leaf.slice(int(elems[0]), len(elems))
+    return leaf.take(elems)
+
+
 def _page_slice(values, off: int, ln: int):
     if isinstance(values, BinaryColumn):
         keys = None if values.keys is None else values.keys[off : off + ln]
@@ -222,24 +312,38 @@ def _page_slice(values, off: int, ln: int):
 
 
 def _encode_pages(fields, data, spans, options):
-    """Every page of every column, encoded in threads (the codecs' numpy
-    and native loops release the GIL) → (pages per column, the zone of
-    each page of each integer, date32 and float column when
-    ``options.zone_maps``: string, bool and decimal pages get none, as in
-    the JAX writer)."""
+    """Every page of every leaf column, encoded in threads (the codecs'
+    numpy and native loops release the GIL) → (pages per leaf column as
+    (bytes, num_values), the zone of each page of each flat integer,
+    temporal and float column when ``options.zone_maps``: string, bool,
+    decimal and nested pages get none, as in the JAX writer).  Every leaf
+    of a nested field takes the same top-level row spans."""
+    leaves = []  # (field index, leaf field or None, nests, leaf column)
+    for ci, f in enumerate(fields):
+        if f.is_nested:
+            from ..read.levels import leaf_fields
+
+            for lf, (nests, leaf) in zip(leaf_fields(f), to_nested(data[ci][0], f)):
+                leaves.append((ci, lf, nests, leaf))
+        else:
+            leaves.append((ci, None, None, None))
     jobs: List[Tuple[int, int, int]] = [
-        (ci, off, ln) for ci in range(len(fields)) for off, ln in spans
+        (li, off, ln) for li in range(len(leaves)) for off, ln in spans
     ]
 
     def encode(job):
-        ci, off, ln = job
+        li, off, ln = job
+        ci, lf, nests, leaf = leaves[li]
+        if lf is not None:
+            s_nests, s_leaf = slice_nested(nests, leaf, off, ln)
+            return write_nested_page(s_nests, s_leaf, lf, options), None
         values, validity = data[ci]
         page_values = _page_slice(values, off, ln)
         page_validity = None if validity is None else validity[off : off + ln]
         zone = None
         if options.zone_maps and (fields[ci].is_flat_int or fields[ci].is_flat_float):
             zone = PageZone(*compute_zones(page_values, page_validity), ln)
-        return write_page(page_values, page_validity, fields[ci], options), zone
+        return (write_page(page_values, page_validity, fields[ci], options), ln), zone
 
     workers = min(len(jobs), os.cpu_count() or 1)
     if workers <= 1:
@@ -249,25 +353,23 @@ def _encode_pages(fields, data, spans, options):
             results = list(pool.map(encode, jobs))
     per_col = len(spans)
     pages, zones = [], {}
-    for ci, f in enumerate(fields):
-        col = results[ci * per_col : (ci + 1) * per_col]
+    for li, (ci, _lf, _n, _l) in enumerate(leaves):
+        col = results[li * per_col : (li + 1) * per_col]
         pages.append([p for p, _z in col])
         if col and col[0][1] is not None:
-            zones[f.name] = ColumnZones(f.name, [z for _p, z in col])
+            zones[fields[ci].name] = ColumnZones(fields[ci].name, [z for _p, z in col])
     return pages, zones
 
 
-def _write_all(f: BinaryIO, fields, pages, spans, zones) -> List[ColumnMeta]:
+def _write_all(f: BinaryIO, fields, pages, zones) -> List[ColumnMeta]:
     """Magic, pages, the zone block, then the footer; returns the column
-    metas."""
+    metas (one per leaf column)."""
     f.write(ARROW_MAGIC + b"\x00\x00")
     offset = len(ARROW_MAGIC) + 2
     metas = []
     for col_pages in pages:
-        metas.append(
-            ColumnMeta(offset, [PageMeta(len(p), ln) for p, (_o, ln) in zip(col_pages, spans)])
-        )
-        for p in col_pages:
+        metas.append(ColumnMeta(offset, [PageMeta(len(p), n) for p, n in col_pages]))
+        for p, _n in col_pages:
             f.write(p)
             offset += len(p)
     if zones:
@@ -293,16 +395,21 @@ def write_file(
     pages of ``options.max_page_size`` rows) and return the column metas.
 
     numpy integer, float and bool columns keep their type,
-    ``datetime64[D]`` becomes date32, unicode arrays utf8 (``"string"``)
-    and bytes arrays binary; an object array of ``str`` or ``bytes`` takes
-    ``None`` for null.  ``schema`` (a list of
+    ``datetime64[D]`` becomes date32, ``datetime64[unit]`` a timestamp and
+    ``timedelta64[unit]`` a duration of that unit, unicode arrays utf8
+    (``"string"``) and bytes arrays binary; an object array of ``str`` or
+    ``bytes`` takes ``None`` for null.  ``schema`` (a list of
     :class:`~strawboat_tpu_torch.schema.Field`) overrides the types
-    (``"large_string"``, ``"large_binary"``, ``"float32"`` …) and the
-    nullability; a decimal column is an int64 array of unscaled values (or
-    an ``(n, W)`` uint8 matrix of W-byte values, for values beyond int64)
-    under a decimal field, e.g. ``Field("price", "decimal128(15, 2)")``.
-    ``options.zone_maps`` writes a zone of every page of the integer,
-    date32 and float columns."""
+    (``"large_string"``, ``"float32"``, ``"timestamp[ms, tz=UTC]"``,
+    ``"time32[ms]"`` from int storage …) and the nullability; a decimal
+    column is an int64 array of unscaled values (or an ``(n, W)`` uint8
+    matrix of W-byte values, for values beyond int64) under a decimal
+    field, e.g. ``Field("price", "decimal128(15, 2)")``.  A nested column
+    is a ``columns.ListColumn`` / ``FixedSizeListColumn`` / ``MapColumn``
+    / ``StructColumn`` under a nested field (``schema.list_of``,
+    ``schema.map_of``, ``Field(name, "struct", children=...)``); a flat
+    ``columns.Column`` is taken too.  ``options.zone_maps`` writes a zone
+    of every page of the flat integer, temporal and float columns."""
     options = options or WriteOptions()
     fields, data, rows = _prepare(columns, schema)
     step = max(min(options.max_page_size or rows, rows), 1)
@@ -311,7 +418,7 @@ def write_file(
     own = isinstance(path_or_file, (str, os.PathLike))
     f = open(path_or_file, "wb") if own else path_or_file
     try:
-        return _write_all(f, fields, pages, spans, zones)
+        return _write_all(f, fields, pages, zones)
     finally:
         if own:
             f.close()

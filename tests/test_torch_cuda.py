@@ -259,3 +259,87 @@ def test_streamed_feed_on_card_equals_pageable_route(cuda, tmp_path, monkeypatch
         assert want.tobytes() == v.tobytes(), k
         for s in scans:
             assert s[k].values.cpu().numpy().tobytes() == want.tobytes(), k
+
+
+def _nested_orders_file(tmp_path, n_orders=5000, page=1000, fixed=None):
+    """Orders with their lineitems nested (list<struct<...>> and a list of
+    int64) under the dict flags.  With 1–7 lineitems an order, a page's
+    leaf count is rarely a multiple of 128, so its DICT index subpage is
+    raw (the writer bit-packs whole 128-value blocks only); ``fixed``
+    lineitems an order over pages of 96 orders make every page's leaf
+    count a multiple of 128 (bit-packed indices) but the last."""
+    import os
+
+    from strawboat_tpu_torch import columns as cm
+    from strawboat_tpu_torch.codecs import WriteOptions
+    from strawboat_tpu_torch.schema import Field, list_of
+    from strawboat_tpu_torch.write import write_file
+    from strawboat_tpu_torch.write.writer import _binary_column
+
+    rng = np.random.default_rng(3)
+    lens = rng.integers(1, 8, n_orders) if fixed is None else np.full(n_orders, fixed)
+    offsets = np.concatenate([[0], np.cumsum(lens)])
+    m = int(offsets[-1])
+    qty, price = rng.integers(1, 51, m), rng.integers(90_000, 5_500_000, m)
+    ship = rng.integers(0, 2557, m).astype(np.int32)
+    flag = _binary_column(np.array(["A", "N", "R"])[rng.integers(0, 3, m)], None)
+    items = cm.StructColumn("struct", None, [
+        cm.PrimitiveColumn("int64", None, qty), cm.PrimitiveColumn("int64", None, price),
+        cm.PrimitiveColumn("date32", None, ship),
+        cm.BinaryColumn("string", None, flag.offsets, flag.values)], m)
+    fields = [list_of("o_lineitems", Field("item", "struct", True, (
+        Field("l_quantity", "int64"), Field("l_extendedprice", "int64"),
+        Field("l_shipdate", "date32"), Field("l_returnflag", "string")))),
+        list_of("o_lineprices", Field("item", "int64"))]
+    path = str(tmp_path / "orders_nested.str")
+    os.environ["STRAWBOAT_DICT_COMPRESSION"] = "1"
+    os.environ["STRAWBOAT_BITPACK_COMPRESSION"] = "1"
+    try:
+        write_file(path, {"o_lineitems": cm.ListColumn("list", None, offsets, items),
+                          "o_lineprices": cm.ListColumn("list", None, offsets,
+                                                        cm.PrimitiveColumn("int64", None, price))},
+                   schema=fields, options=WriteOptions(max_page_size=page))
+    finally:
+        del os.environ["STRAWBOAT_DICT_COMPRESSION"], os.environ["STRAWBOAT_BITPACK_COMPRESSION"]
+    return path, offsets, price
+
+
+def test_nested_leaf_pages_through_k3_on_card(cuda, tmp_path):
+    """The bit-packed DICT index pages of nested leaves go through K3 on
+    the card, equal to its plain version; the last page (32 leaves, not a
+    multiple of 128) takes the raw-index route; the scan on the card
+    equals the scan on the CPU, offsets int64."""
+    from strawboat_tpu_torch.exec.scan import k3_launch_groups, scan_file
+
+    path, offsets, price = _nested_orders_file(tmp_path, page=96, fixed=4)
+    groups = k3_launch_groups(path)
+    assert {g[0] for g in groups} >= {"o_lineitems.l_quantity", "o_lineitems.l_returnflag"}
+    for _col, (_codec, b), _pages, words in groups:
+        w = torch.from_numpy(words.view(np.int32)).to(cuda)
+        assert torch.equal(bu.bitunpack_natural(w, 0, b).cpu(), bu.bitunpack_natural_plain(w.cpu(), 0, b))
+    before = bu.bitunpack_natural.launches
+    on_card = scan_file(path, cuda)
+    torch.cuda.synchronize()
+    assert bu.bitunpack_natural.launches == before + len(groups)
+    on_cpu = scan_file(path, "cpu")
+    for k, c in on_cpu.columns.items():
+        g = on_card[k]
+        assert g.offsets.dtype == torch.int64 and g.offsets.device.type == "cuda"
+        assert torch.equal(g.offsets.cpu(), c.offsets) and torch.equal(g.values.cpu(), c.values), k
+    assert on_card["o_lineprices"].values.cpu().numpy().tolist() == price.tolist()
+
+
+def test_list_sum_on_card_equals_cpu(cuda, tmp_path):
+    """load_resident of the nested file on the card: list_sum through K1
+    equals the CPU table's and numpy's."""
+    from strawboat_tpu_torch.exec import load_resident
+
+    path, offsets, price = _nested_orders_file(tmp_path)
+    rt = load_resident(path, cuda)
+    before = bu.bitunpack_tiled.launches
+    got = rt.list_sum("o_lineprices")
+    torch.cuda.synchronize()
+    assert bu.bitunpack_tiled.launches > before
+    want = np.add.reduceat(price, offsets[:-1])
+    assert got.cpu().tolist() == want.tolist()
+    assert got.cpu().tolist() == load_resident(path, "cpu").list_sum("o_lineprices").tolist()

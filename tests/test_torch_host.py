@@ -356,3 +356,100 @@ def test_native_decompress_batch_into_matches_reference(both_native):
         native.decompress_batch_into(int(codec), comp, out[:-1], offs, lens)
     with pytest.raises(OutOfSpecError):
         native.decompress_batch_into(int(codec), comp[1:2], out, [0], [lens[1] - 4])
+
+
+# ---------------------------------------------------------------------------
+# nested columns: the column model, the nest chains and level expansion
+
+
+def _nested_arrays(seed):
+    import pyarrow as pa
+
+    rng = np.random.default_rng(seed)
+    n = 300
+
+    def ragged(inner):
+        return [None if rng.random() < 0.15 else [inner() for _ in range(int(rng.integers(0, 4)))]
+                for _ in range(n)]
+
+    return {
+        "list": pa.array(ragged(lambda: int(rng.integers(0, 9))), pa.list_(pa.int64())),
+        "large_list_utf8": pa.array(ragged(lambda: "xy"[: int(rng.integers(0, 3))]),
+                                    pa.large_list(pa.string())),
+        "fixed_size_list": pa.array([None if i % 3 == 0 else [i, i + 1] for i in range(n)],
+                                    pa.list_(pa.int32(), 2)),
+        "map": pa.array(ragged(lambda: (f"k{int(rng.integers(0, 5))}", float(rng.random()))),
+                        pa.map_(pa.string(), pa.float64())),
+        "list_struct": pa.array(ragged(lambda: None if rng.random() < 0.2 else {
+            "a": int(rng.integers(0, 9)), "b": bool(rng.random() < 0.5)}),
+            pa.list_(pa.struct([("a", pa.int16()), ("b", pa.bool_())]))),
+        "struct_list": pa.StructArray.from_arrays(
+            [pa.array(ragged(lambda: int(rng.integers(0, 9))), pa.list_(pa.int8())),
+             pa.array(rng.integers(0, 9, n))], names=["l", "v"], mask=pa.array(rng.random(n) < 0.2)),
+    }
+
+
+@pytest.mark.parametrize("layout", ["list", "large_list_utf8", "fixed_size_list", "map",
+                                    "list_struct", "struct_list"])
+def test_nest_chains_and_levels_match_reference(layout):
+    """``columns.from_arrow`` / ``to_arrow``, ``write.nested.to_nested`` +
+    ``slice_nested`` + ``write_levels`` and ``read.levels.expand_levels``
+    against the JAX package's, page by page, for every leaf."""
+    import pyarrow as pa
+
+    from strawboat_tpu import columns as ref_columns
+    from strawboat_tpu.read import levels as ref_levels
+    from strawboat_tpu.write import nested as ref_nested
+    from strawboat_tpu_torch import columns as cm
+    from strawboat_tpu_torch.read import levels
+    from strawboat_tpu_torch.write import nested
+
+    arr = _nested_arrays(11)[layout]
+    pf = pa.field("c", arr.type)
+    f = cm.field_from_arrow(pf)
+    col = cm.from_arrow(arr)
+    assert cm.to_arrow(col, f).equals(arr)
+    assert cm.to_arrow(col.slice(7, 50), f).equals(arr.slice(7, 50))
+    assert cm.to_arrow(col.take(np.array([5, 0, 9])), f).equals(arr.take([5, 0, 9]))
+    ref_leaves = ref_nested.to_nested(ref_columns.from_arrow(arr), pf)
+    leaves = nested.to_nested(col, f)
+    assert len(leaves) == len(ref_leaves) == f.n_leaves
+    inits = levels.field_inits(f)
+    for (nests, leaf), (rnests, rleaf), init in zip(leaves, ref_leaves, inits):
+        assert [(n.kind, n.nullable) for n in nests] == [(n.kind, n.nullable) for n in rnests]
+        assert levels.nests_to_init(nests) == init
+        for off, ln in ((0, 100), (100, 100), (200, 100)):
+            s_n, _s_l = nested.slice_nested(nests, leaf, off, ln)
+            r_n, _r_l = ref_nested.slice_nested(rnests, rleaf, off, ln)
+            got = nested.write_levels(s_n)
+            want = ref_nested.write_levels(r_n)
+            for g, w in zip(got, want):
+                assert np.array_equal(g, w)
+            state, leaf_valid = levels.expand_levels(got[0].astype(np.int64),
+                                                     got[1].astype(np.int64), init)
+            r_state, r_valid = ref_levels.expand_levels(
+                want[0].astype(np.int64), want[1].astype(np.int64),
+                ref_levels.nests_to_init(r_n))
+            assert (leaf_valid is None) == (r_valid is None)
+            if leaf_valid is not None:
+                assert np.array_equal(leaf_valid, r_valid)
+            for a, b in zip(state.levels, r_state.levels):
+                assert (a.kind, a.nullable, a.length) == (b.kind, b.nullable, b.length)
+                for x, y in ((a.validity, b.validity), (a.offsets, b.offsets)):
+                    assert (x is None) == (y is None) and (x is None or np.array_equal(x, y))
+    assert [lf.dtype for lf in levels.leaf_fields(f)] == [str(t) for t in
+                                                          _leaf_types(pf.type)]
+
+
+def _leaf_types(t):
+    import pyarrow as pa
+
+    from strawboat_tpu_torch import columns as cm
+
+    if pa.types.is_struct(t):
+        return [x for i in range(t.num_fields) for x in _leaf_types(t.field(i).type)]
+    if pa.types.is_map(t):
+        return _leaf_types(t.key_type) + _leaf_types(t.item_type)
+    if pa.types.is_list(t) or pa.types.is_large_list(t) or pa.types.is_fixed_size_list(t):
+        return _leaf_types(t.value_type)
+    return [cm.field_from_arrow(pa.field("x", t)).dtype]

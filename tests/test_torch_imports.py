@@ -8,7 +8,9 @@ and scans them back (dictionary and bit-packed pages, string codes),
 scans Q6 pruned by the zone maps and in chunks, runs Q1 and a grouped
 ``Query`` over the file, the Q3-shaped join of it with an orders file and
 ``load_resident`` of it, writes and scans a column of each float, bool and
-decimal type (DICT pages, then PATAS) and loads them resident, and checks
+decimal type (DICT pages, then PATAS) and loads them resident, writes,
+scans and sums a list<struct<int64, utf8>> column beside a timestamp
+column (``list_segment_sum``, ``list_sum``, ``load_resident``), and checks
 ``sys.modules`` afterwards: no
 ``jax``, no ``pyarrow``, no ``strawboat_tpu`` or ``strawboat_tpu.*``.  A
 source check holds every port file and ``chip_smoke.py`` to the same.
@@ -96,6 +98,25 @@ with tempfile.TemporaryDirectory() as d:
         assert np.array_equal(rt3.decode_natural("d128").numpy(), typed["d128"])
         for f in flags:
             del os.environ[f]
+    from strawboat_tpu_torch import columns as cm
+    from strawboat_tpu_torch.exec.aggregate import list_segment_sum
+    from strawboat_tpu_torch.schema import list_of
+    items = cm.StructColumn("struct", None, [
+        cm.PrimitiveColumn("int64", None, np.array([1, 2, 3, 4, 5])),
+        cm.BinaryColumn("string", None, np.arange(6), np.frombuffer(b"abcde", np.uint8))], 5)
+    npath = os.path.join(d, "nested.str")
+    write_file(npath, {{"l": cm.ListColumn("list", None, np.array([0, 2, 2, 5]), items),
+                        "t": np.array([1, 2, 3], "datetime64[us]")}},
+               schema=[list_of("l", Field("item", "struct", True, (Field("a", "int64"),
+                                                                   Field("s", "string")))),
+                       Field("t", "timestamp[us]")])
+    nt = scan_file(npath, "cpu")
+    assert nt["l.a"].offsets.tolist() == [0, 2, 2, 5] and host_values(nt["t"]).tolist() == [1, 2, 3]
+    assert [nt["l.s"].dictionary[c] for c in nt["l.s"].values.tolist()] == [b"a", b"b", b"c", b"d", b"e"]
+    assert list_segment_sum(nt["l.a"].values, nt["l.a"].offsets, 3).tolist() == [3, 0, 12]
+    assert make_resident(nt, "cpu", tile=512).list_sum("l.a").tolist() == [3, 0, 12]
+    rtn = load_resident(npath, "cpu", tile=512)
+    assert rtn["l"].child.kind == "struct" and rtn.decode_natural("t").tolist() == [1, 2, 3]
 ref = sorted(m for m in sys.modules if m == "strawboat_tpu" or m.startswith("strawboat_tpu."))
 print(json.dumps({{"jax": "jax" in sys.modules, "pyarrow": "pyarrow" in sys.modules,
                   "strawboat_tpu": ref}}))

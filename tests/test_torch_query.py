@@ -261,8 +261,9 @@ def test_dense_group_sum_matches_reference():
 
 def test_unported_query_shapes_raise():
     """What the port still lacks raises ``NotYetImplementedError`` naming
-    ROADMAP.md: Query over globs and lists of files, nested resident
-    columns.  The device-direct f64 encode runs now
+    ROADMAP.md: Query over globs and lists of files.  Nested resident
+    columns load now (``tests/test_torch_nested_resident.py``), and list
+    columns stay out of ``as_device_table``.  The device-direct f64 encode runs now
     (``tests/test_torch_types.py``), and so do the shapes that raised before
     the general path (non-dictionary keys, joins, distinct, projections),
     matching the JAX package (``tests/test_torch_general.py``)."""
@@ -277,8 +278,10 @@ def test_unported_query_shapes_raise():
     ):
         with pytest.raises(NotYetImplementedError, match="ROADMAP"):
             q.run()
-    with pytest.raises(NotYetImplementedError, match="ROADMAP"):
-        make_resident(pa.table({"l": pa.array([[1], [2, 3]])}), "cpu", tile=TILE)
+    nested = make_resident(pa.table({"l": pa.array([[1], [2, 3]])}), "cpu", tile=TILE)
+    assert nested["l"].kind == "list" and nested.list_sum("l").tolist() == [1, 5]
+    with pytest.raises(NotYetImplementedError, match="list column"):
+        nested.as_device_table()
     f_dt = rt.as_device_table(["f"])[0]
     assert f_dt["f"].values.dtype == torch.float64
     assert make_resident(f_dt, "cpu", tile=TILE)["f"].kind == "f64"

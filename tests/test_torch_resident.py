@@ -344,9 +344,14 @@ def test_slot_order_is_natural_order():
 
 
 def test_nested_and_device_table_inputs_raise():
-    t = pa.table({"l": pa.array([[1, 2], [3]], pa.list_(pa.int64()))})
-    with pytest.raises(NotYetImplementedError, match="ROADMAP"):
-        port.make_resident(t, "cpu", tile=TILE)
+    # nested columns load now; list_sum over strings raises, as in the
+    # reference (resident.py:636-637)
+    t = pa.table({"l": pa.array([[1, 2], [3]], pa.list_(pa.int64())),
+                  "s": pa.array([["a"], []], pa.list_(pa.string()))})
+    rt = port.make_resident(t, "cpu", tile=TILE)
+    assert rt.list_sum("l").tolist() == [3, 3]
+    with pytest.raises(NotYetImplementedError, match="list<str>"):
+        rt.list_sum("s")
     # a DeviceTable encodes on the device now (f64 columns too); float16
     # raises, as in the reference, and a table without columns is refused
     f16 = port.DeviceColumn("x", "float16", torch.zeros(4, dtype=torch.float16))

@@ -102,6 +102,19 @@ def _expected(col):
     return col, validity
 
 
+def _footer_only(schema) -> bytes:
+    """A file of ``schema`` whose columns have no pages: the magic, then
+    the footer the JAX writer would write for it."""
+    from strawboat_tpu.meta import ColumnMeta
+    from strawboat_tpu.schema import n_leaf_columns, schema_to_bytes
+
+    sb = schema_to_bytes(schema)
+    mb = ref_serialize_metas([ColumnMeta(8, []) for f in schema
+                              for _ in range(n_leaf_columns(f.type))])
+    return (b"ARROW2\0\0" + sb + mb + len(sb).to_bytes(4, "little")
+            + len(mb).to_bytes(4, "little") + b"\xff\xff\xff\xff\0\0\0\0")
+
+
 def _check_scan(path, cols, columns=None):
     """The port's scan == numpy (valid slots) and == the JAX scan (all
     slots, so null slots decode alike)."""
@@ -292,9 +305,8 @@ def test_writer_raises_for_what_it_does_not_have(tmp_path, flags):
 def test_scan_raises_for_what_it_does_not_have(tmp_path, flags):
     """Predicates prune a file with a zone block and leave a file without
     one whole, as the reference does; a predicate the port cannot use
-    raises rather than scan unpruned; float columns scan now, while
-    timestamps and nested columns (in ``scan_chunks`` too) are not ported
-    yet."""
+    raises rather than scan unpruned; float, timestamp and nested columns
+    (in ``scan_chunks`` too) scan now, while unions and intervals raise."""
     from strawboat_tpu_torch.exec.pruning import Comparison
 
     path = str(tmp_path / "x.str")
@@ -314,12 +326,18 @@ def test_scan_raises_for_what_it_does_not_have(tmp_path, flags):
     assert scan_file(fpath, "cpu")["f"].values.tolist() == [1.5, 2.5]
     tpath = str(tmp_path / "t.str")
     ref_write(tpath, pa.table({"t": pa.array([1, 2], pa.timestamp("us"))}))
-    with pytest.raises(NotYetImplementedError):
-        scan_file(tpath, "cpu")
+    assert scan_file(tpath, "cpu")["t"].values.tolist() == [1, 2]
     npath = str(tmp_path / "n.str")
     ref_write(npath, pa.table({"l": pa.array([[1], [2, 3]])}))
-    with pytest.raises(NotYetImplementedError):
-        next(port_scan.scan_chunks(npath, 1, "cpu"))
+    assert next(port_scan.scan_chunks(npath, 1, "cpu"))["l"].values.tolist() == [1, 2, 3]
+    for arr in (pa.UnionArray.from_sparse(pa.array([0, 1], pa.int8()),
+                                          [pa.array([1, 2]), pa.array([0.5, 1.5])]),
+                pa.array([pa.MonthDayNano([1, 2, 3])], pa.month_day_nano_interval())):
+        upath = str(tmp_path / "u.str")
+        with open(upath, "wb") as fh:  # the schema of such a column, no pages
+            fh.write(_footer_only(pa.schema([pa.field("u", arr.type)])))
+        with pytest.raises(NotYetImplementedError):
+            scan_file(upath, "cpu")
     with pytest.raises(ValueError):
         scan_file(path, None)
 

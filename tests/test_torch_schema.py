@@ -32,15 +32,17 @@ def test_pyarrow_bytes_read_by_port():
     schema = pa.schema(
         [pa.field(f"c_{t}", _pa_type(t), i % 2 == 0) for i, t in enumerate(FLAT)]
     )
-    want = [port.Field(f.name, str(f.type).replace("[day]", ""), f.nullable) for f in schema]
+    want = [port.Field(f.name, str(f.type).replace("[day]", "").replace("date64[ms]", "date64"),
+                       f.nullable) for f in schema]
     assert port.deserialize_schema(ref.schema_to_bytes(schema)) == want  # bare
     assert port.deserialize_schema(schema.serialize().to_pybytes()) == want  # prefixed
     assert port.deserialize_schema(port.schema_to_bytes(want)) == want  # the port's own
 
 
 def test_other_types_parse_with_their_leaf_counts():
-    """Files with strings, floats and nested columns still open; the leaf
-    count keeps the column metas aligned."""
+    """Files with strings, floats, timestamps and nested columns open; the
+    leaf count keeps the column metas aligned; a timestamp is a flat
+    integer type now, and nested fields carry their children."""
     schema = pa.schema(
         [
             pa.field("s", pa.string()),
@@ -56,10 +58,11 @@ def test_other_types_parse_with_their_leaf_counts():
     )
     got = port.deserialize_schema(ref.schema_to_bytes(schema))
     assert [f.name for f in got] == schema.names
-    assert [f.dtype for f in got[:5]] == ["string", "float64", "bool", "decimal128(15, 2)",
-                                          "timestamp"]
+    assert [f.dtype for f in got] == ["string", "float64", "bool", "decimal128(15, 2)",
+                                      "timestamp[us]", "list", "map", "struct", "int32"]
     assert [f.n_leaves for f in got] == [ref.n_leaf_columns(f.type) for f in schema]
-    assert [f.is_flat_int for f in got] == [False] * 8 + [True]
+    assert [f.is_flat_int for f in got] == [False] * 4 + [True] + [False] * 3 + [True]
+    assert [f.is_nested for f in got] == [False] * 5 + [True] * 3 + [False]
     assert [f.is_flat_float for f in got] == [False, True] + [False] * 7
     assert [f.is_flat_bool for f in got] == [False, False, True] + [False] * 6
     assert [f.is_flat_decimal for f in got] == [False] * 3 + [True] + [False] * 5
@@ -72,14 +75,20 @@ def test_dictionary_field_is_not_a_flat_int():
 
 
 def test_writing_other_types_raises():
-    """Strings, floats, booleans and decimals write now
-    (``tests/test_torch_strings.py``, ``tests/test_torch_types.py``); nested,
-    dictionary-typed and other fields still raise."""
+    """Strings, floats, booleans, decimals, temporal and nested fields write
+    now (``tests/test_torch_strings.py``, ``tests/test_torch_types.py``,
+    ``tests/test_torch_temporal.py``, ``tests/test_torch_nested.py``);
+    dictionary-typed fields, unions, intervals and malformed nested fields
+    still raise."""
     for f in (port.Field("s", "string"), port.Field("x", "float64"), port.Field("b", "bool"),
-              port.Field("d", "decimal256(40, 3)")):
+              port.Field("d", "decimal256(40, 3)"), port.Field("t", "timestamp[ns]"),
+              port.Field("l", "list", children=(port.Field("item", "int64"),))):
         assert port.schema_to_bytes([f])
     for f in (port.Field("t", "timestamp"),
-              port.Field("l", "list", children=(port.Field("item", "int64"),)),
+              port.Field("l", "list"),
+              port.Field("m", "map", children=(port.Field("item", "int64"),)),
+              port.Field("u", "union", children=(port.Field("a", "int64"),)),
+              port.Field("i", "interval"),
               port.Field("d", "string", dictionary_encoded=True)):
         with pytest.raises(NotYetImplementedError):
             port.schema_to_bytes([f])

@@ -334,9 +334,12 @@ def test_scan_chunks_columns_and_refusals(tmp_path, flags):
     assert np.concatenate([c["k"].values.numpy() for c in chunks]).tolist() == list(range(3000))
     with pytest.raises(ValueError):
         next(port_scan.scan_chunks(path, 0, "cpu"))
-    nested = _ref_write(tmp_path / "n.str", pa.table({"l": pa.array([[1], [2, 3]])}))
-    with pytest.raises(NotYetImplementedError, match="nested"):
-        next(port_scan.scan_chunks(nested, 1, "cpu"))
+    nested = _ref_write(tmp_path / "n.str", pa.table({"l": pa.array([["a"], ["b", "a"]])}))
+    (chunk,) = port_scan.scan_chunks(nested, 1, "cpu")  # nested columns chunk now
+    assert [chunk["l"].dictionary[c] for c in chunk["l"].values.tolist()] == [b"a", b"b", b"a"]
+    assert chunk["l"].offsets.tolist() == [0, 1, 3]
+    with pytest.raises(TypeError):  # a predicate that is not a Comparison
+        next(port_scan.scan_chunks(path, 1, "cpu", columns=["flag"], predicates=[("k", "lt", 1)]))
 
 
 # ---------------------------------------------------------------------------
