@@ -73,8 +73,8 @@ the typed lineitem files (K1's and K3's launches are counted over 14):
 
 the nested orders file (K1's and K3's launches are counted over 15):
 
-15. nested — TPC-H orders at SF10 (15 M rows, seed 1, in o_orderdate
-   order) with their 1–7 lineitems each (about 60 M, seed 0) nested as
+15. nested — TPC-H orders at SF5 (7.5 M rows, seed 1, in o_orderdate
+   order) with their 1–7 lineitems each (about 30 M, seed 0) nested as
    ``o_lineitems`` list<struct<l_quantity, l_extendedprice, l_discount,
    l_tax, l_shipdate, l_returnflag>> and ``o_lineprices`` list<int64>,
    written under the ``dict`` flags with zone maps; scanned whole twice
@@ -85,9 +85,23 @@ the nested orders file (K1's and K3's launches are counted over 15):
    ``list_sum`` and every leaf decoded from its planes through K1;
    ``make_resident`` of the scan's list column;
 
+the adaptive write path (K3's launches are counted over 16):
+
+16. adaptive — the ten lineitem columns at SF10 through ``write_file`` with
+   the JAX benchmark's write options (LZ4, ratio 1.0, sample_seed 3, pages
+   of 65 536 rows, zone maps): seconds and bytes beside the ``dict``
+   file's, the codecs chosen (a handler on the port's logger) and each
+   column's page codecs; scanned whole twice (every column equal to the
+   generated one); Q6 over a pruned scan and ``tpch.q1_query`` == numpy;
+   then the scanned table ordered by l_suppkey on the card and written
+   again through ``write_device_table`` (the seconds in the stats
+   reductions on the card against the host encode), rescanned (every
+   column equal to numpy permuted alike) and scanned pruned by
+   ``l_suppkey < 1000`` (the kept pages' rows equal numpy's);
+
 and last:
 
-16. k2_k0  — K2 and K0 bit-exact against their plain versions (b = 1..32),
+17. k2_k0  — K2 and K0 bit-exact against their plain versions (b = 1..32),
    then (their launches counted) l_shipdate's bit-packed pages decoded
    through K2's and K0's natural-order entry points == the generated column;
    each width group's lane count, times and bound are printed.
@@ -128,7 +142,9 @@ SEEDS = (0, 0xA5A500FF)
 REPS = 20
 SCAN_REPS = 3
 PAGE_ROWS = 65536
-NESTED_ORDERS = 15_000_000  # SF10 orders (TPC-H spec 1.2: SF x 1.5 M)
+# SF5 orders (TPC-H spec 1.2: SF x 1.5 M); SF10 until PR 7, its numbers
+# in PERF.md
+NESTED_ORDERS = 7_500_000
 # lineitem_typed takes every 5th row (12 M, SF2, every ship date's range
 # kept); its SF10 numbers are in PERF.md (PR 6)
 TYPED_STRIDE = 5
@@ -687,39 +703,13 @@ def _host_column(c) -> np.ndarray:
     return np.array([v.decode() for v in c.dictionary])[vals]
 
 
-def _no_flag_scan(cols, tmpdir, device) -> dict:
-    """The ten columns written under no flag (raw NONE pages: the integer
-    columns stream, the string rows encode on the host page by page),
-    scanned whole once and checked against the generated columns
-    (``scripts/torch_feed_compare.py`` times the scans of this file)."""
-    from strawboat_tpu_torch.benchsuite import tpch
-    from strawboat_tpu_torch.exec import scan_file
-
-    path = os.path.join(tmpdir, "lineitem_full_no_flag.str")
-    with forcing({}):
-        t0 = time.perf_counter()
-        tpch.write_lineitem(path, cols, max_page_size=PAGE_ROWS, zone_maps=True)
-    out = {"write_s": time.perf_counter() - t0, "bytes": os.path.getsize(path)}
-    t0 = time.perf_counter()
-    table = scan_file(path, device)
-    torch.cuda.synchronize()
-    out["first_scan_s"] = time.perf_counter() - t0
-    for k in tpch.LINEITEM_COLUMNS:
-        if not np.array_equal(_host_column(table[k]), cols[k]):
-            raise AssertionError(f"scanned column {k} of the no-flag file != the generated column")
-    del table
-    out["equal_to_numpy"] = True
-    os.remove(path)
-    return out
-
-
 def phase_lineitem_full(cols, tmpdir, device) -> str:
     """The whole lineitem file: the ten columns (three utf8) written under
     the ``dict`` flags with zone maps, scanned whole, Q6 over a pruned
     scan, Q1 over the file through ``Query``, ``load_resident`` with the
-    fused Q1 and Q6; every answer against numpy.  Then the same columns
-    under no flag, scanned whole (:func:`_no_flag_scan`).  Returns the
-    dict file's path, whose K3 groups the kernel line times."""
+    fused Q1 and Q6; every answer against numpy.  (The same columns under
+    no flag, raw pages, are scanned by ``scripts/torch_feed_compare.py``.)
+    Returns the dict file's path, whose K3 groups the kernel line times."""
     from strawboat_tpu_torch.benchsuite import tpch
     from strawboat_tpu_torch.exec import load_resident, scan_file
     from strawboat_tpu_torch.exec.scan import _open, page_keep_mask
@@ -781,7 +771,6 @@ def phase_lineitem_full(cols, tmpdir, device) -> str:
     _check_equal("Q6 over load_resident", int(tpch.q6(rt)), want_q6)
     facts["load_resident"].update(q1_equal_to_numpy=True, q6_equal_to_numpy=True)
     del rt
-    facts["no_flag_file"] = _no_flag_scan(cols, tmpdir, device)
     emit("lineitem_full", rows=SF10_ROWS, page_rows=PAGE_ROWS, flags=FILES["dict"], zone_maps=True,
          **facts, max_memory_allocated=torch.cuda.max_memory_allocated(), nvidia_smi=nvidia_smi())
     return path
@@ -975,8 +964,8 @@ def _check_nested_scan(table, orders, li, offsets, device, rows=None) -> None:
 
 
 def phase_nested(tmpdir, device, seed: int = SEED) -> tuple:
-    """TPC-H orders with their lineitems nested at SF10: 15 M orders (seed
-    1, in o_orderdate order), 1–7 lineitems each (seed 0), about 60 M
+    """TPC-H orders with their lineitems nested at SF5: 7.5 M orders (seed
+    1, in o_orderdate order), 1–7 lineitems each (seed 0), about 30 M
     lineitems; o_lineitems list<struct<…>> and o_lineprices list<int64>.
     Write under the dict flags with zone maps, scan whole twice, Q6 over
     the leaves and list_segment_sum, a scan pruned by o_orderdate, chunks,
@@ -1104,6 +1093,183 @@ def phase_nested(tmpdir, device, seed: int = SEED) -> tuple:
     return path, rt
 
 
+@contextlib.contextmanager
+def _codec_tally():
+    """Count the codec choices the port logs in the block: {"family:codec":
+    pages}."""
+    import collections
+    import logging
+
+    tally = collections.Counter()
+
+    class Tally(logging.Handler):
+        def emit(self, record):
+            family, codec = record.args
+            tally[f"{family}:{codec}"] += 1
+
+    log = logging.getLogger("strawboat_tpu_torch")
+    handler, level = Tally(logging.INFO), log.level
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    try:
+        yield tally
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+
+
+def _page_codecs(path) -> dict:
+    """Each flat column's pages by codec, from their headers."""
+    import collections
+
+    from strawboat_tpu_torch.codecs import read_header
+    from strawboat_tpu_torch.exec.scan import _open, _plan_pages
+
+    schema, metas, buf = _open(path)
+    return {f.name: dict(collections.Counter(read_header(b, p)[0].name
+                                             for _l, _v, b, p in _plan_pages(buf, m, f.nullable)))
+            for f, m in zip(schema, metas)}
+
+
+@contextlib.contextmanager
+def _timed_stats():
+    """A timer around the device writer's stats reductions (synchronized,
+    so the device time is inside it): {"seconds": total}."""
+    from strawboat_tpu_torch.write import device as device_writer
+
+    spent = {"seconds": 0.0}
+    names = ("paged_stats_device", "paged_bool_stats_device")
+    saved = {n: getattr(device_writer, n) for n in names}
+
+    def timed(fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent["seconds"] += time.perf_counter() - t0
+            return out
+        return run
+
+    for n in names:
+        setattr(device_writer, n, timed(saved[n]))
+    try:
+        yield spent
+    finally:
+        for n in names:
+            setattr(device_writer, n, saved[n])
+
+
+def _pages_rows(keep, n_rows: int) -> np.ndarray:
+    """The row indices of the kept pages of a PAGE_ROWS grid."""
+    return np.concatenate([np.arange(i * PAGE_ROWS, min((i + 1) * PAGE_ROWS, n_rows))
+                           for i in np.flatnonzero(keep)])
+
+
+def phase_adaptive(cols, tmpdir, device, dict_bytes: int) -> dict:
+    """The adaptive write path at SF10: ``write_file`` with the JAX
+    benchmark's options, two whole scans, Q6 pruned and Q1 over the file,
+    then ``write_device_table`` of the scan ordered by l_suppkey on the
+    card, rescanned whole and pruned; every answer against numpy.  Returns
+    the two files' paths, whose K3 groups the kernel line times."""
+    from strawboat_tpu_torch.benchsuite import tpch
+    from strawboat_tpu_torch.codecs import WriteOptions
+    from strawboat_tpu_torch.constants import Compression
+    from strawboat_tpu_torch.exec import scan_file
+    from strawboat_tpu_torch.exec.pruning import Comparison
+    from strawboat_tpu_torch.exec.scan import DeviceColumn, DeviceTable, _open, page_keep_mask
+    from strawboat_tpu_torch.kernels import bitunpack as bu
+    from strawboat_tpu_torch.write.device import write_device_table
+
+    torch.cuda.reset_peak_memory_stats()
+    # bench.py's TPC-H write options
+    opts = WriteOptions(default_compression=Compression.LZ4, default_compress_ratio=1.0,
+                        max_page_size=PAGE_ROWS, sample_seed=3, zone_maps=True)
+    paths = {"lineitem_adaptive": os.path.join(tmpdir, "lineitem_adaptive.str"),
+             "lineitem_device": os.path.join(tmpdir, "lineitem_device.str")}
+    path, path2 = paths.values()
+    with forcing({}), _codec_tally() as tally:
+        t0 = time.perf_counter()
+        tpch.write_lineitem(path, cols, options=opts)
+    facts = {"write": {"seconds": time.perf_counter() - t0, "bytes": os.path.getsize(path),
+                       "dict_file_bytes": dict_bytes, "codecs_chosen": dict(tally),
+                       "page_codecs": _page_codecs(path)}}
+
+    runs = []
+    for i in range(2):  # cold, then warm; the warm table stays for the re-encode
+        before = bu.bitunpack_natural.launches
+        t0 = time.perf_counter()
+        table = scan_file(path, device)
+        torch.cuda.synchronize()
+        runs.append({"seconds": time.perf_counter() - t0,
+                     "k3_launches": bu.bitunpack_natural.launches - before})
+        if i == 0:
+            _check_columns("adaptive file", table, {k: cols[k] for k in tpch.LINEITEM_COLUMNS})
+            del table
+    if min(r["k3_launches"] for r in runs) <= 0:
+        raise AssertionError(f"the scans of the adaptive file did not launch K3: {runs}")
+    facts["scan"] = {"runs": runs, "warm_s": runs[1]["seconds"], "equal_to_numpy": True}
+
+    q6_cols = ("l_shipdate", "l_discount", "l_quantity", "l_extendedprice")
+    preds = tpch.q6_pruning_predicates()
+    pruned = scan_file(path, device, columns=q6_cols, predicates=preds)
+    _check_equal("Q6 over the pruned adaptive scan", int(tpch.q6(pruned)),
+                 tpch.q6_numpy_reference(cols))
+    keep = page_keep_mask(path, _open(path)[1], preds)
+    facts["q6_pruned"] = {"pages_kept": int(keep.sum()), "pages": len(keep),
+                          "rows_scanned": pruned.num_rows, "equal_to_numpy": True}
+    del pruned
+    _q1_check("Q1 over the adaptive file", tpch.q1_rows(tpch.q1_query(path, device)),
+              tpch.q1_numpy_reference(cols))
+    facts["q1_query"] = {"equal_to_numpy": True}
+
+    # the re-encode: rows ordered by l_suppkey on the card, written again
+    order = torch.argsort(table["l_suppkey"].values, stable=True)
+    ordered = DeviceTable({k: DeviceColumn(k, c.dtype, c.values[order],
+                                           None if c.validity is None else c.validity[order],
+                                           c.dictionary)
+                           for k, c in table.columns.items()}, table.num_rows)
+    torch.cuda.synchronize()
+    del table, order
+    with _codec_tally() as tally, _timed_stats() as stats:
+        t0 = time.perf_counter()
+        write_device_table(path2, ordered, opts)
+        seconds = time.perf_counter() - t0
+    facts["device_write"] = {"seconds": seconds, "bytes": os.path.getsize(path2),
+                             "stats_on_card_s": stats["seconds"],
+                             "host_encode_s": seconds - stats["seconds"],
+                             "codecs_chosen": dict(tally), "page_codecs": _page_codecs(path2)}
+    max_memory = torch.cuda.max_memory_allocated()
+    del ordered
+
+    perm = np.argsort(cols["l_suppkey"], kind="stable")
+    want = {k: cols[k][perm] for k in tpch.LINEITEM_COLUMNS}
+    before = bu.bitunpack_natural.launches
+    t0 = time.perf_counter()
+    table = scan_file(path2, device)
+    torch.cuda.synchronize()
+    launched = bu.bitunpack_natural.launches - before
+    if launched <= 0:
+        raise AssertionError("the scan of the device-written file did not launch K3")
+    _check_columns("device-written file", table, want)
+    facts["rescan"] = {"seconds": time.perf_counter() - t0, "k3_launches": launched,
+                       "equal_to_numpy": True}
+    del table
+    preds = [Comparison("l_suppkey", "lt", 1000)]
+    keep = page_keep_mask(path2, _open(path2)[1], preds)
+    pruned = scan_file(path2, device, predicates=preds)
+    rows = _pages_rows(keep, len(perm))
+    _check_columns("pruned scan of the device-written file", pruned,
+                   {k: v[rows] for k, v in want.items()})
+    if not (want["l_suppkey"][rows] < 1000).sum() == (cols["l_suppkey"] < 1000).sum():
+        raise AssertionError("the pruned scan lost rows with l_suppkey < 1000")
+    facts["rescan_pruned"] = {"pages_kept": int(keep.sum()), "pages": len(keep),
+                              "rows_scanned": pruned.num_rows, "equal_to_numpy": True}
+    del pruned
+    emit("adaptive", rows=len(perm), page_rows=PAGE_ROWS, options="LZ4, ratio 1.0, sample_seed 3",
+         **facts, max_memory_allocated=max_memory, nvidia_smi=nvidia_smi())
+    return paths
+
+
 def k3_summary(paths, device) -> dict:
     """K3 held exactly against its plain version, then K3 and plain times
     and the bound, over every launch one scan of each file in ``paths``
@@ -1198,6 +1364,7 @@ def main() -> int:
     from strawboat_tpu_torch.benchsuite import tpch
     from strawboat_tpu_torch.kernels import _build, bitunpack as bu
 
+    started = time.perf_counter()
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -1277,11 +1444,20 @@ def main() -> int:
         k1_launches += nested["K1"]
         k3_launches += nested["K3"]
         torch.cuda.empty_cache()
+        # the adaptive write path: count only its launches
+        bu.bitunpack_natural.launches = 0
+        adaptive_paths = phase_adaptive(cols, tmpdir, device, os.path.getsize(full_path))
+        adaptive = {"K3": bu.bitunpack_natural.launches}
+        if adaptive["K3"] <= 0:
+            raise AssertionError("the adaptive path never launched K3")
+        k3_launches += adaptive["K3"]
+        torch.cuda.empty_cache()
         # K3 over one scan of each file the paths scan: the two integer
         # lineitem files, the orders file, the whole lineitem file, the
-        # typed ones and the nested orders file
+        # typed ones, the nested orders file and the two adaptive files
         k3.update(k3_summary({**paths, "orders": o_path, "lineitem_full": full_path,
-                              **typed_paths, "orders_nested": nested_path}, device))
+                              **typed_paths, "orders_nested": nested_path, **adaptive_paths},
+                             device))
         k2_k0 = phase_k2_k0(paths["bitpack"], cols["l_shipdate"], device, SEED)
     # K1 over every plane shape the paths decode: the host-encoded planes of
     # the resident table (Q1, Q6 and the general queries over it; Q6 over
@@ -1307,7 +1483,7 @@ def main() -> int:
                 "library_ms": None}
 
     emit("launches", general_path=general, lineitem_full_path=full, lineitem_typed_path=typed,
-         nested_path=nested)
+         nested_path=nested, adaptive_path=adaptive, script_s=time.perf_counter() - started)
     print(json.dumps({"kernels": [
         line("bitunpack_tiled", "bitunpack.cu", "222", k1_launches, k1),
         line("bitunpack_tiled_unseeded", "bitunpack.cu", "174", k2_k0["K2"]["launches"], k2_k0["K2"]),

@@ -13,11 +13,15 @@ src/compression/binary/):
   ``[u64 len][bytes]`` per exception position;
 - ONE_VALUE: ``[u32 len][bytes]``.
 
-The writer emits raw NONE pages (the default) and DICT pages (under
-``STRAWBOAT_DICT_COMPRESSION``) with the JAX writer's bytes: the DICT
-push rule for nulls and the dictionary in order of first appearance.  The
-FREQ and ONE_VALUE encoders come with the adaptive chooser.  The reader
-parses every page the JAX writer emits.
+The writer chooses as the reference does (``choose_compressor``, analytic
+ratios only, binary/mod.rs:293-348): the FREQ or DICT flag, else under
+``default_compress_ratio`` the best of ONE_VALUE, FREQ and DICT, else the
+default codec (both raw blocks through LZ4 / Zstd / Snappy when it is
+one), with the JAX writer's bytes: the DICT push rule for nulls and the
+dictionary in order of first appearance.  The page stats count distinct
+slices over every slot, null ones too, as arrow's ``dictionary_encode``
+of the page does in the reference.  The reader parses every page the JAX
+writer emits.
 """
 
 from __future__ import annotations
@@ -27,13 +31,14 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from ..constants import Compression
-from ..errors import NotYetImplementedError, OutOfSpecError
+from ..constants import Compression, get_bits_needed
+from ..errors import OutOfSpecError
 from ..util import env, roaring
-from . import WriteOptions, decompress_raw, read_header, write_header
-from .integer import compress_integer, factorize_first_occurrence
+from ..util.obs import log_codec_choice
+from . import WriteOptions, compress, decompress_raw, read_header, write_header
+from ._family import MIN_DICT_RATIO, _top_is_null, factorize_first_occurrence
+from .integer import compress_integer
 
-_CHOOSER = "ROADMAP.md 'Modules to port': the port's adaptive writer chooser"
 # slices of at most this many bytes factorize as one u64 key each: the
 # bytes little-endian in the low 7 bytes, the length in the top byte
 _KEY_BYTES = 7
@@ -112,59 +117,189 @@ def factorize_slices(
 # writer (reference binary/mod.rs:26-217, binary/dict.rs)
 
 
-def choose_compressor(options: WriteOptions) -> Compression:
-    """The forcing flags in the reference's order, then the default codec;
-    raises for what the port's writer does not have yet."""
-    if options.default_compress_ratio is not None:
-        raise NotYetImplementedError(f"default_compress_ratio ({_CHOOSER})")
-    forbidden = options.forbidden_compressions
-    if env.check_freq_env() and Compression.FREQ not in forbidden:
-        raise NotYetImplementedError(f"the binary FREQ encoder ({_CHOOSER})")
-    if env.check_dict_env() and Compression.DICT not in forbidden:
-        return Compression.DICT
-    if options.default_compression != Compression.NONE:
-        raise NotYetImplementedError(
-            f"default_compression={options.default_compression.name} "
-            "(ROADMAP.md 'Modules to port': LZ4/Zstd compression on write)"
-        )
-    return Compression.NONE
+@dataclass
+class BinaryStats:
+    """reference binary/mod.rs:254-291, with the page's factorize over
+    every slot (``codes``, ``sets``), which DICT and FREQ reuse."""
+
+    tuple_count: int
+    total_bytes: int
+    unique_count: int
+    total_unique_size: int  # sum over distinct slices of (length + 8)
+    null_count: int
+    max_count: int  # the count of the most frequent slice
+    top_value: bytes
+    top_code: int
+    codes: np.ndarray
+    sets: List[bytes]
 
 
-def dict_encode(col: BinaryColumn, validity: Optional[np.ndarray], options: WriteOptions) -> bytes:
+def gen_stats(col: BinaryColumn, validity: Optional[np.ndarray], large: bool) -> BinaryStats:
+    n = len(col)
+    codes, sets = factorize_slices(col.offsets[:-1], np.diff(col.offsets), col.values, col.keys)
+    counts = np.bincount(codes, minlength=len(sets))
+    top = int(np.argmax(counts)) if len(counts) else -1
+    return BinaryStats(
+        tuple_count=n,
+        total_bytes=int(col.offsets[-1] - col.offsets[0]) + (n + 1) * (8 if large else 4),
+        unique_count=len(sets),
+        total_unique_size=sum(len(s) for s in sets) + 8 * len(sets),
+        null_count=0 if validity is None else int(n - np.count_nonzero(validity)),
+        max_count=int(counts[top]) if len(counts) else 0,
+        top_value=sets[top] if len(counts) else b"",
+        top_code=top,
+        codes=codes,
+        sets=sets,
+    )
+
+
+def _len_prefixed(slices: List[bytes]) -> bytes:
+    """``[u64 len][bytes]`` per slice."""
+    return b"".join(np.uint64(len(s)).tobytes() + s for s in slices)
+
+
+def _len_prefixed_rows(col: BinaryColumn, rows: np.ndarray) -> bytes:
+    """``[u64 len][bytes]`` for each of ``rows``, in one gather."""
+    starts = col.offsets[:-1][rows]
+    lens = np.diff(col.offsets)[rows]
+    rec = 8 + lens
+    out_off = np.cumsum(rec) - rec
+    out = np.zeros(int(rec.sum()), dtype=np.uint8)
+    out[(out_off[:, None] + np.arange(8)).reshape(-1)] = lens.astype("<u8").view(np.uint8)
+    total = int(lens.sum())
+    if total:
+        within = np.arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
+        out[np.repeat(out_off + 8, lens) + within] = col.values[np.repeat(starts, lens) + within]
+    return out.tobytes()
+
+
+def one_value_encode(col: BinaryColumn, validity: Optional[np.ndarray]) -> bytes:
+    """``[u32 len][bytes]`` of the first valid slice (empty on a page of
+    nulls)."""
+    rows = np.arange(len(col)) if validity is None else np.flatnonzero(validity)
+    val = b""
+    if len(rows):
+        i = int(rows[0])
+        val = col.values[col.offsets[i] : col.offsets[i + 1]].tobytes()
+    return np.uint32(len(val)).tobytes() + val
+
+
+def freq_encode(col: BinaryColumn, validity: Optional[np.ndarray], stats: BinaryStats) -> bytes:
+    """``[u64 len][top][u32 size][roaring bitmap]`` then the exceptions as
+    ``[u64 len][bytes]`` (binary/freq.rs:95-99); a page of 90% nulls or
+    more takes the empty slice as its top."""
+    if _top_is_null(stats):
+        top, mask = b"", np.ones(len(col), dtype=bool)
+    else:
+        top, mask = stats.top_value, stats.codes != stats.top_code
+    if validity is not None:
+        mask &= validity
+    positions = np.flatnonzero(mask)
+    bitmap = roaring.serialize(positions.astype(np.uint32))
+    return (np.uint64(len(top)).tobytes() + top + np.uint32(len(bitmap)).tobytes() + bitmap
+            + _len_prefixed_rows(col, positions))
+
+
+def dict_encode(col: BinaryColumn, validity: Optional[np.ndarray], options: WriteOptions,
+                stats: Optional[BinaryStats] = None) -> bytes:
     """``[index subpage][u32 count][u64 len][bytes]...``.  Push rule
     (binary/dict.rs:66-76): a null repeats the previous code, except a
-    null at row 0, which pushes its (empty) slice."""
+    null at row 0, which pushes its (empty) slice.  A no-null page reuses
+    the stats' factorize."""
     n = len(col)
-    pushed = np.ones(n, dtype=bool) if validity is None else validity.copy()
-    if n:
-        pushed[0] = True
-    starts = col.offsets[:-1][pushed]
-    lens = np.diff(col.offsets)[pushed]
-    keys = None if col.keys is None else col.keys[pushed]
-    codes_pushed, sets = factorize_slices(starts, lens, col.values, keys)
-    codes = np.full(n, -1, dtype=np.int64)
-    codes[pushed] = codes_pushed
-    idx = np.where(codes >= 0, np.arange(n), -1)
-    np.maximum.accumulate(idx, out=idx)
-    codes = codes[idx] if n else codes
+    if validity is None and stats is not None:
+        codes, sets = stats.codes, stats.sets
+    else:
+        pushed = np.ones(n, dtype=bool) if validity is None else validity.copy()
+        if n:
+            pushed[0] = True
+        keys = None if col.keys is None else col.keys[pushed]
+        codes_pushed, sets = factorize_slices(col.offsets[:-1][pushed], np.diff(col.offsets)[pushed],
+                                              col.values, keys)
+        codes = np.full(n, -1, dtype=np.int64)
+        codes[pushed] = codes_pushed
+        idx = np.where(codes >= 0, np.arange(n), -1)
+        np.maximum.accumulate(idx, out=idx)
+        codes = codes[idx] if n else codes
     index = compress_integer(codes.astype(np.uint32), None, options.forbid(Compression.DICT))
-    set_lens = np.array([len(s) for s in sets], dtype="<u8")
-    return index + np.uint32(len(sets)).tobytes() + b"".join(
-        ln.tobytes() + s for ln, s in zip(set_lens, sets)
-    )
+    return index + np.uint32(len(sets)).tobytes() + _len_prefixed(sets)
+
+
+def _dict_ratio(stats: BinaryStats) -> float:
+    if stats.unique_count * MIN_DICT_RATIO >= stats.tuple_count:
+        return 0.0
+    after = stats.total_unique_size + stats.tuple_count * (get_bits_needed(stats.unique_count) // 8)
+    after += stats.tuple_count * 2 // 128
+    return stats.total_bytes / after if after else 0.0
+
+
+def _freq_ratio(stats: BinaryStats) -> float:
+    if stats.unique_count <= 1:
+        return 0.0
+    if _top_is_null(stats) or (stats.tuple_count and stats.max_count / stats.tuple_count >= 0.9):
+        return float(stats.tuple_count - 1)
+    return 0.0
+
+
+def _one_value_ratio(stats: BinaryStats) -> float:
+    return float(stats.tuple_count) if stats.unique_count <= 1 else 0.0
+
+
+def choose_compressor(stats: BinaryStats, options: WriteOptions) -> Compression:
+    """The FREQ and DICT flags, then the ratio competition of ONE_VALUE,
+    FREQ and DICT under ``default_compress_ratio``, else the default
+    codec."""
+    forbidden = options.forbidden_compressions
+    if env.check_freq_env() and Compression.FREQ not in forbidden:
+        return Compression.FREQ
+    if env.check_dict_env() and Compression.DICT not in forbidden:
+        return Compression.DICT
+    result = options.default_compression
+    if options.default_compress_ratio is None:
+        return result
+    max_ratio = options.default_compress_ratio
+    for codec, ratio_fn in ((Compression.ONE_VALUE, _one_value_ratio),
+                            (Compression.FREQ, _freq_ratio),
+                            (Compression.DICT, _dict_ratio)):
+        if codec in forbidden:
+            continue
+        r = ratio_fn(stats)
+        if r > max_ratio:
+            max_ratio, result = r, codec
+            if r == float(stats.tuple_count):
+                break
+    return result
 
 
 def compress_binary(
     col: BinaryColumn, validity: Optional[np.ndarray], options: WriteOptions, large: bool
 ) -> bytes:
-    """Header(s) + body of one page; ``large``: int64 offsets."""
-    codec = choose_compressor(options)
-    if codec == Compression.NONE:
-        offs = (col.offsets - col.offsets[0]).astype("<i8" if large else "<i4")
+    """Header(s) + body of one page; ``large``: int64 offsets.  Without a
+    ratio and a flag the default codec wins and no stats are taken."""
+    stats = None
+    if options.default_compress_ratio is None and not (env.check_freq_env() or env.check_dict_env()):
+        codec = options.default_compression
+    else:
+        stats = gen_stats(col, validity, large)
+        codec = choose_compressor(stats, options)
+    log_codec_choice("binary", codec)
+    if codec.raw_mode:
+        # two blocks: the zero-based offsets, then the page's bytes
+        offs = (col.offsets - col.offsets[0]).astype("<i8" if large else "<i4").tobytes()
         vals = col.values[col.offsets[0] : col.offsets[-1]].tobytes()
-        return (write_header(codec, offs.nbytes, offs.nbytes) + offs.tobytes()
-                + write_header(codec, len(vals), len(vals)) + vals)
-    body = dict_encode(col, validity, options)
+        out = b""
+        for raw in (offs, vals):
+            body = compress(codec, raw)
+            out += write_header(codec, len(body), len(raw)) + body
+        return out
+    if codec == Compression.ONE_VALUE:
+        body = one_value_encode(col, validity)
+    elif codec == Compression.DICT:
+        body = dict_encode(col, validity, options, stats)
+    elif codec == Compression.FREQ:
+        body = freq_encode(col, validity, stats)
+    else:
+        raise OutOfSpecError(f"unknown binary codec {codec}")
     return write_header(codec, len(body), int(col.offsets[-1] - col.offsets[0])) + body
 
 

@@ -13,10 +13,11 @@ compare raw bytes, which is integer equality for two's complement.
 - ONE_VALUE: ``W`` bytes;
 - FREQ: ``[W bytes top][u32 size][roaring bitmap][exceptions subpage]``.
 
-The writer emits NONE (the default) and DICT (under
-``STRAWBOAT_DICT_COMPRESSION``) with the JAX writer's bytes; the RLE and
-FREQ encoders and the ratio competition come with the adaptive chooser.
-The reader decodes every page the JAX writer emits.
+The writer chooses as the JAX writer does (``choose_compressor``): the
+FREQ, DICT or RLE flag, else under ``default_compress_ratio`` ONE_VALUE,
+FREQ, DICT (analytic ratios over exact page stats) and RLE (a trial
+encode of the whole page, no sampling), else the default codec, with the
+JAX writer's bytes.  The reader decodes every page the JAX writer emits.
 """
 
 from __future__ import annotations
@@ -25,13 +26,12 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 
-from ..constants import Compression
-from ..errors import NotYetImplementedError, OutOfSpecError
+from ..constants import Compression, get_bits_needed
+from ..errors import OutOfSpecError
 from ..util import env, roaring
-from . import WriteOptions, decompress_raw, read_header, write_header
-from .integer import compress_integer, factorize_first_occurrence, parse_rle
-
-_CHOOSER = "ROADMAP.md 'Modules to port': the port's adaptive writer chooser"
+from . import WriteOptions, compress, decompress_raw, read_header, write_header
+from ._family import MIN_DICT_RATIO, factorize_first_occurrence
+from .integer import compress_integer, parse_rle
 
 
 def _void(values: np.ndarray) -> np.ndarray:
@@ -94,33 +94,125 @@ def dict_encode(values: np.ndarray, validity: Optional[np.ndarray], options: Wri
             + np.uint32(len(sets)).tobytes() + sets.tobytes())
 
 
-def choose_compressor(options: WriteOptions) -> Compression:
-    """The forcing flags in the reference's order (FREQ, DICT, RLE), then
-    the default codec; raises for what the port's writer does not have."""
-    if options.default_compress_ratio is not None:
-        raise NotYetImplementedError(f"default_compress_ratio ({_CHOOSER})")
+def rle_encode(values: np.ndarray, validity: Optional[np.ndarray]) -> bytes:
+    """``[u32 len][W bytes]`` runs over the valid rows; nulls fold into the
+    run before them (leading ones into the first)."""
+    n, width = values.shape
+    if n == 0:
+        return b""
+    valid_idx = np.arange(n) if validity is None else np.flatnonzero(validity)
+    vv = values[valid_idx]
+    if len(vv) == 0:
+        return np.uint32(n).tobytes() + bytes(width)
+    keys = _void(vv)
+    starts_v = np.flatnonzero(np.concatenate(([True], keys[1:] != keys[:-1])))
+    starts_full = valid_idx[starts_v]
+    starts_full[0] = 0
+    counts = np.append(starts_full[1:], n) - starts_full
+    rec = np.zeros((len(counts), 4 + width), dtype=np.uint8)
+    rec[:, :4] = counts.astype("<u4").view(np.uint8).reshape(-1, 4)
+    rec[:, 4:] = vv[starts_v]
+    return rec.tobytes()
+
+
+def one_value_encode(values: np.ndarray, validity: Optional[np.ndarray]) -> bytes:
+    """The first valid row's W bytes (zeros on a page of nulls)."""
+    rows = np.arange(len(values)) if validity is None else np.flatnonzero(validity)
+    return values[rows[0]].tobytes() if len(rows) else bytes(values.shape[1])
+
+
+def _top(values: np.ndarray):
+    """(the most frequent row as a void scalar: the first in byte order
+    among the most frequent, as ``np.unique`` orders them; its count; the
+    distinct count), over every row, null ones too."""
+    uniq, counts = np.unique(_void(values), return_counts=True)
+    if not len(counts):
+        return None, 0, 0
+    ti = int(np.argmax(counts))
+    return uniq[ti], int(counts[ti]), len(uniq)
+
+
+def freq_encode(values: np.ndarray, validity: Optional[np.ndarray], options: WriteOptions) -> bytes:
+    """``[W bytes top][u32 size][roaring bitmap][exceptions page]``; a page
+    of 90% nulls or more takes zero as its top."""
+    n, width = values.shape
+    null_count = 0 if validity is None else int(n - np.count_nonzero(validity))
+    if n and null_count / n >= 0.9:
+        top, mask = bytes(width), np.ones(n, dtype=bool)
+    else:
+        top_v = _top(values)[0]
+        top, mask = top_v.tobytes(), _void(values) != top_v
+    if validity is not None:
+        mask &= validity
+    bitmap = roaring.serialize(np.flatnonzero(mask).astype(np.uint32))
+    return (top + np.uint32(len(bitmap)).tobytes() + bitmap
+            + compress_decimal(values[mask], None, options.forbid(Compression.FREQ)))
+
+
+def _max_as_i64(values: np.ndarray) -> int:
+    """The largest value's low 64 bits as Rust's ``as i64`` gives them."""
+    if len(values) == 0:
+        return 0
+    key = values.copy()
+    key[:, -1] ^= 0x80  # two's complement order: the sign-flipped top byte first
+    top = values[int(np.lexsort(key.T)[-1])]
+    lo = int.from_bytes(top[:8].tobytes(), "little")
+    return ((lo + (1 << 63)) % (1 << 64)) - (1 << 63)
+
+
+def choose_compressor(values: np.ndarray, validity: Optional[np.ndarray],
+                      options: WriteOptions) -> Compression:
+    """The FREQ, DICT and RLE flags, then the ratio competition under
+    ``default_compress_ratio``, else the default codec (JAX
+    codecs/decimal.py:200-242)."""
     forbidden = options.forbidden_compressions
-    if env.check_freq_env() and Compression.FREQ not in forbidden:
-        raise NotYetImplementedError(f"the decimal FREQ encoder ({_CHOOSER})")
-    if env.check_dict_env() and Compression.DICT not in forbidden:
-        return Compression.DICT
-    if env.check_rle_env() and Compression.RLE not in forbidden:
-        raise NotYetImplementedError(f"the decimal RLE encoder ({_CHOOSER})")
-    if options.default_compression != Compression.NONE:
-        raise NotYetImplementedError(
-            f"default_compression={options.default_compression.name} "
-            "(ROADMAP.md 'Modules to port': LZ4/Zstd compression on write)"
-        )
-    return Compression.NONE
+    for flag, codec in ((env.check_freq_env, Compression.FREQ),
+                        (env.check_dict_env, Compression.DICT),
+                        (env.check_rle_env, Compression.RLE)):
+        if flag() and codec not in forbidden:
+            return codec
+    result = options.default_compression
+    if options.default_compress_ratio is None:
+        return result
+    n, width = values.shape
+    _t, max_count, unique = _top(values)
+    null_count = 0 if validity is None else int(n - np.count_nonzero(validity))
+    max_ratio = options.default_compress_ratio
+    if Compression.ONE_VALUE not in forbidden and unique <= 1 and n and float(n) > max_ratio:
+        return Compression.ONE_VALUE
+    # FREQ, with the integer family's gate max.as_i64() >= 256
+    if Compression.FREQ not in forbidden and unique > 1 and n and (
+            null_count / n >= 0.9 or (max_count / n >= 0.9 and _max_as_i64(values) >= (1 << 8))):
+        if float(n - 1) > max_ratio:
+            max_ratio, result = float(n - 1), Compression.FREQ
+    if Compression.DICT not in forbidden and unique * MIN_DICT_RATIO < n:
+        after = unique * width + n * (get_bits_needed(unique) // 8) + n * 2 // 128
+        r = n * width / after if after else 0.0
+        if r > max_ratio:
+            max_ratio, result = r, Compression.DICT
+    if Compression.RLE not in forbidden and n:
+        size = len(rle_encode(values, validity))
+        r = n * width / size if size else float(n)
+        if r > max_ratio:
+            result = Compression.RLE
+    return result
 
 
 def compress_decimal(values: np.ndarray, validity: Optional[np.ndarray], options: WriteOptions) -> bytes:
     """Header + body of one page of an ``(n, W)`` byte matrix."""
-    codec = choose_compressor(options)
-    if codec == Compression.NONE:
-        body = np.ascontiguousarray(values).tobytes()
-    else:
+    codec = choose_compressor(values, validity, options)
+    if codec.raw_mode:
+        body = compress(codec, np.ascontiguousarray(values).tobytes())
+    elif codec == Compression.RLE:
+        body = rle_encode(values, validity)
+    elif codec == Compression.DICT:
         body = dict_encode(values, validity, options)
+    elif codec == Compression.ONE_VALUE:
+        body = one_value_encode(values, validity)
+    elif codec == Compression.FREQ:
+        body = freq_encode(values, validity, options)
+    else:
+        raise OutOfSpecError(f"unknown decimal codec {codec}")
     return write_header(codec, len(body), values.shape[0] * values.shape[1]) + body
 
 

@@ -9,12 +9,13 @@ ONE_VALUE and FREQ; the reader parses those bodies with
 PATAS is the float codec of its own: each value XORed against a value
 among the last 128, stored as the significant bytes of the XOR.
 
-The writer emits NONE (the default) and, under the forcing flags, DICT
-(codes interned by bit pattern, so -0.0 and 0.0 and every NaN payload are
-distinct entries; the index subpage through ``compress_integer``, so the
-BITPACKING flag packs it) and PATAS, with the JAX writer's bytes.  The RLE
-and FREQ encoders and the ratio competition come with the adaptive
-chooser.
+The writer chooses as the reference does (``choose_compressor``): a
+forcing flag (FREQ, DICT, RLE, PATAS) wins, else, under
+``default_compress_ratio``, the best of ONE_VALUE, FREQ, DICT (analytic
+ratios), PATAS and RLE (trial encodes of the page's sample), else
+``default_compression``, with the JAX writer's bytes.  DICT interns by bit
+pattern, so -0.0 and 0.0 and every NaN payload are distinct entries; its
+index subpage is an integer page (``compress_integer``).
 
 f32 PATAS: the reference's unpack turns ``significant_bytes == 0`` into 8
 whenever ``trailing_zeros < 63``, which breaks its equal-value marker for
@@ -32,12 +33,16 @@ import numpy as np
 
 from .. import native
 from ..constants import Compression
-from ..errors import NotYetImplementedError, OutOfSpecError
+from ..errors import OutOfSpecError
 from ..util import env
+from ..util.obs import log_codec_choice
 from . import WriteOptions, write_header
-from .integer import compress_integer, dict_indices
+from ._family import (
+    FamilyStats, compress_sample_ratio, dict_encode, dict_ratio, freq_encode, freq_ratio,
+    gen_stats, one_value_encode, rle_encode,
+)
+from .integer import _compete, compress_integer, frame_raw
 
-_CHOOSER = "ROADMAP.md 'Modules to port': the port's adaptive writer chooser"
 _RING = 128  # a value refers back at most this far
 _NATIVE_MIN = 256  # shorter pages take the Python loops, as in the reference
 
@@ -123,56 +128,80 @@ def _patas_decode_py(buf, pos: int, length: int, dtype: np.dtype) -> np.ndarray:
 # writer (reference double/mod.rs:32-307)
 
 
-def bit_view(values: np.ndarray) -> np.ndarray:
-    """The unsigned integers of the same width holding a float's bits."""
-    return values.view(f"<u{values.dtype.itemsize}")
+def _codec_compress(codec: Compression, values: np.ndarray, validity: Optional[np.ndarray],
+                    stats: FamilyStats, options: WriteOptions) -> bytes:
+    """The body of a structured codec; DICT's index subpage is an integer
+    page."""
+    if codec == Compression.RLE:
+        return rle_encode(values, validity)
+    if codec == Compression.DICT:
+        return dict_encode(values, validity, options, compress_integer, stats)
+    if codec == Compression.ONE_VALUE:
+        return one_value_encode(values, validity)
+    if codec == Compression.FREQ:
+        return freq_encode(values, validity, stats, options, compress_double)
+    if codec == Compression.PATAS:
+        return patas_encode(values)
+    raise OutOfSpecError(f"unknown double codec {codec}")
 
 
-def dict_encode(values: np.ndarray, validity: Optional[np.ndarray], options: WriteOptions) -> bytes:
-    """``[index subpage][u32 count][values LE]``, interned by bit pattern,
-    with the integer family's null rule: a leading null interns 0.0, every
-    other null repeats the previous code."""
-    indices, sets = dict_indices(bit_view(values), validity)
-    return (
-        compress_integer(indices, None, options.forbid(Compression.DICT))
-        + np.uint32(len(sets)).tobytes()
-        + sets.astype(sets.dtype.newbyteorder("<")).tobytes()
-    )
+def _ratio(codec: Compression, stats: FamilyStats, rng: np.random.Generator) -> float:
+    if codec == Compression.ONE_VALUE:
+        return float(stats.tuple_count) if stats.unique_count <= 1 else 0.0
+    if codec == Compression.FREQ:
+        return freq_ratio(stats, require_big_max=False)
+    if codec == Compression.DICT:
+        return dict_ratio(stats)
+    if codec == Compression.PATAS:
+        return compress_sample_ratio(lambda v, m: patas_encode(v), stats, rng)
+    if codec == Compression.RLE:
+        return compress_sample_ratio(rle_encode, stats, rng)
+    return 0.0
 
 
-def choose_compressor(options: WriteOptions) -> Compression:
+_CHOICE_ORDER = (
+    Compression.ONE_VALUE,
+    Compression.FREQ,
+    Compression.DICT,
+    Compression.PATAS,
+    Compression.RLE,
+)
+
+
+def _any_flag() -> bool:
+    return (env.check_freq_env() or env.check_dict_env() or env.check_rle_env()
+            or env.check_patas_env())
+
+
+def choose_compressor(stats: FamilyStats, options: WriteOptions) -> Compression:
     """The forcing flags in the reference's order (FREQ, DICT, RLE, PATAS),
-    then the default codec; raises for what the port's writer does not have
-    yet."""
-    if options.default_compress_ratio is not None:
-        raise NotYetImplementedError(f"default_compress_ratio ({_CHOOSER})")
+    then the ratio competition under ``default_compress_ratio``, else the
+    default codec (reference double/mod.rs:32-307)."""
     forbidden = options.forbidden_compressions
-    if env.check_freq_env() and Compression.FREQ not in forbidden:
-        raise NotYetImplementedError(f"the float FREQ encoder ({_CHOOSER})")
-    if env.check_dict_env() and Compression.DICT not in forbidden:
-        return Compression.DICT
-    if env.check_rle_env() and Compression.RLE not in forbidden:
-        raise NotYetImplementedError(f"the float RLE encoder ({_CHOOSER})")
-    if env.check_patas_env() and Compression.PATAS not in forbidden:
-        return Compression.PATAS
-    if options.default_compression != Compression.NONE:
-        raise NotYetImplementedError(
-            f"default_compression={options.default_compression.name} "
-            "(ROADMAP.md 'Modules to port': LZ4/Zstd compression on write)"
-        )
-    return Compression.NONE
+    for flag, codec in ((env.check_freq_env, Compression.FREQ),
+                        (env.check_dict_env, Compression.DICT),
+                        (env.check_rle_env, Compression.RLE),
+                        (env.check_patas_env, Compression.PATAS)):
+        if flag() and codec not in forbidden:
+            return codec
+    if options.default_compress_ratio is None:
+        return options.default_compression
+    return _compete(_CHOICE_ORDER, _ratio, stats, options)
 
 
 def compress_double(
     values: np.ndarray, validity: Optional[np.ndarray], options: WriteOptions
 ) -> bytes:
-    """Header + body of one float page."""
-    codec = choose_compressor(options)
-    if codec == Compression.NONE:
-        body = values.astype(values.dtype.newbyteorder("<"), copy=False).tobytes()
-    elif codec == Compression.DICT:
-        body = dict_encode(values, validity, options)
+    """Header + body of one float page.  Without a ratio and a flag the
+    default codec wins and no stats are taken."""
+    if options.default_compress_ratio is None and not _any_flag():
+        stats, codec = None, options.default_compression
     else:
-        body = patas_encode(values)
+        stats = gen_stats(values, validity)
+        codec = choose_compressor(stats, options)
+    log_codec_choice("double", codec)
+    if codec.raw_mode:
+        return frame_raw(codec, values)
+    body = _codec_compress(codec, values, validity, stats, options)
     return write_header(codec, len(body), len(values) * values.dtype.itemsize) + body
 

@@ -1,14 +1,17 @@
-"""Integer pages: the writer's codecs and the reader's host parse.
+"""Integer pages: the writer's codecs and chooser, the reader's host parse.
 
-Counterpart of ``strawboat_tpu/codecs/integer.py`` and of the integer half
-of ``strawboat_tpu/codecs/_family.py``.  The writer emits the codecs a run
-reaches without the ratio competition: NONE (the default), BITPACKING and
-DICT under the ``STRAWBOAT_*_COMPRESSION`` forcing flags, chosen in the
-reference's order (``choose_compressor``), with the same bytes.
-DELTA_BITPACKING is only reached by the ratio competition, so its encoder
-comes with the chooser (ROADMAP.md).  The reader side parses the bodies of
-structured pages (RLE, DICT, FREQ, ONE_VALUE) on the host; the values are
-decoded on the device (``exec/scan.py``).
+Counterpart of ``strawboat_tpu/codecs/integer.py``.  The writer chooses a
+page's codec as the reference does (``choose_compressor``): a forcing flag
+(``STRAWBOAT_*_COMPRESSION``: FREQ, DICT, RLE, BITPACK) wins, else, under
+``default_compress_ratio``, the codec whose ratio beats it and every
+earlier codec's, in the order ONE_VALUE, FREQ, DICT (analytic ratios),
+RLE, BITPACKING, DELTA_BITPACKING (trial encodes of a sampled page, ΔBP
+counted ×1.5), else ``default_compression`` (NONE, or LZ4 / Zstd / Snappy
+over the page's bytes), with the JAX writer's bytes.  The RLE, DICT,
+ONE_VALUE and FREQ encoders are shared with the float family
+(``_family.py``).  The reader side parses the bodies of structured pages
+(RLE, DICT, FREQ, ONE_VALUE) on the host; the values are decoded on the
+device (``exec/scan.py``).
 """
 
 from __future__ import annotations
@@ -19,25 +22,29 @@ import numpy as np
 
 from .. import native
 from ..constants import Compression
-from ..errors import NotYetImplementedError, OutOfSpecError
+from ..errors import OutOfSpecError
 from ..util import env, roaring
 from ..util.bits import BLOCK_LEN, pack_blocks
-from . import WriteOptions, write_header
-
-_CHOOSER = "ROADMAP.md 'Modules to port': the port's adaptive writer chooser"
+from ..util.obs import log_codec_choice
+from . import WriteOptions, compress, write_header
+from ._family import (
+    FamilyStats, compress_sample_ratio, dict_encode, dict_ratio, freq_encode, freq_ratio,
+    gen_stats, one_value_encode, rle_encode,
+)
 
 
 # ---------------------------------------------------------------------------
-# writer: Bitpacking (reference bp.rs)
+# writer: Bitpacking and DeltaBitpacking (reference bp.rs, delta_bp.rs)
 
 
-def _encode_blocks(blocks: np.ndarray) -> bytes:
-    """Per block ``[u8 num_bits][BitPacker4x words]``; a block's width is the
-    bit length of the OR of its values."""
-    if blocks.shape[0] >= 8 and native.available():
-        return native.bp_encode(blocks, blocks)
-    n_blocks = blocks.shape[0]
-    acc = np.bitwise_or.reduce(blocks, axis=1)
+def _encode_blocks(payload: np.ndarray, widths: np.ndarray) -> bytes:
+    """Per 128-value block ``[u8 num_bits][BitPacker4x words of the
+    payload]``; a block's width is the bit length of the OR of its
+    ``widths`` row."""
+    if payload.shape[0] >= 8 and native.available():
+        return native.bp_encode(payload, widths)
+    n_blocks = payload.shape[0]
+    acc = np.bitwise_or.reduce(widths, axis=1)
     nbs = np.zeros(n_blocks, dtype=np.int64)
     nz = acc != 0
     # float64 log2 of a u32 is exact enough for its floor
@@ -51,120 +58,161 @@ def _encode_blocks(blocks: np.ndarray) -> bytes:
         if nb == 0:
             continue
         sel = np.flatnonzero(nbs == nb)
-        packed = pack_blocks(blocks[sel], nb).view(np.uint8)
+        packed = pack_blocks(payload[sel], nb).view(np.uint8)
         out[offsets[sel][:, None] + 1 + np.arange(nb * 16)] = packed.reshape(len(sel), nb * 16)
     return out.tobytes()
 
 
-def bitpack_encode(values: np.ndarray) -> bytes:
+def _u32_blocks(values: np.ndarray) -> np.ndarray:
     if values.dtype.itemsize != 4:
         raise OutOfSpecError(f"bitpacking requires 4-byte values, got {values.dtype}")
     if len(values) % BLOCK_LEN:
         raise OutOfSpecError("bitpacking requires len % 128 == 0")
-    return _encode_blocks(np.ascontiguousarray(values).view(np.uint32).reshape(-1, BLOCK_LEN))
+    return np.ascontiguousarray(values).view(np.uint32)
+
+
+def bitpack_encode(values: np.ndarray) -> bytes:
+    blocks = _u32_blocks(values).reshape(-1, BLOCK_LEN)
+    return _encode_blocks(blocks, blocks)
+
+
+def delta_bitpack_encode(values: np.ndarray) -> bytes:
+    """The sequential deltas (mod 2^32, from 0), bit-packed at widths taken
+    from the RAW values (delta_bp.rs:52)."""
+    v = _u32_blocks(values)
+    deltas = np.diff(v, prepend=np.uint32(0)).astype(np.uint32)
+    return _encode_blocks(deltas.reshape(-1, BLOCK_LEN), v.reshape(-1, BLOCK_LEN))
+
+
+def _bp_eligible(stats: FamilyStats) -> bool:
+    """u32-wide full blocks, and no negative value (bp.rs:93)."""
+    if stats.values.dtype.itemsize != 4 or stats.tuple_count % BLOCK_LEN != 0:
+        return False
+    return not (stats.values.dtype.kind == "i" and int(stats.min) < 0)
 
 
 # ---------------------------------------------------------------------------
-# writer: Dict (reference integer/dict.rs, _family.py:467)
+# writer: codec choice and page framing (reference integer/mod.rs:35-70, :231-308)
 
 
-def factorize_first_occurrence(values: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """(int64 codes, distinct values) in first-occurrence order — the
-    reference's DictEncoder interning."""
-    if values.dtype.itemsize in (4, 8) and len(values) >= 4096 and native.available():
-        kind = np.uint32 if values.dtype.itemsize == 4 else np.uint64
-        codes, uniq = native.factorize(np.ascontiguousarray(values).view(kind))
-        return codes.astype(np.int64), uniq.view(values.dtype)
-    uniq, first_idx, inv = np.unique(values, return_index=True, return_inverse=True)
-    order = np.argsort(first_idx, kind="stable")
-    rank = np.empty(len(uniq), dtype=np.int64)
-    rank[order] = np.arange(len(uniq))
-    return rank[inv.reshape(-1)], values[first_idx[order]]
+def _codec_compress(codec: Compression, values: np.ndarray, validity: Optional[np.ndarray],
+                    stats: FamilyStats, options: WriteOptions) -> bytes:
+    """The body of a structured codec."""
+    if codec == Compression.RLE:
+        return rle_encode(values, validity)
+    if codec == Compression.DICT:
+        return dict_encode(values, validity, options, compress_integer, stats)
+    if codec == Compression.ONE_VALUE:
+        return one_value_encode(values, validity)
+    if codec == Compression.FREQ:
+        return freq_encode(values, validity, stats, options, compress_integer)
+    if codec == Compression.BITPACKING:
+        return bitpack_encode(values)
+    if codec == Compression.DELTA_BITPACKING:
+        return delta_bitpack_encode(values)
+    raise OutOfSpecError(f"unknown integer codec {codec}")
 
 
-def dict_indices(
-    values: np.ndarray, validity: Optional[np.ndarray]
-) -> Tuple[np.ndarray, np.ndarray]:
-    """u32 codes and the dictionary, with the reference's null rule: a
-    leading null interns 0, every other null repeats the previous code."""
-    n = len(values)
-    if n == 0:
-        return np.empty(0, dtype=np.uint32), values[:0]
-    if validity is None:
-        codes, sets = factorize_first_occurrence(values)
-        return codes.astype(np.uint32), sets
-    pushed = validity.copy()
-    eff = values
-    if not pushed[0]:
-        eff = values.copy()
-        eff[0] = 0
-        pushed[0] = True
-    codes_pushed, sets = factorize_first_occurrence(eff[pushed])
-    codes = np.full(n, -1, dtype=np.int64)
-    codes[pushed] = codes_pushed
-    idx = np.where(codes >= 0, np.arange(n), -1)
-    np.maximum.accumulate(idx, out=idx)
-    return codes[idx].astype(np.uint32), sets
+def _ratio(codec: Compression, stats: FamilyStats, rng: np.random.Generator) -> float:
+    if codec == Compression.ONE_VALUE:
+        return float(stats.tuple_count) if stats.unique_count <= 1 else 0.0
+    if codec == Compression.FREQ:
+        return freq_ratio(stats, require_big_max=True)
+    if codec == Compression.DICT:
+        return dict_ratio(stats)
+    if codec == Compression.RLE:
+        return compress_sample_ratio(rle_encode, stats, rng)
+    if codec == Compression.BITPACKING:
+        if not _bp_eligible(stats):
+            return 0.0
+        return compress_sample_ratio(lambda v, m: bitpack_encode(v), stats, rng)
+    if codec == Compression.DELTA_BITPACKING:
+        if not _bp_eligible(stats) or not stats.is_sorted or stats.null_count > 0:
+            return 0.0
+        # the trial packs the values themselves, as the reference does
+        return compress_sample_ratio(lambda v, m: bitpack_encode(v), stats, rng) * 1.5
+    return 0.0
 
 
-def dict_encode(values: np.ndarray, validity: Optional[np.ndarray], options: WriteOptions) -> bytes:
-    """``[index subpage][u32 count][dictionary values LE]``; the index
-    subpage is an integer page of its own with DICT forbidden."""
-    indices, sets = dict_indices(values, validity)
-    return (
-        compress_integer(indices, None, options.forbid(Compression.DICT))
-        + np.uint32(len(sets)).tobytes()
-        + sets.astype(sets.dtype.newbyteorder("<")).tobytes()
-    )
+_CHOICE_ORDER = (
+    Compression.ONE_VALUE,
+    Compression.FREQ,
+    Compression.DICT,
+    Compression.RLE,
+    Compression.BITPACKING,
+    Compression.DELTA_BITPACKING,
+)
 
 
-# ---------------------------------------------------------------------------
-# writer: codec choice and page framing (reference integer/mod.rs:35-70, :250)
+def _compete(order, ratio, stats, options: WriteOptions) -> Compression:
+    """The ratio competition: the first codec of ``order`` (not forbidden)
+    whose ``ratio(codec, stats, rng)`` beats the option's ratio and every
+    earlier one's; a ratio equal to the row count ends it.  The page's RNG
+    is made anew from ``sample_seed``."""
+    result = options.default_compression
+    rng = np.random.default_rng(options.sample_seed)
+    max_ratio = options.default_compress_ratio
+    for codec in order:
+        if codec in options.forbidden_compressions:
+            continue
+        r = ratio(codec, stats, rng)
+        if r > max_ratio:
+            max_ratio = r
+            result = codec
+            if r == float(stats.tuple_count):
+                break
+    return result
 
 
-def choose_compressor(values: np.ndarray, options: WriteOptions) -> Compression:
-    """The forcing flags in the reference's order, then the default codec.
-
-    Raises for what the port's writer does not have yet: the ratio
-    competition, a default codec other than NONE, and the FREQ and RLE
-    encoders that their flags force."""
-    if options.default_compress_ratio is not None:
-        raise NotYetImplementedError(f"default_compress_ratio ({_CHOOSER})")
-    if options.default_compression != Compression.NONE:
-        raise NotYetImplementedError(
-            f"default_compression={options.default_compression.name} "
-            "(ROADMAP.md 'Modules to port': LZ4/Zstd compression on write)"
-        )
+def choose_compressor(stats: FamilyStats, options: WriteOptions) -> Compression:
+    """The forcing flags in the reference's order, then the ratio
+    competition under ``default_compress_ratio``, else the default codec."""
     forbidden = options.forbidden_compressions
     if env.check_freq_env() and Compression.FREQ not in forbidden:
-        raise NotYetImplementedError(f"the FREQ encoder ({_CHOOSER})")
+        return Compression.FREQ
     if env.check_dict_env() and Compression.DICT not in forbidden:
         return Compression.DICT
     if env.check_rle_env() and Compression.RLE not in forbidden:
-        raise NotYetImplementedError(f"the RLE encoder ({_CHOOSER})")
+        return Compression.RLE
     if (
         env.check_bitpack_env()
         and Compression.BITPACKING not in forbidden
-        and values.dtype.itemsize == 4
-        and len(values) % BLOCK_LEN == 0
+        and stats.values.dtype.itemsize == 4
+        and stats.tuple_count % BLOCK_LEN == 0
     ):
         # the reference keeps this shape gate under forcing: BitPacker4x
         # blocks exist only for full 128-value u32 blocks
         return Compression.BITPACKING
-    return options.default_compression
+    if options.default_compress_ratio is None:
+        return options.default_compression
+    return _compete(_CHOICE_ORDER, _ratio, stats, options)
+
+
+def _any_flag() -> bool:
+    return (env.check_freq_env() or env.check_dict_env() or env.check_rle_env()
+            or env.check_bitpack_env())
+
+
+def frame_raw(codec: Compression, values: np.ndarray) -> bytes:
+    """Header + body of a raw-mode page of fixed-width values."""
+    body = compress(codec, values.astype(values.dtype.newbyteorder("<"), copy=False).tobytes())
+    return write_header(codec, len(body), len(values) * values.dtype.itemsize) + body
 
 
 def compress_integer(
     values: np.ndarray, validity: Optional[np.ndarray], options: WriteOptions
 ) -> bytes:
-    """Header + body of one integer page."""
-    codec = choose_compressor(values, options)
-    if codec == Compression.NONE:
-        body = values.astype(values.dtype.newbyteorder("<"), copy=False).tobytes()
-    elif codec == Compression.BITPACKING:
-        body = bitpack_encode(values)
+    """Header + body of one integer page.  Without a ratio and a flag the
+    default codec wins and no stats are taken."""
+    if options.default_compress_ratio is None and not _any_flag():
+        stats, codec = None, options.default_compression
     else:
-        body = dict_encode(values, validity, options)
+        stats = gen_stats(values, validity)
+        codec = choose_compressor(stats, options)
+    log_codec_choice("integer", codec)
+    if codec.raw_mode:
+        return frame_raw(codec, values)
+    body = _codec_compress(codec, values, validity, stats, options)
     return write_header(codec, len(body), len(values) * values.dtype.itemsize) + body
 
 

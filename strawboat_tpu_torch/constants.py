@@ -3,6 +3,7 @@
 Counterpart of ``strawboat_tpu/constants.py``, with what the port uses:
 - magic / continuation marker: reference src/lib.rs:34-35
 - codec ids:                   reference src/compression/mod.rs:64-82
+- sampling constants:          reference src/compression/mod.rs:29-33
 """
 
 from __future__ import annotations
@@ -17,6 +18,16 @@ ARROW_MAGIC = b"ARROW2"
 # EOS / continuation marker: 4 bytes of 0xFF then i32 length (reference
 # src/lib.rs:35, src/write/common.rs:124-128).
 CONTINUATION_MARKER = b"\xff\xff\xff\xff"
+
+# A codec's trial ratio is taken over SAMPLE_COUNT runs of SAMPLE_SIZE
+# consecutive values of the page.
+SAMPLE_COUNT = 10
+SAMPLE_SIZE = 64
+
+
+def get_bits_needed(value: int) -> int:
+    """Bits needed to hold ``value`` (reference mod.rs:115-118)."""
+    return max(int(value).bit_length(), 0)
 
 
 class Compression(enum.IntEnum):

@@ -2,9 +2,10 @@
 
 Counterpart of ``strawboat_tpu/native/__init__.py``, with the functions
 the port calls: :func:`available`, :func:`decompress_batch`,
-:func:`decompress_batch_into`, :func:`bp_walk`, :func:`bp_encode`,
-:func:`factorize`, :func:`patas_decode_native` and
-:func:`patas_encode_native` (``strawboat_native.cpp`` beside this file).
+:func:`decompress_batch_into`, :func:`compress_batch`, :func:`int_stats`,
+:func:`bp_walk`, :func:`bp_encode`, :func:`factorize`,
+:func:`patas_decode_native` and :func:`patas_encode_native`
+(``strawboat_native.cpp`` beside this file).
 
 The library builds with ``g++`` at first use into ``build/`` beside this
 file (git-ignored), never at import.  It links liblz4 and libzstd, and
@@ -12,8 +13,8 @@ libsnappy only where the host has ``libsnappy.so.1``; the two builds have
 different file names, so a build directory copied to another host is not
 taken for the other build.  :func:`available` is False when the build or
 the load failed (:func:`load_error` says why); every other function then
-raises, and so does :func:`decompress_batch` for a Snappy page where the
-library was built without Snappy.
+raises, and so do :func:`decompress_batch` and :func:`compress_batch` for
+Snappy where the library was built without it.
 """
 
 from __future__ import annotations
@@ -96,6 +97,18 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.sb_patas_decode.argtypes = [p, i64, i64, ctypes.c_int, p]
     lib.sb_patas_encode.restype = i64
     lib.sb_patas_encode.argtypes = [p, i64, ctypes.c_int, p]
+    lib.sb_compress_bound.restype = i64
+    lib.sb_compress_bound.argtypes = [ctypes.c_int, i64]
+    lib.sb_compress_batch.restype = ctypes.c_int
+    lib.sb_compress_batch.argtypes = [
+        ctypes.c_int, i64, ctypes.POINTER(p), ctypes.POINTER(i64),
+        ctypes.POINTER(p), ctypes.POINTER(i64), ctypes.POINTER(i64), ctypes.c_int,
+    ]
+    for kind in ("i", "u"):
+        for bits in (8, 16, 32, 64):
+            fn = getattr(lib, f"sb_int_stats_{kind}{bits}")
+            fn.restype = ctypes.c_int
+            fn.argtypes = [p, p, i64, p]
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -138,18 +151,26 @@ def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-def _run_batch(codec: int, inputs, out_ptrs, out_lens) -> None:
-    """Decompress page ``i`` of ``inputs`` into ``out_lens[i]`` bytes at
-    address ``out_ptrs[i]``, on native threads."""
+def _require_codec(codec: int) -> ctypes.CDLL:
     lib = _require()
     if codec == Compression.SNAPPY and not lib.sb_has_snappy():
         raise StrawboatError(
             f"SNAPPY pages need {_SNAPPY}, which this host lacks: the native "
             "library was built without Snappy"
         )
+    return lib
+
+
+def _u8(buf) -> np.ndarray:
+    return buf if isinstance(buf, np.ndarray) else np.frombuffer(buf, dtype=np.uint8)
+
+
+def _run_batch(codec: int, inputs, out_ptrs, out_lens) -> None:
+    """Decompress page ``i`` of ``inputs`` into ``out_lens[i]`` bytes at
+    address ``out_ptrs[i]``, on native threads."""
+    lib = _require_codec(codec)
     n = len(inputs)
-    in_bufs = [b if isinstance(b, np.ndarray) else np.frombuffer(b, dtype=np.uint8)
-               for b in inputs]
+    in_bufs = [_u8(b) for b in inputs]
     in_ptrs = (ctypes.c_void_p * n)(*[b.ctypes.data for b in in_bufs])
     in_lens = (ctypes.c_int64 * n)(*[b.size for b in in_bufs])
     outs = (ctypes.c_void_p * n)(*out_ptrs)
@@ -184,6 +205,45 @@ def decompress_batch_into(codec: int, inputs, out_buf: np.ndarray, out_offsets, 
         raise ValueError("a page's slice lies outside out_buf")
     base = out_buf.ctypes.data
     _run_batch(codec, inputs, [base + int(o) for o in offs], lens)
+
+
+def compress_batch(codec: int, inputs) -> List[bytes]:
+    """Compress each of ``inputs`` (bytes-like or uint8 arrays) with one
+    byte codec (LZ4 block format, Zstd frames at level 0, raw Snappy), on
+    native threads: the bytes of the reference's ``common.compress``."""
+    lib = _require_codec(codec)
+    n = len(inputs)
+    if n == 0:
+        return []
+    in_bufs = [np.ascontiguousarray(_u8(b)) for b in inputs]
+    caps = [int(lib.sb_compress_bound(int(codec), b.size)) for b in in_bufs]
+    if min(caps) < 0:
+        raise StrawboatError(f"codec {codec} is not a byte codec of this build")
+    outs = [np.empty(max(c, 1), dtype=np.uint8) for c in caps]
+    lens = (ctypes.c_int64 * n)()
+    rc = lib.sb_compress_batch(
+        int(codec), n, (ctypes.c_void_p * n)(*[b.ctypes.data for b in in_bufs]),
+        (ctypes.c_int64 * n)(*[b.size for b in in_bufs]),
+        (ctypes.c_void_p * n)(*[o.ctypes.data for o in outs]),
+        (ctypes.c_int64 * n)(*[o.size for o in outs]), lens, 0)
+    if rc != 0:
+        raise OutOfSpecError(f"native compression failed (rc={rc})")
+    return [o[: lens[i]].tobytes() for i, o in enumerate(outs)]
+
+
+def int_stats(values: np.ndarray, validity: Optional[np.ndarray]) -> np.ndarray:
+    """One-pass stats of an integer page (any width 1..8, signed or not):
+    int64 ``[min, max, null_count, run_count, is_sorted, unique_count,
+    top_value, max_count]``, min / max / top as the int64 holding the
+    value's bits (zero-extended for unsigned types)."""
+    lib = _require()
+    dtype = values.dtype
+    fn = getattr(lib, f"sb_int_stats_{dtype.kind}{dtype.itemsize * 8}")
+    v = np.ascontiguousarray(values)
+    mask = None if validity is None else np.ascontiguousarray(validity, dtype=np.uint8)
+    out = np.zeros(8, dtype=np.int64)
+    fn(_ptr(v), None if mask is None else _ptr(mask), len(v), _ptr(out))
+    return out
 
 
 def bp_walk(buf: np.ndarray, body: int, n_blocks: int) -> Tuple[np.ndarray, int]:

@@ -2,9 +2,10 @@
 // writer and the scan planner that numpy does not vectorize.
 //
 // Cut from strawboat_tpu/native/strawboat_native.cpp, keeping what the port
-// calls: batched page decompression (LZ4 block / Zstd / Snappy) over a
-// std::thread pool, the bit-packed block-header walk, the BitPacker4x page
-// encoder, the first-occurrence factorize and the PATAS float codec.
+// calls: batched page decompression and compression (LZ4 block / Zstd at
+// level 0 / Snappy) over a std::thread pool, the bit-packed block-header
+// walk, the BitPacker4x page encoder, the first-occurrence factorize, the
+// one-pass integer page stats and the PATAS float codec.
 // Snappy is compiled in only with -DSB_SNAPPY (where libsnappy exists);
 // sb_has_snappy() says which.
 //
@@ -21,11 +22,18 @@
 extern "C" {
 // liblz4 / libzstd / libsnappy (C ABI)
 int LZ4_decompress_safe(const char* src, char* dst, int compressedSize, int dstCapacity);
+int LZ4_compressBound(int inputSize);
+int LZ4_compress_default(const char* src, char* dst, int srcSize, int dstCapacity);
 size_t ZSTD_decompress(void* dst, size_t dstCapacity, const void* src, size_t srcSize);
+size_t ZSTD_compressBound(size_t srcSize);
+size_t ZSTD_compress(void* dst, size_t dstCapacity, const void* src, size_t srcSize, int level);
 unsigned ZSTD_isError(size_t code);
 #ifdef SB_SNAPPY
 int snappy_uncompress(const char* compressed, size_t compressed_length,
                       char* uncompressed, size_t* uncompressed_length);
+int snappy_compress(const char* input, size_t input_length, char* compressed,
+                    size_t* compressed_length);
+size_t snappy_max_compressed_length(size_t source_length);
 #endif
 }
 
@@ -60,6 +68,59 @@ int decompress_one(int codec, const uint8_t* in, int64_t in_len, uint8_t* out,
   return -5;  // a codec this build does not have
 }
 
+// Compress into a buffer of out_cap bytes; returns the compressed size, or
+// < 0 (-5: a codec this build does not have).  Zstd runs at level 0, the
+// library's default, as the reference writer asks for it.
+int64_t compress_one(int codec, const uint8_t* in, int64_t in_len, uint8_t* out,
+                     int64_t out_cap) {
+  switch (codec) {
+    case kNone:
+      if (out_cap < in_len) return -1;
+      std::memcpy(out, in, (size_t)in_len);
+      return in_len;
+    case kLz4: {
+      int n = LZ4_compress_default((const char*)in, (char*)out, (int)in_len, (int)out_cap);
+      return n > 0 ? n : -2;
+    }
+    case kZstd: {
+      size_t n = ZSTD_compress(out, (size_t)out_cap, in, (size_t)in_len, 0);
+      return ZSTD_isError(n) ? -3 : (int64_t)n;
+    }
+#ifdef SB_SNAPPY
+    case kSnappy: {
+      size_t n = (size_t)out_cap;
+      int rc = snappy_compress((const char*)in, (size_t)in_len, (char*)out, &n);
+      return rc == 0 ? (int64_t)n : -4;
+    }
+#endif
+  }
+  return -5;
+}
+
+// Run fn(i) for i in [0, n) on n_threads threads (0: one per core).
+template <typename Fn>
+void parallel_for(int64_t n, int n_threads, Fn fn) {
+  if (n <= 0) return;
+  if (n_threads <= 0) n_threads = (int)std::thread::hardware_concurrency();
+  if (n_threads > n) n_threads = (int)n;
+  std::atomic<int64_t> next(0);
+  auto worker = [&]() {
+    for (;;) {
+      int64_t i = next.fetch_add(1);
+      if (i >= n) break;
+      fn(i);
+    }
+  };
+  if (n_threads <= 1) {
+    worker();
+    return;
+  }
+  std::vector<std::thread> pool;
+  pool.reserve(n_threads);
+  for (int t = 0; t < n_threads; ++t) pool.emplace_back(worker);
+  for (auto& th : pool) th.join();
+}
+
 }  // namespace
 
 extern "C" {
@@ -77,27 +138,40 @@ int sb_has_snappy() {
 int sb_decompress_batch(int codec, int64_t n, const uint8_t** inputs,
                         const int64_t* in_lens, uint8_t** outputs,
                         const int64_t* out_lens, int n_threads) {
-  if (n <= 0) return 0;
-  if (n_threads <= 0) n_threads = (int)std::thread::hardware_concurrency();
-  if (n_threads > n) n_threads = (int)n;
-  std::atomic<int64_t> next(0);
   std::atomic<int> err(0);
-  auto worker = [&]() {
-    for (;;) {
-      int64_t i = next.fetch_add(1);
-      if (i >= n) break;
-      int rc = decompress_one(codec, inputs[i], in_lens[i], outputs[i], out_lens[i]);
-      if (rc != 0) err.store(rc);
-    }
-  };
-  if (n_threads <= 1) {
-    worker();
-  } else {
-    std::vector<std::thread> pool;
-    pool.reserve(n_threads);
-    for (int t = 0; t < n_threads; ++t) pool.emplace_back(worker);
-    for (auto& th : pool) th.join();
+  parallel_for(n, n_threads, [&](int64_t i) {
+    int rc = decompress_one(codec, inputs[i], in_lens[i], outputs[i], out_lens[i]);
+    if (rc != 0) err.store(rc);
+  });
+  return err.load();
+}
+
+// The bound of a compressed buffer for in_len bytes, or -1 for a codec this
+// build does not have.
+int64_t sb_compress_bound(int codec, int64_t in_len) {
+  switch (codec) {
+    case kNone: return in_len;
+    case kLz4: return LZ4_compressBound((int)in_len);
+    case kZstd: return (int64_t)ZSTD_compressBound((size_t)in_len);
+#ifdef SB_SNAPPY
+    case kSnappy: return (int64_t)snappy_max_compressed_length((size_t)in_len);
+#endif
   }
+  return -1;
+}
+
+// Compress n buffers in parallel, each into its own buffer of out_caps[i]
+// bytes; out_lens[i] receives the compressed size.  Returns 0 or the
+// (negative) code of a buffer that failed.
+int sb_compress_batch(int codec, int64_t n, const uint8_t** inputs,
+                      const int64_t* in_lens, uint8_t** outputs,
+                      const int64_t* out_caps, int64_t* out_lens, int n_threads) {
+  std::atomic<int> err(0);
+  parallel_for(n, n_threads, [&](int64_t i) {
+    int64_t m = compress_one(codec, inputs[i], in_lens[i], outputs[i], out_caps[i]);
+    out_lens[i] = m;
+    if (m < 0) err.store((int)m);
+  });
   return err.load();
 }
 
@@ -215,6 +289,109 @@ extern "C" int64_t sb_factorize_u32(const uint32_t* vals, int64_t n,
                                     int64_t max_uniq) {
   return factorize_impl<uint32_t>(vals, n, codes, uniq, max_uniq);
 }
+
+// ---------------------------------------------------------------------------
+// Integer page stats (reference integer/mod.rs:179-229 gen_stats): one pass
+// of min / max / run count / sortedness over the values and a distinct
+// count with the most frequent value.  out (int64 x8): [min, max,
+// null_count, run_count, is_sorted, unique_count, top_value, max_count].
+// Runs and sortedness walk the valid values from T(0); min, max and the
+// distinct table take every slot, null ones too.  The top value is the
+// first value to reach the highest count in row order (a FREQ page stores
+// it, so a file's bytes depend on this rule).  The open-addressing table is
+// thread-local and epoch-tagged, as in factorize_impl.
+
+template <typename T>
+static void int_stats_impl(const T* vals, const uint8_t* validity, int64_t n,
+                           int64_t* out) {
+  T vmin = n ? vals[0] : T(0), vmax = n ? vals[0] : T(0);
+  int64_t nulls = 0, runs = 0;
+  bool sorted = true;
+  T last = T(0);
+  int64_t cap = 64;
+  while (cap < 2 * n) cap <<= 1;
+  static thread_local std::vector<T> keys;
+  static thread_local std::vector<int64_t> cnts;
+  static thread_local std::vector<uint32_t> tags;
+  static thread_local uint32_t epoch = 0;
+  if ((int64_t)keys.size() < cap) {
+    keys.resize((size_t)cap);
+    cnts.resize((size_t)cap);
+    tags.assign((size_t)cap, 0);
+    epoch = 0;
+  }
+  const int64_t hmask = (int64_t)keys.size() - 1;  // a power of two
+  if (++epoch == 0) {
+    std::fill(tags.begin(), tags.end(), 0u);
+    epoch = 1;
+  }
+  int64_t n_distinct = 0;
+  T top = n ? vals[0] : T(0);
+  int64_t max_count = 0;
+  auto bump = [&](T v) {
+    uint64_t h = (uint64_t)v;
+    h = (h ^ (h >> 30)) * 0xBF58476D1CE4E5B9ull;
+    h = (h ^ (h >> 27)) * 0x94D049BB133111EBull;
+    h ^= h >> 31;
+    int64_t i = (int64_t)(h & (uint64_t)hmask);
+    for (;;) {
+      if (tags[i] != epoch) {
+        tags[i] = epoch;
+        keys[i] = v;
+        cnts[i] = 1;
+        ++n_distinct;
+        if (max_count < 1) { max_count = 1; top = v; }
+        return;
+      }
+      if (keys[i] == v) {
+        int64_t c = ++cnts[i];
+        if (c > max_count) { max_count = c; top = v; }
+        return;
+      }
+      i = (i + 1) & hmask;
+    }
+  };
+  for (int64_t i = 0; i < n; ++i) {
+    T v = vals[i];
+    bool ok = validity == nullptr || validity[i];
+    if (ok) {
+      if (v < last) sorted = false;
+      if (last != v) {
+        ++runs;
+        last = v;
+      }
+    } else {
+      ++nulls;
+    }
+    if (v < vmin) vmin = v;
+    if (v > vmax) vmax = v;
+    bump(v);
+  }
+  out[0] = (int64_t)vmin;
+  out[1] = (int64_t)vmax;
+  out[2] = nulls;
+  out[3] = runs;
+  out[4] = sorted ? 1 : 0;
+  out[5] = n_distinct;
+  out[6] = (int64_t)top;
+  out[7] = max_count;
+}
+
+#define SB_INT_STATS(NAME, T)                                                  \
+  extern "C" int NAME(const T* vals, const uint8_t* validity, int64_t n,       \
+                      int64_t* out) {                                          \
+    int_stats_impl<T>(vals, validity, n, out);                                 \
+    return 0;                                                                  \
+  }
+SB_INT_STATS(sb_int_stats_i64, int64_t)
+SB_INT_STATS(sb_int_stats_u64, uint64_t)
+SB_INT_STATS(sb_int_stats_i32, int32_t)
+SB_INT_STATS(sb_int_stats_u32, uint32_t)
+SB_INT_STATS(sb_int_stats_i16, int16_t)
+SB_INT_STATS(sb_int_stats_u16, uint16_t)
+SB_INT_STATS(sb_int_stats_i8, int8_t)
+SB_INT_STATS(sb_int_stats_u8, uint8_t)
+#undef SB_INT_STATS
 
 // ---------------------------------------------------------------------------
 // PATAS (f64/f32 via width parameter; semantics mirror patas.rs + the f32

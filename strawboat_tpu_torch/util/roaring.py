@@ -1,6 +1,7 @@
-"""Reading a roaring bitmap in its portable serialization (numpy).
+"""A roaring bitmap in its portable serialization (numpy).
 
-Counterpart of ``deserialize`` in ``strawboat_tpu/util/roaring.py``.  The
+Counterpart of ``serialize`` and ``deserialize`` in
+``strawboat_tpu/util/roaring.py``.  The
 FREQ codec stores its exception positions as a roaring bitmap (reference
 src/compression/integer/freq.rs:74-78, the Rust ``roaring`` crate's
 portable format):
@@ -13,6 +14,9 @@ portable format):
   container   : cardinality <= 4096 → sorted u16 array;
                 else → 8 KiB bitset (1024 u64 LE words).
   run container: u16 n_runs then n_runs * [u16 start, u16 len-1].
+
+The writer emits the no-run form only, with offsets: the reference never
+calls ``run_optimize``.
 """
 
 from __future__ import annotations
@@ -25,6 +29,33 @@ SERIAL_COOKIE_NO_RUNCONTAINER = 12346
 SERIAL_COOKIE = 12347
 NO_OFFSET_THRESHOLD = 4
 _ARRAY_LIMIT = 4096
+
+
+def serialize(values: np.ndarray) -> bytes:
+    """Sorted distinct u32 positions → a portable roaring bitmap (no-run
+    form)."""
+    values = np.asarray(values, dtype=np.uint32)
+    keys = (values >> 16).astype(np.uint16)
+    lows = (values & 0xFFFF).astype(np.uint16)
+    # one container per key: where the key changes
+    starts = np.flatnonzero(np.diff(keys.astype(np.int32), prepend=-1))
+    ends = np.append(starts[1:], len(values))
+    bodies = []
+    for s, e in zip(starts.tolist(), ends.tolist()):
+        if e - s <= _ARRAY_LIMIT:
+            bodies.append(lows[s:e].astype("<u2").tobytes())
+        else:
+            bits = np.zeros(1 << 16, dtype=np.uint8)
+            bits[lows[s:e]] = 1
+            bodies.append(np.packbits(bits, bitorder="little").tobytes())
+    n = len(starts)
+    desc = np.empty(2 * n, dtype="<u2")
+    desc[0::2] = keys[starts]
+    desc[1::2] = ends - starts - 1
+    sizes = np.array([len(b) for b in bodies], dtype=np.int64)
+    offsets = (8 + 8 * n + np.cumsum(sizes) - sizes).astype("<u4")
+    head = np.array([SERIAL_COOKIE_NO_RUNCONTAINER, n], dtype="<u4").tobytes()
+    return head + desc.tobytes() + offsets.tobytes() + b"".join(bodies)
 
 
 def deserialize(buf: bytes) -> np.ndarray:

@@ -161,6 +161,12 @@ def _prepare(columns: Mapping[str, np.ndarray], schema: Optional[Sequence[Field]
             if f.is_nested:
                 out.append((arr, None))
                 continue
+            if isinstance(arr, cm.BinaryColumn):
+                validity = arr.validity if arr.validity is not None and not arr.validity.all() else None
+                if validity is not None and not f.nullable:
+                    raise OutOfSpecError(f"column {f.name!r} has nulls but is not nullable")
+                out.append((_codec_binary(arr), validity))
+                continue
             arr = _flat_arrays(arr)
         if isinstance(arr, np.ma.MaskedArray):
             null = np.ma.getmaskarray(arr)
@@ -221,10 +227,8 @@ def _prepare(columns: Mapping[str, np.ndarray], schema: Optional[Sequence[Field]
 
 
 def _flat_arrays(col):
-    """A flat ``columns.Column`` → the numpy (masked) array ``_prepare``
-    takes, or a codec ``BinaryColumn`` for strings."""
-    if isinstance(col, cm.BinaryColumn):
-        return _codec_binary(col)
+    """A flat numeric or bool ``columns.Column`` → the numpy (masked) array
+    ``_prepare`` takes."""
     if isinstance(col, (cm.PrimitiveColumn, cm.BooleanColumn)):
         if col.validity is None:
             return col.values

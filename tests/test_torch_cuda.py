@@ -343,3 +343,52 @@ def test_list_sum_on_card_equals_cpu(cuda, tmp_path):
     want = np.add.reduceat(price, offsets[:-1])
     assert got.cpu().tolist() == want.tolist()
     assert got.cpu().tolist() == load_resident(path, "cpu").list_sum("o_lineprices").tolist()
+
+
+@pytest.mark.parametrize("dtype,unsigned", [(np.int64, False), (np.uint32, True), (np.uint64, True),
+                                            (np.float32, False), (np.float64, False)])
+def test_paged_stats_on_card_equal_cpu(cuda, dtype, unsigned):
+    """The device writer's page stats on the card equal them on the CPU,
+    ``unique_est`` included (exact on the CPU against the JAX package)."""
+    from strawboat_tpu_torch.kernels import encode
+
+    rng = np.random.default_rng(2)
+    n = 100_003
+    vals = rng.integers(0, 1 << 20, n).astype(dtype)
+    if unsigned:
+        vals = vals + np.array(np.iinfo(dtype).max // 2, dtype=dtype)
+        vals = vals.view(f"<i{vals.itemsize}")
+    valid = rng.random(n) > 0.2
+    host = torch.from_numpy(vals)
+    cpu = encode.paged_stats_device(host, torch.from_numpy(valid), 4096, unsigned=unsigned)
+    dev = encode.paged_stats_device(host.to(cuda), torch.from_numpy(valid).to(cuda), 4096,
+                                    unsigned=unsigned)
+    for k in cpu:
+        assert torch.equal(dev[k].cpu(), cpu[k]), k
+    packed_c, st_c = encode.paged_bool_stats_device(torch.from_numpy(valid), None, 4096)
+    packed_d, st_d = encode.paged_bool_stats_device(torch.from_numpy(valid).to(cuda), None, 4096)
+    assert torch.equal(packed_d.cpu(), packed_c)
+    for k in st_c:
+        assert torch.equal(st_d[k].cpu(), st_c[k]), k
+
+
+def test_write_device_table_on_card_equals_cpu(cuda, tmp_path):
+    """``write_device_table`` of a table scanned onto the card writes the
+    bytes of the same table scanned onto the CPU, under the adaptive
+    options with zone maps."""
+    from strawboat_tpu_torch.benchsuite import tpch
+    from strawboat_tpu_torch.codecs import WriteOptions
+    from strawboat_tpu_torch.constants import Compression
+    from strawboat_tpu_torch.exec import scan_file
+    from strawboat_tpu_torch.write.device import write_device_table
+
+    cols = tpch.generate_lineitem(1.0, seed=0, rows=50_000)
+    opts = WriteOptions(default_compression=Compression.LZ4, default_compress_ratio=1.0,
+                        max_page_size=8192, sample_seed=3, zone_maps=True)
+    path = str(tmp_path / "li.str")
+    tpch.write_lineitem(path, cols, options=opts)
+    out = {}
+    for name, dev in (("cpu", "cpu"), ("cuda", cuda)):
+        out[name] = str(tmp_path / f"{name}.str")
+        write_device_table(out[name], scan_file(path, dev), opts)
+    assert open(out["cuda"], "rb").read() == open(out["cpu"], "rb").read()

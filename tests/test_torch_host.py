@@ -358,6 +358,51 @@ def test_native_decompress_batch_into_matches_reference(both_native):
         native.decompress_batch_into(int(codec), comp[1:2], out, [0], [lens[1] - 4])
 
 
+@pytest.mark.parametrize("n", [0, 1, 4096, 4097, 70000])
+def test_roaring_serialize_matches_jax(n):
+    rng = np.random.default_rng(n)
+    for positions in (np.unique(rng.integers(0, 1 << 20, n)).astype(np.uint32),
+                      np.arange(n, dtype=np.uint32)):
+        buf = roaring.serialize(positions)
+        assert buf == ref_roaring.serialize(positions)
+        np.testing.assert_array_equal(roaring.deserialize(buf), positions)
+
+
+@pytest.mark.parametrize("codec", [constants.Compression.LZ4, constants.Compression.ZSTD,
+                                   constants.Compression.SNAPPY])
+def test_native_compress_matches_jax(codec):
+    from strawboat_tpu.codecs import common as ref_common
+
+    if codec == constants.Compression.SNAPPY and not native._load().sb_has_snappy():
+        pytest.skip("libsnappy.so.1 is absent here")
+    rng = np.random.default_rng(int(codec))
+    pages = [b"", b"x", np.repeat(rng.integers(0, 50, 9000), 8).astype(np.int32).tobytes(),
+             rng.integers(0, 256, 100_000).astype(np.uint8).tobytes()]
+    want = [ref_common.compress(ref_constants.Compression(int(codec)), p) for p in pages]
+    assert native.compress_batch(int(codec), pages) == want
+    assert [native.compress_batch(int(codec), [p])[0] for p in pages] == want
+
+
+def test_native_int_stats_matches_jax():
+    """The one-pass page stats (``_family.int_stats_native`` over
+    ``native.int_stats``) give the JAX package's, top value included."""
+    from strawboat_tpu_torch.codecs import _family
+
+    fields = ("tuple_count", "total_bytes", "null_count", "average_run_length", "is_sorted",
+              "unique_count", "max_count", "set_count", "min", "max", "top_value")
+    rng = np.random.default_rng(4)
+    for dtype in (np.int8, np.uint8, np.int16, np.uint16, np.int32, np.uint32, np.int64, np.uint64):
+        v = rng.integers(0, 100, 10_000).astype(dtype)
+        v[::3] = np.iinfo(dtype).max
+        valid = rng.random(len(v)) > 0.1
+        for mask in (None, valid):
+            got = _family.int_stats_native(v, mask)
+            want = ref_native.int_stats_native(v, mask)
+            for k in fields:
+                g, w = getattr(got, k), getattr(want, k)
+                assert type(g) is type(w) and g == w, (dtype, k)
+
+
 # ---------------------------------------------------------------------------
 # nested columns: the column model, the nest chains and level expansion
 

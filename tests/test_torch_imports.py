@@ -10,7 +10,9 @@ scans Q6 pruned by the zone maps and in chunks, runs Q1 and a grouped
 ``load_resident`` of it, writes and scans a column of each float, bool and
 decimal type (DICT pages, then PATAS) and loads them resident, writes,
 scans and sums a list<struct<int64, utf8>> column beside a timestamp
-column (``list_segment_sum``, ``list_sum``, ``load_resident``), and checks
+column (``list_segment_sum``, ``list_sum``, ``load_resident``), writes the
+lineitem columns through the adaptive chooser with LZ4 and rewrites their
+scan with ``write_device_table`` (both scanned back), and checks
 ``sys.modules`` afterwards: no
 ``jax``, no ``pyarrow``, no ``strawboat_tpu`` or ``strawboat_tpu.*``.  A
 source check holds every port file and ``chip_smoke.py`` to the same.
@@ -117,6 +119,22 @@ with tempfile.TemporaryDirectory() as d:
     assert make_resident(nt, "cpu", tile=512).list_sum("l.a").tolist() == [3, 0, 12]
     rtn = load_resident(npath, "cpu", tile=512)
     assert rtn["l"].child.kind == "struct" and rtn.decode_natural("t").tolist() == [1, 2, 3]
+    from strawboat_tpu_torch.codecs import WriteOptions
+    from strawboat_tpu_torch.constants import Compression
+    from strawboat_tpu_torch.write.device import write_device_table
+    for f in ("STRAWBOAT_DICT_COMPRESSION", "STRAWBOAT_BITPACK_COMPRESSION"):
+        del os.environ[f]
+    opts = WriteOptions(default_compression=Compression.LZ4, default_compress_ratio=1.0,
+                        max_page_size=1024, sample_seed=3, zone_maps=True)
+    apath, dpath = os.path.join(d, "adaptive.str"), os.path.join(d, "device.str")
+    tpch.write_lineitem(apath, cols, options=opts)
+    write_device_table(dpath, scan_file(apath, "cpu"), opts)
+    for p in (apath, dpath):
+        t = scan_file(p, "cpu")
+        for k in tpch.INT_COLUMNS:
+            assert np.array_equal(host_values(t[k]), cols[k]), (p, k)
+        words = np.array([v.decode() for v in t["l_shipmode"].dictionary])
+        assert np.array_equal(words[host_values(t["l_shipmode"])], cols["l_shipmode"]), p
 ref = sorted(m for m in sys.modules if m == "strawboat_tpu" or m.startswith("strawboat_tpu."))
 print(json.dumps({{"jax": "jax" in sys.modules, "pyarrow": "pyarrow" in sys.modules,
                   "strawboat_tpu": ref}}))

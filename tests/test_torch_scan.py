@@ -286,20 +286,30 @@ def test_block_widths_of_a_truncated_page_raise(monkeypatch, native_lib):
             port_scan._block_widths(cut, 0, n_blocks)
 
 
-def test_writer_raises_for_what_it_does_not_have(tmp_path, flags):
+def test_writer_raises_for_what_it_does_not_have(tmp_path, flags, monkeypatch):
+    """The ratio competition, LZ4 and the FREQ / RLE flags write now
+    (``test_torch_chooser.py`` holds their bytes); complex columns never
+    do, and a byte codec raises where the native library lacks it."""
     cols = {"a": np.arange(256, dtype=np.int32)}
     path = str(tmp_path / "x.str")
     for opts in (WriteOptions(default_compress_ratio=1.0),
                  WriteOptions(default_compression=Compression.LZ4)):
-        with pytest.raises(NotYetImplementedError):
-            write_file(path, cols, options=opts)
+        write_file(path, cols, options=opts)
+        np.testing.assert_array_equal(scan_file(path, "cpu")["a"].values.numpy(), cols["a"])
     for flag in (FREQ, RLE):
         flags((flag,))
-        with pytest.raises(NotYetImplementedError):
-            write_file(path, cols)
+        write_file(path, cols)
+        np.testing.assert_array_equal(scan_file(path, "cpu")["a"].values.numpy(), cols["a"])
     flags(())
     with pytest.raises(NotYetImplementedError):  # floats write now; complex never
         write_file(path, {"f": np.zeros(4, np.complex128)})
+    lib = native._load()
+    monkeypatch.setattr(lib, "sb_has_snappy", lambda: 0)  # a host without libsnappy
+    with pytest.raises(StrawboatError, match="libsnappy"):
+        write_file(path, cols, options=WriteOptions(default_compression=Compression.SNAPPY))
+    monkeypatch.setattr(native, "_load", lambda: None)  # no native library at all
+    with pytest.raises(StrawboatError, match="native library"):
+        write_file(path, cols, options=WriteOptions(default_compression=Compression.LZ4))
 
 
 def test_scan_raises_for_what_it_does_not_have(tmp_path, flags):

@@ -35,7 +35,6 @@ from strawboat_tpu_torch import schema
 from strawboat_tpu_torch.benchsuite import tpch
 from strawboat_tpu_torch.codecs import WriteOptions, read_header
 from strawboat_tpu_torch.constants import Compression
-from strawboat_tpu_torch.errors import NotYetImplementedError
 from strawboat_tpu_torch.exec import load_resident, make_resident, scan_file
 from strawboat_tpu_torch.exec import scan as port_scan
 from strawboat_tpu_torch.exec.pruning import Comparison
@@ -405,8 +404,9 @@ def test_schema_bytes_equal_pyarrow():
 
 
 def test_writer_string_options(tmp_path, flags):
-    """A schema overrides utf8 → large_string; the writer refuses what it
-    does not write yet and nulls in a non-nullable field."""
+    """A schema overrides utf8 → large_string; the ratio competition and
+    the FREQ flag write the JAX writer's bytes; the writer refuses nulls in
+    a non-nullable field."""
     cols = {"s": np.array(["a", "bb", "a"])}
     path = str(tmp_path / "w.str")
     write_file(path, cols, schema=[schema.Field("s", "large_string")])
@@ -415,11 +415,16 @@ def test_writer_string_options(tmp_path, flags):
     ref_path = _ref_write(tmp_path / "r.str", want, default_compression=RefCompression.NONE,
                           max_page_size=None)
     assert open(path, "rb").read() == open(ref_path, "rb").read()
-    with pytest.raises(NotYetImplementedError):
-        write_file(path, cols, options=WriteOptions(default_compress_ratio=1.0))
+    utf8 = pa.table({"s": pa.array(["a", "bb", "a"])})
+    write_file(path, cols, options=WriteOptions(default_compress_ratio=1.0))
+    _ref_write(ref_path, utf8, default_compression=RefCompression.NONE, max_page_size=None,
+               default_compress_ratio=1.0)
+    assert open(path, "rb").read() == open(ref_path, "rb").read()
     flags((FREQ,))
-    with pytest.raises(NotYetImplementedError, match="FREQ"):
-        write_file(path, cols)
+    write_file(path, cols)
+    _ref_write(ref_path, utf8, default_compression=RefCompression.NONE, max_page_size=None)
+    assert open(path, "rb").read() == open(ref_path, "rb").read()
+    assert ref_read_table(path).equals(utf8)
     flags(())
     with pytest.raises(Exception, match="not nullable"):
         write_file(path, {"s": np.array(["a", None], dtype=object)},

@@ -243,7 +243,8 @@ def test_port_writer_file_equals_jax_writer(tmp_path, flags, names, zone_maps):
 
 def test_writer_takes_decimal_matrices_and_refuses_what_it_lacks(tmp_path, flags):
     """A decimal beyond int64 goes in as its (n, W) byte matrix; the RLE and
-    FREQ flags and the ratio options raise for the new types."""
+    FREQ flags and the ratio option write the JAX writer's bytes for the
+    new types; a decimal of floats is refused."""
     wide = from_int64(np.arange(300, dtype=np.int64), 16)
     wide[7, 8:] = 0x11  # one value beyond int64
     path, ref_path = str(tmp_path / "w.str"), str(tmp_path / "r.str")
@@ -252,17 +253,22 @@ def test_writer_takes_decimal_matrices_and_refuses_what_it_lacks(tmp_path, flags
     ref_write(ref_path, pa.table({"d": _pa_decimal(wide, pa.decimal128(38, 0))}),
               options=RefOptions(max_page_size=None))
     assert open(path, "rb").read() == open(ref_path, "rb").read()
-    for col, f in (({"x": np.zeros(256)}, None), ({"b": np.zeros(256, bool)}, None),
-                   ({"d": np.arange(256)}, [schema.Field("d", "decimal128(15, 2)")])):
-        for flag in (RLE, FREQ):
+    dec = pa.decimal128(15, 2)
+    runs = np.repeat(np.arange(8), 32)
+    for col, f, table in (
+            ({"x": runs * 0.5}, None, pa.table({"x": runs * 0.5})),
+            ({"b": runs % 2 == 0}, None, pa.table({"b": runs % 2 == 0})),
+            ({"d": runs + 300}, [schema.Field("d", "decimal128(15, 2)")],
+             pa.table({"d": _pa_decimal(runs + 300, dec)}))):
+        for flag, ratio in ((RLE, None), (FREQ, None), (None, 1.0)):
             if flag == FREQ and "b" in col:
                 continue  # bool pages have no FREQ codec: the flag does not apply
-            flags((flag,))
-            with pytest.raises(NotYetImplementedError):
-                write_file(path, col, schema=f)
+            flags(() if flag is None else (flag,))
+            write_file(path, col, schema=f, options=WriteOptions(default_compress_ratio=ratio))
+            ref_write(ref_path, table, options=RefOptions(max_page_size=None,
+                                                          default_compress_ratio=ratio))
+            assert open(path, "rb").read() == open(ref_path, "rb").read(), (col.keys(), flag)
         flags(())
-        with pytest.raises(NotYetImplementedError):
-            write_file(path, col, schema=f, options=WriteOptions(default_compress_ratio=1.0))
     with pytest.raises(Exception, match="decimal"):
         write_file(path, {"d": np.zeros(3)}, schema=[schema.Field("d", "decimal128(15, 2)")])
 
