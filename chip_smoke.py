@@ -73,8 +73,8 @@ the typed lineitem files (K1's and K3's launches are counted over 14):
 
 the nested orders file (K1's and K3's launches are counted over 15):
 
-15. nested — TPC-H orders at SF5 (7.5 M rows, seed 1, in o_orderdate
-   order) with their 1–7 lineitems each (about 30 M, seed 0) nested as
+15. nested — TPC-H orders at SF2.5 (3.75 M rows, seed 1, in o_orderdate
+   order) with their 1–7 lineitems each (about 15 M, seed 0) nested as
    ``o_lineitems`` list<struct<l_quantity, l_extendedprice, l_discount,
    l_tax, l_shipdate, l_returnflag>> and ``o_lineprices`` list<int64>,
    written under the ``dict`` flags with zone maps; scanned whole twice
@@ -87,21 +87,35 @@ the nested orders file (K1's and K3's launches are counted over 15):
 
 the adaptive write path (K3's launches are counted over 16):
 
-16. adaptive — the ten lineitem columns at SF10 through ``write_file`` with
-   the JAX benchmark's write options (LZ4, ratio 1.0, sample_seed 3, pages
-   of 65 536 rows, zone maps): seconds and bytes beside the ``dict``
-   file's, the codecs chosen (a handler on the port's logger) and each
-   column's page codecs; scanned whole twice (every column equal to the
-   generated one); Q6 over a pruned scan and ``tpch.q1_query`` == numpy;
-   then the scanned table ordered by l_suppkey on the card and written
-   again through ``write_device_table`` (the seconds in the stats
-   reductions on the card against the host encode), rescanned (every
-   column equal to numpy permuted alike) and scanned pruned by
+16. adaptive — the ten lineitem columns, the first 30 M generated rows
+   (SF5), through ``write_file`` with the JAX benchmark's write options
+   (LZ4, ratio 1.0, sample_seed 3, pages of 65 536 rows, zone maps):
+   seconds and bytes, the codecs chosen (a handler on the port's logger)
+   and each column's page codecs; scanned whole twice (every column equal
+   to the generated one); Q6 over a pruned scan and ``tpch.q1_query`` ==
+   numpy; then the scanned table ordered by l_suppkey on the card and
+   written again through ``write_device_table`` (the seconds in the stats
+   reductions on the card against the host encode), rescanned
+   (every column equal to numpy permuted alike) and scanned pruned by
    ``l_suppkey < 1000`` (the kept pages' rows equal numpy's);
+
+the dataset path (K1's and K3's launches are counted over 17):
+
+17. dataset — the ten lineitem columns at SF10 sorted by l_shipdate,
+   written by ``write_dataset`` in 60 parts of 1 M rows with the same
+   options; ``scan_dataset`` of the glob cold and warm (every column equal
+   to the sorted one); Q6 over the scan pruned by Q6's range (files kept by
+   their footers, pages kept), then through a manifest (the same files)
+   and through ``Query(glob)``, Q1 through ``Query(glob)``; l_extendedprice
+   summed over ``iter_dataset_chunks``; ``load_resident`` of the glob
+   (planes == ``make_resident`` of the sorted columns, word for word) with
+   the resident Q6 and Q1; ``compact_dataset`` of the first 8 parts into 2
+   (every column equal, Q6); a warm scan inside ``device_trace``: the
+   device's idle share and longest idle gap;
 
 and last:
 
-17. k2_k0  — K2 and K0 bit-exact against their plain versions (b = 1..32),
+18. k2_k0  — K2 and K0 bit-exact against their plain versions (b = 1..32),
    then (their launches counted) l_shipdate's bit-packed pages decoded
    through K2's and K0's natural-order entry points == the generated column;
    each width group's lane count, times and bound are printed.
@@ -142,12 +156,20 @@ SEEDS = (0, 0xA5A500FF)
 REPS = 20
 SCAN_REPS = 3
 PAGE_ROWS = 65536
-# SF5 orders (TPC-H spec 1.2: SF x 1.5 M); SF10 until PR 7, its numbers
-# in PERF.md
-NESTED_ORDERS = 7_500_000
+# SF2.5 orders (TPC-H spec 1.2: SF x 1.5 M); the SF10 and SF5 numbers
+# are in PERF.md
+NESTED_ORDERS = 3_750_000
 # lineitem_typed takes every 5th row (12 M, SF2, every ship date's range
 # kept); its SF10 numbers are in PERF.md (PR 6)
 TYPED_STRIDE = 5
+# the dataset phase: parts of 1 M rows, Databend's row_per_block default
+# for its fuse tables; chunks of 16 pages (one part each)
+DATASET_PART_ROWS = 1_000_000
+DATASET_CHUNK_PAGES = 16
+DATASET_K3_REPS = 5
+# the adaptive phase takes the first 30 M generated rows (SF5); its SF10
+# numbers are in PERF.md
+ADAPTIVE_ROWS = 30_000_000
 FILES = {
     "dict": {"STRAWBOAT_DICT_COMPRESSION": "1", "STRAWBOAT_BITPACK_COMPRESSION": "1"},
     "bitpack": {"STRAWBOAT_BITPACK_COMPRESSION": "1"},
@@ -964,9 +986,9 @@ def _check_nested_scan(table, orders, li, offsets, device, rows=None) -> None:
 
 
 def phase_nested(tmpdir, device, seed: int = SEED) -> tuple:
-    """TPC-H orders with their lineitems nested at SF5: 7.5 M orders (seed
-    1, in o_orderdate order), 1–7 lineitems each (seed 0), about 30 M
-    lineitems; o_lineitems list<struct<…>> and o_lineprices list<int64>.
+    """TPC-H orders with their lineitems nested at SF2.5: 3.75 M orders
+    (seed 1, in o_orderdate order), 1–7 lineitems each (seed 0), about
+    15 M lineitems; o_lineitems list<struct<…>> and o_lineprices list<int64>.
     Write under the dict flags with zone maps, scan whole twice, Q6 over
     the leaves and list_segment_sum, a scan pruned by o_orderdate, chunks,
     load_resident (list_sum and every leaf through K1), make_resident of
@@ -1165,8 +1187,8 @@ def _pages_rows(keep, n_rows: int) -> np.ndarray:
                            for i in np.flatnonzero(keep)])
 
 
-def phase_adaptive(cols, tmpdir, device, dict_bytes: int) -> dict:
-    """The adaptive write path at SF10: ``write_file`` with the JAX
+def phase_adaptive(cols, tmpdir, device) -> dict:
+    """The adaptive write path: ``write_file`` with the JAX
     benchmark's options, two whole scans, Q6 pruned and Q1 over the file,
     then ``write_device_table`` of the scan ordered by l_suppkey on the
     card, rescanned whole and pruned; every answer against numpy.  Returns
@@ -1191,7 +1213,7 @@ def phase_adaptive(cols, tmpdir, device, dict_bytes: int) -> dict:
         t0 = time.perf_counter()
         tpch.write_lineitem(path, cols, options=opts)
     facts = {"write": {"seconds": time.perf_counter() - t0, "bytes": os.path.getsize(path),
-                       "dict_file_bytes": dict_bytes, "codecs_chosen": dict(tally),
+                       "codecs_chosen": dict(tally),
                        "page_codecs": _page_codecs(path)}}
 
     runs = []
@@ -1270,27 +1292,204 @@ def phase_adaptive(cols, tmpdir, device, dict_bytes: int) -> dict:
     return paths
 
 
+def _same_planes(what: str, got, want) -> None:
+    """Two resident tables equal column for column, word for word."""
+    if list(got.columns) != list(want.columns) or got.num_rows != want.num_rows:
+        raise AssertionError(f"{what}: columns or rows differ")
+    for n, c in want.columns.items():
+        mine = got.columns[n]
+        same = (len(mine.planes) == len(c.planes) and mine.offset == c.offset
+                and tuple(mine.shifts) == tuple(c.shifts) and mine.is_dict == c.is_dict
+                and all(b == rb and torch.equal(w, rw)
+                        for (w, b), (rw, rb) in zip(mine.planes, c.planes)))
+        if c.is_dict:
+            same = same and [str(x) for x in mine.dictionary_host] == [str(x) for x in c.dictionary_host]
+        if not same:
+            raise AssertionError(f"{what}: column {n} planes differ")
+
+
+def phase_dataset(cols, tmpdir, device):
+    """The dataset path at SF10: lineitem sorted by l_shipdate (one host
+    argsort, a table clustered by ship date) written by ``write_dataset``
+    in parts of DATASET_PART_ROWS rows with the JAX benchmark's options;
+    ``scan_dataset`` of the glob cold and warm, pruned by Q6's range (files
+    kept by their footers, pages kept), through a manifest, Q6 and Q1
+    through ``Query(glob)``, ``iter_dataset_chunks``, ``load_resident`` of
+    the glob (planes == ``make_resident`` of the sorted numpy columns) with
+    the resident Q6 and Q1, ``compact_dataset`` of the first 8 parts into
+    2, and a warm scan inside ``device_trace`` for the device's idle share;
+    every answer against numpy.  Returns the parts' paths, whose K3 groups
+    the kernel line times, and the resident table, whose planes it times
+    K1 over."""
+    from strawboat_tpu_torch.benchsuite import tpch
+    from strawboat_tpu_torch.codecs import WriteOptions
+    from strawboat_tpu_torch.constants import Compression
+    from strawboat_tpu_torch.exec import Query, col, load_resident, make_resident
+    from strawboat_tpu_torch.exec import dataset as ds
+    from strawboat_tpu_torch.exec.scan import _open, page_keep_mask
+    from strawboat_tpu_torch.kernels import bitunpack as bu
+    from strawboat_tpu_torch.util.obs import device_trace
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # days fit 16 bits, where numpy's stable sort is a radix sort
+    order = np.argsort(cols["l_shipdate"].astype(np.uint16), kind="stable")
+    data = {k: cols[k][order] for k in tpch.LINEITEM_COLUMNS}
+    del order
+    facts = {"sort_s": time.perf_counter() - t0}
+    opts = WriteOptions(default_compression=Compression.LZ4, default_compress_ratio=1.0,
+                        max_page_size=PAGE_ROWS, sample_seed=3, zone_maps=True)
+    ddir = os.path.join(tmpdir, "dataset")
+    with forcing({}):
+        t0 = time.perf_counter()
+        paths = ds.write_dataset(ddir, data, DATASET_PART_ROWS, options=opts)
+    facts["write"] = {"seconds": time.perf_counter() - t0, "parts": len(paths),
+                      "bytes": sum(os.path.getsize(p) for p in paths),
+                      "pages_per_part": len(_open(paths[0])[1][0].pages)}
+    glob = os.path.join(ddir, "part-*.str")
+
+    runs = []
+    for i in range(2):  # cold, then warm
+        before = bu.bitunpack_natural.launches
+        t0 = time.perf_counter()
+        table = ds.scan_dataset(glob, device)
+        torch.cuda.synchronize()
+        runs.append({"seconds": time.perf_counter() - t0,
+                     "k3_launches": bu.bitunpack_natural.launches - before})
+        if i == 0:
+            _check_columns("dataset scan", table, data)
+        del table
+    if min(r["k3_launches"] for r in runs) <= 0:
+        raise AssertionError(f"the dataset scans did not launch K3: {runs}")
+    facts["scan"] = {"runs": runs, "warm_s": runs[1]["seconds"], "equal_to_numpy": True}
+
+    want_q6 = tpch.q6_numpy_reference(data)
+    q6_cols = ("l_shipdate", "l_discount", "l_quantity", "l_extendedprice")
+    preds = tpch.q6_pruning_predicates()
+    kept = [p for p in paths if ds.file_may_match(p, preds)]
+    pages = 0
+    for p in kept:
+        keep = page_keep_mask(p, _open(p)[1], preds)
+        pages += len(_open(p)[1][0].pages) if keep is None else int(keep.sum())
+    t0 = time.perf_counter()
+    pruned = ds.scan_dataset(glob, device, columns=q6_cols, predicates=preds)
+    got = int(tpch.q6(pruned))
+    seconds = time.perf_counter() - t0
+    _check_equal("Q6 over the pruned dataset scan", got, want_q6)
+    if not len(kept) < len(paths):
+        raise AssertionError(f"Q6's range kept every file: {len(kept)} of {len(paths)}")
+    facts["q6_pruned"] = {"files_kept": len(kept), "files": len(paths), "pages_kept": pages,
+                          "rows_scanned": pruned.num_rows, "seconds": seconds,
+                          "revenue": want_q6, "equal_to_numpy": True}
+    del pruned
+
+    t0 = time.perf_counter()
+    manifest = ds.dataset_manifest(glob)
+    manifest_s = time.perf_counter() - t0
+    m_kept = [e["path"] for e in manifest["parts"] if ds._part_may_match(e, preds)]
+    if m_kept != kept:
+        raise AssertionError(f"the manifest kept {len(m_kept)} files, the footers {len(kept)}")
+    t0 = time.perf_counter()
+    pruned = ds.scan_dataset_with_manifest(manifest, device, columns=q6_cols, predicates=preds)
+    _check_equal("Q6 over the manifest's scan", int(tpch.q6(pruned)), want_q6)
+    facts["manifest"] = {"build_s": manifest_s, "files_kept": len(m_kept),
+                         "scan_q6_s": time.perf_counter() - t0, "equal_to_numpy": True}
+    del pruned
+
+    def q6_query():
+        return Query(glob, device=device).filter(
+            (col("l_shipdate") >= 731) & (col("l_shipdate") < 1096) & (col("l_discount") >= 5)
+            & (col("l_discount") <= 7) & (col("l_quantity") < 24)
+        ).agg(revenue=("sum", col("l_extendedprice") * col("l_discount"))).run()["revenue"]
+
+    t0 = time.perf_counter()
+    _check_equal("Q6 through Query(glob)", int(q6_query()), want_q6)
+    facts["q6_query"] = {"seconds": time.perf_counter() - t0, "equal_to_numpy": True}
+    want_q1 = tpch.q1_numpy_reference(data)
+    t0 = time.perf_counter()
+    _q1_check("Q1 through Query(glob)", tpch.q1_rows(tpch.q1_query(glob, device)), want_q1)
+    facts["q1_query"] = {"seconds": time.perf_counter() - t0, "groups": len(want_q1),
+                         "equal_to_numpy": True}
+
+    t0 = time.perf_counter()
+    total, rows = 0, 0
+    for chunk in ds.iter_dataset_chunks(glob, DATASET_CHUNK_PAGES, device,
+                                        columns=["l_extendedprice"]):
+        total += int(chunk["l_extendedprice"].values.sum())
+        rows += chunk.num_rows
+    _check_equal("l_extendedprice summed over the dataset's chunks", (total, rows),
+                 (int(data["l_extendedprice"].sum()), len(data["l_extendedprice"])))
+    facts["chunks"] = {"chunk_pages": DATASET_CHUNK_PAGES, "seconds": time.perf_counter() - t0,
+                       "equal_to_numpy": True}
+
+    t0 = time.perf_counter()
+    rt = load_resident(glob, device, columns=tpch.Q1_Q6_COLUMNS)
+    torch.cuda.synchronize()
+    facts["load_resident"] = {"seconds": time.perf_counter() - t0, "plane_bytes": _plane_bytes(rt)}
+    _same_planes("load_resident(glob) against make_resident of the sorted columns", rt,
+                 make_resident({k: data[k] for k in tpch.Q1_Q6_COLUMNS}, device))
+    _check_equal("resident Q6 over the dataset", int(tpch.q6(rt)), want_q6)
+    _q1_check("resident Q1 over the dataset", tpch.q1_rows(tpch.q1(rt)), want_q1)
+    facts["load_resident"].update(planes_equal=True, q6_equal_to_numpy=True,
+                                  q1_equal_to_numpy=True)
+    torch.cuda.empty_cache()
+
+    n8 = 8 * DATASET_PART_ROWS
+    t0 = time.perf_counter()
+    compacted = ds.compact_dataset(paths[:8], os.path.join(tmpdir, "compacted"), n8 // 2, device,
+                                   options=opts)
+    facts["compact"] = {"seconds": time.perf_counter() - t0, "parts": len(compacted)}
+    head = {k: v[:n8] for k, v in data.items()}
+    table = ds.scan_dataset(compacted, device)
+    if len(compacted) != 2 or table.num_rows != n8:
+        raise AssertionError(f"compaction gave {len(compacted)} parts of {table.num_rows} rows")
+    _check_columns("compacted dataset", table, head)
+    _check_equal("Q6 over the compacted parts", int(tpch.q6(table)), tpch.q6_numpy_reference(head))
+    facts["compact"].update(rows=table.num_rows, equal_to_numpy=True)
+    del table, head
+
+    with device_trace(os.path.join(tmpdir, "trace"), device) as tr:
+        table = ds.scan_dataset(glob, device)
+    del table
+    facts["traced_scan"] = {"window_s": tr.window_s, "device_busy_s": tr.busy_s,
+                            "idle_share": tr.idle_share, "longest_idle_gap_s": tr.longest_gap_s,
+                            "trace_bytes": os.path.getsize(tr.path)}
+    os.remove(tr.path)
+    emit("dataset", rows=len(data["l_shipdate"]), part_rows=DATASET_PART_ROWS, page_rows=PAGE_ROWS,
+         order="l_shipdate", options="LZ4, ratio 1.0, sample_seed 3, zone maps", **facts,
+         max_memory_allocated=torch.cuda.max_memory_allocated(), nvidia_smi=nvidia_smi())
+    return paths, rt
+
+
 def k3_summary(paths, device) -> dict:
     """K3 held exactly against its plain version, then K3 and plain times
     and the bound, over every launch one scan of each file in ``paths``
-    makes; the ``k3_groups`` line has them per file and per launch
-    (column, width, blocks)."""
+    makes (a name maps to a path, or to a dataset's list of parts); the
+    ``k3_groups`` line has them per file and per launch (column, width,
+    blocks), a dataset's as totals and its count of launches."""
     from strawboat_tpu_torch.exec.scan import k3_launch_groups
     from strawboat_tpu_torch.kernels import bitunpack as bu
 
     files = {}
     for name, path in paths.items():
         groups = []
-        for col, (_codec, b), _pages, words in k3_launch_groups(path):
-            w = torch.from_numpy(words.view(np.int32)).to(device)
-            if not torch.equal(bu.bitunpack_natural(w, 0, b), bu.bitunpack_natural_plain(w, 0, b)):
-                raise AssertionError(f"K3 disagrees with plain over {name}/{col}: b={b}")
-            groups.append({"column": col, "b": b, "n_blocks": words.shape[0],
-                           "ms": event_ms(lambda: bu.bitunpack_natural(w, 0, b)),
-                           "plain_ms": event_ms(lambda: bu.bitunpack_natural_plain(w, 0, b)),
-                           "bound_ms": bound_ms(k3_bytes(b, words.shape[0]))})
+        # a dataset's hundreds of small groups: fewer repetitions each
+        reps, warmup = (REPS, 3) if isinstance(path, str) else (DATASET_K3_REPS, 1)
+        for part in [path] if isinstance(path, str) else path:
+            for col, (_codec, b), _pages, words in k3_launch_groups(part):
+                w = torch.from_numpy(words.view(np.int32)).to(device)
+                if not torch.equal(bu.bitunpack_natural(w, 0, b), bu.bitunpack_natural_plain(w, 0, b)):
+                    raise AssertionError(f"K3 disagrees with plain over {part}/{col}: b={b}")
+                groups.append({"column": col, "b": b, "n_blocks": words.shape[0],
+                               "ms": event_ms(lambda: bu.bitunpack_natural(w, 0, b), reps, warmup),
+                               "plain_ms": event_ms(lambda: bu.bitunpack_natural_plain(w, 0, b),
+                                                    reps, warmup),
+                               "bound_ms": bound_ms(k3_bytes(b, words.shape[0]))})
         files[name] = {k: sum(g[k] for g in groups) for k in ("ms", "plain_ms", "bound_ms")}
-        files[name]["groups"] = groups
+        if isinstance(path, str):
+            files[name]["groups"] = groups
+        else:
+            files[name].update(parts=len(path), launch_groups=len(groups))
     emit("k3_groups", files=files)
     return {k: sum(f[k] for f in files.values()) for k in ("ms", "plain_ms", "bound_ms")}
 
@@ -1365,6 +1564,7 @@ def main() -> int:
     from strawboat_tpu_torch.kernels import _build, bitunpack as bu
 
     started = time.perf_counter()
+    phase_s = {}  # seconds from the start to the end of each path
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -1382,6 +1582,7 @@ def main() -> int:
     t0 = time.perf_counter()
     cols = tpch.generate_lineitem(1.0, seed=SEED, rows=SF10_ROWS)
     emit("generate", rows=SF10_ROWS, seed=SEED, seconds=time.perf_counter() - t0)
+    phase_s["generate"] = time.perf_counter() - started
 
     # the resident path: count only its launches
     bu.bitunpack_tiled.launches = 0
@@ -1391,6 +1592,7 @@ def main() -> int:
     k1_launches = bu.bitunpack_tiled.launches
     if k1_launches <= 0:
         raise AssertionError("the resident path never launched K1")
+    phase_s["resident"] = time.perf_counter() - started
 
     with tempfile.TemporaryDirectory() as tmpdir:
         # the scan path: count only its launches
@@ -1403,6 +1605,7 @@ def main() -> int:
             raise AssertionError("the scan path never launched K3")
         del tables
         torch.cuda.empty_cache()
+        phase_s["scan"] = time.perf_counter() - started
         # the general path: count only its launches
         bu.bitunpack_tiled.launches = 0
         bu.bitunpack_natural.launches = 0
@@ -1413,6 +1616,7 @@ def main() -> int:
         k1_launches += general["K1"]
         k3_launches += general["K3"]
         torch.cuda.empty_cache()
+        phase_s["general"] = time.perf_counter() - started
         # the whole lineitem file: count only its launches
         bu.bitunpack_tiled.launches = 0
         bu.bitunpack_natural.launches = 0
@@ -1423,6 +1627,7 @@ def main() -> int:
         k1_launches += full["K1"]
         k3_launches += full["K3"]
         torch.cuda.empty_cache()
+        phase_s["lineitem_full"] = time.perf_counter() - started
         # the typed lineitem files: count only their launches
         bu.bitunpack_tiled.launches = 0
         bu.bitunpack_natural.launches = 0
@@ -1434,6 +1639,7 @@ def main() -> int:
         k1_launches += typed["K1"]
         k3_launches += typed["K3"]
         torch.cuda.empty_cache()
+        phase_s["lineitem_typed"] = time.perf_counter() - started
         # the nested orders file: count only its launches
         bu.bitunpack_tiled.launches = 0
         bu.bitunpack_natural.launches = 0
@@ -1444,20 +1650,35 @@ def main() -> int:
         k1_launches += nested["K1"]
         k3_launches += nested["K3"]
         torch.cuda.empty_cache()
+        phase_s["nested"] = time.perf_counter() - started
         # the adaptive write path: count only its launches
         bu.bitunpack_natural.launches = 0
-        adaptive_paths = phase_adaptive(cols, tmpdir, device, os.path.getsize(full_path))
+        adaptive_paths = phase_adaptive({k: v[:ADAPTIVE_ROWS] for k, v in cols.items()}, tmpdir,
+                                        device)
         adaptive = {"K3": bu.bitunpack_natural.launches}
         if adaptive["K3"] <= 0:
             raise AssertionError("the adaptive path never launched K3")
         k3_launches += adaptive["K3"]
         torch.cuda.empty_cache()
+        phase_s["adaptive"] = time.perf_counter() - started
+        # the dataset path: count only its launches
+        bu.bitunpack_tiled.launches = 0
+        bu.bitunpack_natural.launches = 0
+        dataset_paths, dataset_rt = phase_dataset(cols, tmpdir, device)
+        dataset = {"K1": bu.bitunpack_tiled.launches, "K3": bu.bitunpack_natural.launches}
+        if min(dataset.values()) <= 0:
+            raise AssertionError(f"the dataset path did not launch K1 and K3: {dataset}")
+        k1_launches += dataset["K1"]
+        k3_launches += dataset["K3"]
+        torch.cuda.empty_cache()
+        phase_s["dataset"] = time.perf_counter() - started
         # K3 over one scan of each file the paths scan: the two integer
         # lineitem files, the orders file, the whole lineitem file, the
         # typed ones, the nested orders file and the two adaptive files
         k3.update(k3_summary({**paths, "orders": o_path, "lineitem_full": full_path,
-                              **typed_paths, "orders_nested": nested_path, **adaptive_paths},
-                             device))
+                              **typed_paths, "orders_nested": nested_path, **adaptive_paths,
+                              "dataset": dataset_paths}, device))
+        phase_s["k3_summary"] = time.perf_counter() - started
         k2_k0 = phase_k2_k0(paths["bitpack"], cols["l_shipdate"], device, SEED)
     # K1 over every plane shape the paths decode: the host-encoded planes of
     # the resident table (Q1, Q6 and the general queries over it; Q6 over
@@ -1465,7 +1686,7 @@ def main() -> int:
     # device-direct planes of make_resident(scan), those of the float64
     # money scan, and the nested table's lengths, leaf and validity planes,
     # once each
-    planes = [(w, b) for t in (rt, scan_rt, float_rt) for c in t.columns.values()
+    planes = [(w, b) for t in (rt, scan_rt, float_rt, dataset_rt) for c in t.columns.values()
               for w, b in c.planes]
     planes += [p for c in nested_rt.columns.values() for p in _all_planes(c)]
     k1["ms"] = sum(event_ms(lambda w=w, b=b: bu.bitunpack_tiled(w, 0, b)) for w, b in planes)
@@ -1473,7 +1694,7 @@ def main() -> int:
         event_ms(lambda w=w, b=b: bu.bitunpack_tiled_plain(w, 0, b)) for w, b in planes
     )
     k1["bound_ms"] = sum(bound_ms(w.numel() * 4 * (b + 32) // b) for w, b in planes)
-    del rt, scan_rt, float_rt, nested_rt, planes
+    del rt, scan_rt, float_rt, nested_rt, dataset_rt, planes
 
     def line(name, src, replaces, launches, facts):
         return {"name": name, "route": "cuda", "source": CSRC + src, "replaces": PALLAS + replaces,
@@ -1483,7 +1704,8 @@ def main() -> int:
                 "library_ms": None}
 
     emit("launches", general_path=general, lineitem_full_path=full, lineitem_typed_path=typed,
-         nested_path=nested, adaptive_path=adaptive, script_s=time.perf_counter() - started)
+         nested_path=nested, adaptive_path=adaptive, dataset_path=dataset,
+         script_s=time.perf_counter() - started, phase_end_s=phase_s)
     print(json.dumps({"kernels": [
         line("bitunpack_tiled", "bitunpack.cu", "222", k1_launches, k1),
         line("bitunpack_tiled_unseeded", "bitunpack.cu", "174", k2_k0["K2"]["launches"], k2_k0["K2"]),

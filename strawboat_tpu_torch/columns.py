@@ -300,9 +300,15 @@ def _values_from(arr, itemsize: int) -> np.ndarray:
 
 
 def _arrow_validity(arr) -> Optional[np.ndarray]:
-    if arr.null_count == 0:
+    """The array's validity bitmap as bools, or None when it has none; a
+    bitmap without nulls stays (as in the reference, whose writer writes
+    its validity prelude)."""
+    buf = arr.buffers()[0]
+    if buf is None:
         return None
-    return ~np.asarray(arr.is_null())
+    bits = np.unpackbits(np.frombuffer(buf, np.uint8), count=arr.offset + len(arr),
+                         bitorder="little")
+    return bits[arr.offset :].astype(bool)
 
 
 def from_arrow(arr) -> Column:

@@ -15,11 +15,12 @@ columns (dense sorted codes, at most 4096 composite groups) takes the fused
 branch first: the composite key ``Σ code_i · stride_i`` is a direct segment
 id, and the result comes back as host numpy.  Every other shape takes the
 general path, on the source's device: scan (a file through ``scan_file``,
-its pages pruned by the filter's atoms; a resident table decoded with its
-padding mask; a ``DeviceTable`` as it is), join, filter, then the
-sort-based ``hash_aggregate``, ``scalar_aggregate``, ``sort_table`` or a
-projection; results are device tensors, and ``(DeviceTable, mask)`` for
-projections.  File sources run on ``device`` (default ``"cuda"``, which
+its pages pruned by the filter's atoms; a glob or a list of part files
+through ``scan_dataset``, whole parts pruned first; a resident table
+decoded with its padding mask; a ``DeviceTable`` as it is), join, filter,
+then the sort-based ``hash_aggregate``, ``scalar_aggregate``,
+``sort_table`` or a projection; results are device tensors, and
+``(DeviceTable, mask)`` for projections.  File sources run on ``device`` (default ``"cuda"``, which
 raises without a card); a build-side query runs on its probe's device.
 """
 
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from ..device import as_device
-from ..errors import NotYetImplementedError, OutOfSpecError
+from ..errors import OutOfSpecError
 from .aggregate import (
     dense_group_count,
     dense_group_sum,
@@ -41,20 +42,20 @@ from .aggregate import (
     scalar_aggregate,
     segment_reduce,
 )
+from .dataset import scan_dataset
 from .expr import Expr
 from .join import hash_join
 from .resident import ResidentTable, _unpack_plane_tiled
 from .scan import DeviceColumn, DeviceTable, scan_file, unsigned_view
 from .sort import _by_items, _dictionary_rank, head_table, sort_indices, sort_table, take_table
 
-_DATASETS = "ROADMAP.md 'Modules to port': datasets (Query over globs and lists of files)"
 _FUSED_FNS = ("sum", "count", "min", "max", "avg", "mean")
 _MAX_FUSED_GROUPS = 4096
 
 
 @dataclass
 class Query:
-    path: Any  # a file path, a ResidentTable or a DeviceTable
+    path: Any  # a file path, a glob, a list of files, a ResidentTable or a DeviceTable
     # file sources: the device the scan and the query run on (a resident
     # source runs on its table's device)
     device: Any = "cuda"
@@ -127,12 +128,14 @@ class Query:
             # stage sees exactly the natural-order table
             table, self._base_mask = self.path.as_device_table(cols)
             return table
-        if not isinstance(self.path, str) or any(c in self.path for c in "*?["):
-            raise NotYetImplementedError(f"Query over {self.path!r} ({_DATASETS})")
-        # the filter's column-vs-literal atoms prune pages by zone maps
+        # the filter's column-vs-literal atoms prune files and pages by
+        # zone maps
         predicates = list(self._filter.atoms) if self._filter is not None else None
-        return scan_file(self.path, as_device(device or self.device), columns=cols,
-                         predicates=predicates)
+        dev = as_device(device or self.device)
+        if not isinstance(self.path, str) or any(c in self.path for c in "*?["):
+            # a glob or a list of part files: a dataset scan
+            return scan_dataset(self.path, dev, columns=cols, predicates=predicates)
+        return scan_file(self.path, dev, columns=cols, predicates=predicates)
 
     def run(self):
         """Grouped: a dict (``n_groups``, ``keys``, ``key_<col>``,

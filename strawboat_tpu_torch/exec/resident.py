@@ -33,7 +33,7 @@ from __future__ import annotations
 import concurrent.futures as cf
 import os
 from dataclasses import dataclass, field
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -1191,27 +1191,124 @@ def _assemble(f: Field, leaves, depth: int = 0):
     return cm.ListColumn(f.dtype, validity, level.offsets, child)
 
 
+def _host_model(dt: DeviceTable, n: str):
+    """A column of a ``DeviceTable`` back on the host as (its column model,
+    its field): a flat column by name, a nested field of ``dt.nested`` by
+    its name (assembled from its leaves), or a ``DeviceListColumn`` as its
+    chain of lists."""
+    if n in dt.nested:
+        f, leaves = dt.nested[n]
+        parts = [(leaf.levels, _leaf_model(dt[leaf.name], _np(
+            dt[leaf.name].child_validity if isinstance(dt[leaf.name], DeviceListColumn)
+            else dt[leaf.name].validity))) for leaf in leaves]
+        return _assemble(f, parts), f
+    c = dt[n]
+    if isinstance(c, DeviceListColumn):
+        return _list_model(c)
+    return _leaf_model(c, _np(c.validity)), Field(n, c.dtype)
+
+
 def _host_encoder(dt: DeviceTable, tile: int, device):
     """Encoding of a ``DeviceTable``'s columns on the host (the reference's
     loaders' decisions, so planes match them word for word) →
-    ``encode(name)``: a flat column by name, a nested field of
-    ``dt.nested`` by its name (assembled from its leaves), or a
-    ``DeviceListColumn`` as its chain of lists."""
+    ``encode(name)`` over :func:`_host_model`."""
 
     def encode(n):
-        if n in dt.nested:
-            f, leaves = dt.nested[n]
-            parts = [(leaf.levels, _leaf_model(dt[leaf.name], _np(
-                dt[leaf.name].child_validity if isinstance(dt[leaf.name], DeviceListColumn)
-                else dt[leaf.name].validity))) for leaf in leaves]
-            return _encode_model(n, _assemble(f, parts), f, tile, device)
-        c = dt[n]
-        if isinstance(c, DeviceListColumn):
-            model, f = _list_model(c)
-            return _encode_model(n, model, f, tile, device)
-        return _encode_model(n, _leaf_model(c, _np(c.validity)), Field(n, c.dtype), tile, device)
+        return _encode_model(n, *_host_model(dt, n), tile, device)
 
     return encode
+
+
+def _concat_validity(cols) -> Optional[np.ndarray]:
+    if all(c.validity is None for c in cols):
+        return None
+    return np.concatenate([np.ones(len(c), dtype=bool) if c.validity is None else c.validity
+                           for c in cols])
+
+
+def _concat_offsets(cols):
+    """The parts' offsets rebased onto one int64 run, and each part's
+    child window (start, length)."""
+    out, windows, base = [np.zeros(1, dtype=np.int64)], [], 0
+    for c in cols:
+        offs = c.offsets.astype(np.int64)
+        out.append(offs[1:] - offs[0] + base)
+        windows.append((int(offs[0]), int(offs[-1] - offs[0])))
+        base += int(offs[-1] - offs[0])
+    return np.concatenate(out), windows
+
+
+def _concat_models(name: str, cols):
+    """Column models of one column over several parts → one model (the
+    host side of ``pa.concat_tables``): string codes remapped into the
+    parts' merged dictionary, list and map offsets rebased in int64,
+    children concatenated level by level."""
+    first = cols[0]
+    if len(cols) == 1:
+        return first
+    if any(type(c) is not type(first) for c in cols):
+        raise OutOfSpecError(f"column {name!r} differs in kind across dataset parts")
+    validity = _concat_validity(cols)
+    if isinstance(first, _Codes):
+        from .dataset import _merge_dictionaries
+
+        gdict, tables = _merge_dictionaries([c.dictionary for c in cols])
+        codes = np.concatenate([t[c.codes] if len(t) else np.zeros(len(c), dtype=np.int32)
+                                for c, t in zip(cols, tables)])
+        return _Codes(first.dtype, validity, codes, gdict)
+    if isinstance(first, (cm.PrimitiveColumn, cm.BooleanColumn)):
+        return type(first)(first.dtype, validity, np.concatenate([c.values for c in cols]))
+    if isinstance(first, cm.ListColumn):
+        offsets, windows = _concat_offsets(cols)
+        child = _concat_models(name, [c.child.slice(*w) for c, w in zip(cols, windows)])
+        return cm.ListColumn(first.dtype, validity, offsets, child)
+    if isinstance(first, cm.MapColumn):
+        offsets, windows = _concat_offsets(cols)
+        keys = _concat_models(name, [c.keys.slice(*w) for c, w in zip(cols, windows)])
+        items = _concat_models(name, [c.items.slice(*w) for c, w in zip(cols, windows)])
+        return cm.MapColumn(first.dtype, validity, offsets, keys, items)
+    if isinstance(first, cm.FixedSizeListColumn):
+        child = _concat_models(name, [c.child.slice(0, len(c) * c.size) for c in cols])
+        return cm.FixedSizeListColumn(first.dtype, validity, first.size, child,
+                                      sum(len(c) for c in cols))
+    if isinstance(first, cm.StructColumn):
+        children = [_concat_models(name, list(kids)) for kids in zip(*(c.children for c in cols))]
+        return cm.StructColumn(first.dtype, validity, children, sum(len(c) for c in cols))
+    raise NotYetImplementedError(f"dataset load of column {name!r} ({type(first).__name__})")
+
+
+def _column_names(dt: DeviceTable, want) -> List[str]:
+    """The top-level columns of a scan, a nested field once by its name;
+    ``want`` picks and orders them (names the scan lacks are skipped)."""
+    present = set(dt.columns) | set(dt.nested)
+    owner = {leaf.name: n for n, (_f, leaves) in dt.nested.items() for leaf in leaves}
+    if want is not None:
+        return [n for n in want if n in present]
+    return list(dict.fromkeys(owner.get(n, n) for n in dt.columns))
+
+
+def _load_parts(paths, dev, want, tile: int) -> ResidentTable:
+    """Each part scanned on ``dev`` and brought back as host column models,
+    the models concatenated, then the host encoder over the whole table:
+    the dictionary decisions see the concatenated column, as the
+    reference's ``pa.concat_tables`` + ``make_resident`` do."""
+    from .scan import scan_file
+
+    names, fields, parts = None, None, []
+    for p in paths:
+        dt = scan_file(p, dev, columns=want)
+        part_names = _column_names(dt, want)
+        models = [_host_model(dt, n) for n in part_names]
+        del dt
+        if names is None:
+            names, fields = part_names, [f for _m, f in models]
+        elif part_names != names or [f for _m, f in models] != fields:
+            raise OutOfSpecError(f"dataset part {p!r} disagrees on its columns or their types")
+        parts.append([m for m, _f in models])
+    whole = {n: _concat_models(n, list(cols)) for n, cols in zip(names, zip(*parts))}
+    fields = dict(zip(names, fields))
+    encoded = _encode_all(lambda n: _encode_model(n, whole[n], fields[n], tile, dev), names)
+    return _resident_table(names, encoded, tile)
 
 
 def _make_resident_device(dt: DeviceTable, tile: int, device: torch.device) -> ResidentTable:
@@ -1327,7 +1424,8 @@ def _resident_table(names, encoded, tile: int) -> ResidentTable:
 def load_resident(
     path, device, columns: Optional[Sequence[str]] = None, tile: Optional[int] = None
 ) -> ResidentTable:
-    """Load one file's columns as a resident table on ``device``.
+    """Load a file's (or a dataset's) columns as a resident table on
+    ``device``.
 
     The file scans onto ``device`` (``scan_file``), the columns come back
     to the host and take the host encoder, so the planes equal the
@@ -1339,23 +1437,24 @@ def load_resident(
     as there.  A nested column assembles from its scanned leaves and
     levels (lists, maps and structs at any depth; fixed-size lists and
     durations too, which the reference refuses).  ``columns`` picks and
-    orders top-level columns; names the file lacks are skipped.  Globs
-    and lists of files wait for the dataset layer."""
+    orders top-level columns; names the file lacks are skipped.
+
+    ``path`` may also be a glob or a list of part files (a dataset): each
+    part scans on ``device`` and comes back to the host, the parts'
+    columns concatenate there (list columns too, which ``scan_dataset``
+    refuses), and the host encoder takes the whole table, as the
+    reference's ``load_resident`` concatenates its parts before encoding
+    (resident.py:1586-1594)."""
+    from .dataset import resolve_paths
     from .scan import scan_file
 
-    if not isinstance(path, str) or any(ch in path for ch in "*?["):
-        raise NotYetImplementedError(
-            "load_resident over a glob or a list of files "
-            "(ROADMAP.md 'Modules to port': datasets)"
-        )
     dev = as_device(device)
     tile = tile or TILE3D
     want = list(columns) if columns else None
+    if not isinstance(path, str) or any(ch in path for ch in "*?["):
+        return _load_parts(resolve_paths(path), dev, want, tile)
     dt = scan_file(path, dev, columns=want)
-    present = set(dt.columns) | set(dt.nested)
-    owner = {leaf.name: n for n, (_f, leaves) in dt.nested.items() for leaf in leaves}
-    names = [n for n in want if n in present] if want is not None else list(
-        dict.fromkeys(owner.get(n, n) for n in dt.columns))
+    names = _column_names(dt, want)
     encoded = _encode_all(_host_encoder(dt, tile, dev), names)
     del dt
     return _resident_table(names, encoded, tile)

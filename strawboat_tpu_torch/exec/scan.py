@@ -209,11 +209,15 @@ def to_pa_array(vals: np.ndarray, null_mask, dtype, dictionary=None):
 
     t = arrow_type(dtype)
     if dictionary is not None:
-        codes = np.asarray(vals, dtype=np.int64)
-        if null_mask is not None:
-            codes = np.where(null_mask, 0, codes)
-        taken = dictionary[codes] if len(dictionary) else np.full(len(codes), None)
-        return pa.array(taken, type=t, mask=null_mask)
+        if not len(dictionary):
+            return pa.array(np.full(len(vals), None), type=t, mask=null_mask)
+        # the dictionary taken by the codes, as the reference builds it:
+        # arrow's take gives the result a validity bitmap even without
+        # nulls, and the writers write what the bitmap says
+        values = [v.encode() if isinstance(v, str) else v for v in dictionary]
+        arr = pa.array(values, type=pa.binary()).take(
+            pa.array(np.asarray(vals, dtype=np.int64), mask=null_mask))
+        return arr.cast(t) if t is not None and arr.type != t else arr
     if t is not None and pa.types.is_decimal(t):
         # unscaled ints → sign-extended 16-byte limbs (an int64→decimal
         # cast would re-scale the value)

@@ -19,15 +19,20 @@ valid values gives the exact mode.
   (ONE_VALUE when a page holds one valid value, RLE when its exact run
   encoding beats the ratio, else the raw bitmap slice), and go through the
   host boolean family otherwise;
-- list columns (list / large_list levels) rebuild their column model from
-  the ``DeviceListColumn``'s offsets, validities and leaf, then take the
-  host writer's nested pages; a nested field of several leaves raises, as
-  in the reference.
+- list columns (list, large_list and fixed-size list levels) rebuild
+  their column model from the ``DeviceListColumn``'s offsets, validities
+  and leaf, then take the host writer's nested pages; a map rebuilds from
+  its ``.key`` and ``.value`` columns, both of which the table must hold,
+  and is written as one map column of two leaves (the reference writes
+  each leaf as a column of the map's type, a file that does not scan
+  back); any other nested field of several leaves raises, as in the
+  reference.
 
 Zones (``options.zone_maps``) come from the device stats for integers and
 float32, from the host bytes for float64, from the device counts for
 booleans; string and list columns get none.  With the same options the
-file's bytes equal the JAX ``write_device_table``'s.
+file's bytes equal the JAX ``write_device_table``'s (a map's, the JAX
+``write_file``'s).
 """
 
 from __future__ import annotations
@@ -53,7 +58,8 @@ from ..exec.pruning import ColumnZones, PageZone, _py, compute_zones
 from ..exec.scan import DeviceColumn, DeviceListColumn, host_values, unsigned_view
 from ..kernels.encode import paged_bool_stats_device, paged_stats_device
 from ..meta import ColumnMeta
-from ..schema import Field, decimal_params
+from ..read.levels import leaf_fields
+from ..schema import Field, decimal_params, fixed_size
 from ..util import env
 from ..util.hybrid_rle import encode_validity_bitpacked
 from ..util.obs import log_codec_choice
@@ -238,28 +244,81 @@ def _leaf_model(col: DeviceColumn) -> cm.Column:
     return cm.PrimitiveColumn(col.dtype, validity, vals)
 
 
+def _list_model(col: DeviceListColumn, leaf: cm.Column) -> cm.Column:
+    """The list levels of ``col`` (outer → inner) over its leaf model.  A
+    fixed-size list level's null rows lose their slots, as the reference's
+    arrow rebuild and ``to_nested`` leave them: its levels are then those
+    of a list whose null rows are empty."""
+    model = leaf
+    for offs, valid, lf in reversed(list(zip(col.offsets_stack, col.list_validities,
+                                             col.level_fields))):
+        offs = offs.cpu().numpy().astype(np.int64)
+        valid = None if valid is None else valid.cpu().numpy()
+        if fixed_size(lf.dtype) is not None and valid is not None and not valid.all():
+            lens = np.where(valid, np.diff(offs), 0)
+            rows = np.flatnonzero(valid)
+            model = model.take(cm._ranges(offs[rows], lens[rows]))
+            offs = np.zeros(len(lens) + 1, dtype=np.int64)
+            np.cumsum(lens, out=offs[1:])
+        model = cm.ListColumn(lf.dtype, valid, offs, model)
+    return model
+
+
+def _map_leaves(table, name: str, col: DeviceColumn):
+    """(key column, value column) when ``col`` is the key leaf of a map of
+    flat keys and values, outside any other level, whose value leaf the
+    table holds too, else None."""
+    if not isinstance(col, DeviceListColumn) or len(col.level_fields) != 1:
+        return None
+    f = col.level_fields[0]
+    if (not f.dtype.startswith("map") or name != f"{f.name}.key"
+            or any(c.is_nested for c in f.children[0].children)):
+        return None
+    value = table.columns.get(f"{f.name}.value")
+    if not isinstance(value, DeviceListColumn) or value.level_fields[0] != f:
+        return None
+    return col, value
+
+
+def _nested_pages(model: cm.Column, field: Field, rows: int, page_size, options):
+    """The host writer's nested pages of one nested column model, one list
+    of (page bytes, level count, no zone) per leaf."""
+    out = []
+    for lf, (nests, leaf) in zip(leaf_fields(field), to_nested(model, field)):
+        pages = []
+        for off, ln in _spans(rows, page_size):
+            s_nests, s_leaf = slice_nested(nests, leaf, off, ln)
+            body, num_values = write_nested_page(s_nests, s_leaf, lf, options)
+            pages.append((body, num_values, None))
+        out.append(pages)
+    return out
+
+
 def _list_pages(col: DeviceListColumn, field: Field, page_size, options):
-    """The host writer's nested pages of a list column rebuilt from its
-    offsets, validities and leaf; no zones."""
+    """The host writer's nested pages of a list column (list, large_list
+    and fixed-size list levels) rebuilt from its offsets, validities and
+    leaf; no zones."""
     if field.n_leaves != 1:
         raise NotYetImplementedError(f"device write of multi-leaf nested column {col.name!r}")
     f = field
     while f.is_nested:
-        if f.dtype not in ("list", "large_list"):
+        if f.dtype not in ("list", "large_list") and fixed_size(f.dtype) is None:
             raise NotYetImplementedError(f"device write of a {f.dtype} level ({col.name!r})")
         f = f.children[0]
-    model = _leaf_model(col)
-    for offs, valid, lf in reversed(list(zip(col.offsets_stack, col.list_validities, col.level_fields))):
-        model = cm.ListColumn(lf.dtype, None if valid is None else valid.cpu().numpy(),
-                              offs.cpu().numpy(), model)
-    ((nests, leaf),) = to_nested(model, field)
-    leaf_field = Field(field.name, col.dtype, True)
-    out = []
-    for off, ln in _spans(len(col), page_size):
-        s_nests, s_leaf = slice_nested(nests, leaf, off, ln)
-        body, num_values = write_nested_page(s_nests, s_leaf, leaf_field, options)
-        out.append((body, num_values, None))
-    return out
+    (pages,) = _nested_pages(_list_model(col, _leaf_model(col)), field, len(col), page_size,
+                             options)
+    return pages
+
+
+def _map_pages(key: DeviceListColumn, value: DeviceListColumn, field: Field, page_size, options):
+    """A map column's two leaves' pages, its key and value leaves rebuilt
+    from the scan's ``.key`` and ``.value`` columns over the map's offsets
+    and validity."""
+    valid = key.list_validities[0]
+    model = cm.MapColumn(field.dtype, None if valid is None else valid.cpu().numpy(),
+                         key.offsets_stack[0].cpu().numpy().astype(np.int64),
+                         _leaf_model(key), _leaf_model(value))
+    return _nested_pages(model, field, len(key), page_size, options)
 
 
 def _field(name: str, col: DeviceColumn) -> Field:
@@ -315,7 +374,19 @@ def write_device_table(path_or_file, table, options: Optional[WriteOptions] = No
     rows = max(table.num_rows, 1)
     page_size = max(min(int(options.max_page_size or rows), rows), 1)
     fields, pages, zones = [], [], {}
+    written_values = set()
     for name, col in table.columns.items():
+        if name in written_values:
+            continue
+        leaves = _map_leaves(table, name, col)
+        if leaves is not None:
+            key, value = leaves
+            field = dataclasses.replace(key.level_fields[0], nullable=key.validity is not None)
+            fields.append(field)
+            pages.extend([(body, n) for body, n, _z in leaf_pages]
+                         for leaf_pages in _map_pages(key, value, field, page_size, options))
+            written_values.add(f"{field.name}.value")
+            continue
         field = _field(name, col)
         col_pages = _column_pages(col, field, page_size, options)
         fields.append(field)

@@ -161,13 +161,19 @@ def _prepare(columns: Mapping[str, np.ndarray], schema: Optional[Sequence[Field]
             if f.is_nested:
                 out.append((arr, None))
                 continue
-            if isinstance(arr, cm.BinaryColumn):
-                validity = arr.validity if arr.validity is not None and not arr.validity.all() else None
-                if validity is not None and not f.nullable:
+            # a model's validity stays as it is, all valid too (an arrow
+            # bitmap without nulls): the reference writes what it holds
+            validity = arr.validity
+            if validity is not None and not f.nullable:
+                if not validity.all():
                     raise OutOfSpecError(f"column {f.name!r} has nulls but is not nullable")
+                validity = None
+            if isinstance(arr, cm.BinaryColumn):
                 out.append((_codec_binary(arr), validity))
                 continue
-            arr = _flat_arrays(arr)
+            if not isinstance(arr, (cm.PrimitiveColumn, cm.BooleanColumn)):
+                raise NotYetImplementedError(f"writing a {type(arr).__name__}")
+            arr = arr.values
         if isinstance(arr, np.ma.MaskedArray):
             null = np.ma.getmaskarray(arr)
             if null.ndim == 2:
@@ -224,18 +230,6 @@ def _prepare(columns: Mapping[str, np.ndarray], schema: Optional[Sequence[Field]
             arr = arr.astype(storage)
         out.append((np.ascontiguousarray(arr), validity))
     return schema, out, rows or 0
-
-
-def _flat_arrays(col):
-    """A flat numeric or bool ``columns.Column`` → the numpy (masked) array
-    ``_prepare`` takes."""
-    if isinstance(col, (cm.PrimitiveColumn, cm.BooleanColumn)):
-        if col.validity is None:
-            return col.values
-        mask = ~col.validity if col.values.ndim == 1 else np.repeat(
-            ~col.validity[:, None], col.values.shape[1], axis=1)
-        return np.ma.MaskedArray(col.values, mask=mask)
-    raise NotYetImplementedError(f"writing a {type(col).__name__}")
 
 
 def _codec_binary(col: "cm.BinaryColumn") -> BinaryColumn:

@@ -319,9 +319,13 @@ def test_decimal_choice_matches_jax(shape):
     if shape == "wide":
         mat[::7, 9] = 0x5A  # values beyond int64
     validity = _validity("some" if shape == "nullable" else "none", n, 1)
-    for ratio in (None, 1.0):
-        opts = WriteOptions(default_compression=Compression.LZ4, default_compress_ratio=ratio)
-        ropts = RefOptions(default_compression=RefCompression.LZ4, default_compress_ratio=ratio)
+    # both sides seed their trial samples: unseeded, each draws its own
+    # and a page near a ratio can take another codec on either side
+    for ratio, seed in ((None, 0), (1.0, 0), (1.0, 3)):
+        opts = WriteOptions(default_compression=Compression.LZ4, default_compress_ratio=ratio,
+                            sample_seed=seed)
+        ropts = RefOptions(default_compression=RefCompression.LZ4, default_compress_ratio=ratio,
+                           sample_seed=seed)
         assert (int(port_decimal.choose_compressor(mat, validity, opts))
                 == int(ref_decimal.choose_compressor(mat, validity, ropts)))
         assert (port_decimal.compress_decimal(mat, validity, opts)

@@ -349,6 +349,71 @@ def test_multi_leaf_nested_column_raises(tmp_path):
     ref_write(src, table, options=_opts()[1])
     with pytest.raises(NotYetImplementedError, match="multi-leaf"):
         write_device_table(str(tmp_path / "dst.str"), scan_file(src, "cpu"), _opts()[0])
+    # one leaf under a struct level inside a list raises too
+    table = pa.table({"ls": pa.array([[{"a": 1}], []], pa.list_(pa.struct([("a", pa.int64())])))})
+    ref_write(src, table, options=_opts()[1])
+    with pytest.raises(NotYetImplementedError, match="struct level"):
+        write_device_table(str(tmp_path / "dst.str"), scan_file(src, "cpu"), _opts()[0])
+
+
+@pytest.mark.parametrize("nulls", [False, True])
+def test_fixed_size_list_column_equals_jax(tmp_path, nulls):
+    """A fixed-size list level rebuilds from the scan's offsets: the file
+    equals the JAX ``write_device_table``'s, null rows' slots dropped from
+    the levels as there, and scans back equal."""
+    rng = np.random.default_rng(21)
+    n = 1500
+    valid = rng.random(n) > 0.2 if nulls else np.ones(n, bool)
+    fsl = pa.FixedSizeListArray.from_arrays(pa.array(rng.integers(0, 300, n * 3)), 3,
+                                            mask=pa.array(~valid) if nulls else None)
+    table = pa.table({"f": fsl, "k": pa.array(np.arange(n, dtype=np.int64))})
+    src = str(tmp_path / "src.str")
+    ref_write(src, table, options=_opts()[1])
+    for cols in (["f"], ["f", "k"]):
+        dst = _device_write(tmp_path, scan_file(src, "cpu", columns=cols),
+                            ref_scan(src, columns=cols), default_compress_ratio=1.0, sample_seed=3,
+                            max_page_size=256)
+        assert scan_file(dst, "cpu").to_arrow().column("f").to_pylist() == \
+            table.column("f").to_pylist()
+        assert ref_read_table(dst).column("f").to_pylist() == table.column("f").to_pylist()
+
+
+def test_map_column_writes_the_jax_writers_file(tmp_path):
+    """A map rebuilds from its ``.key`` and ``.value`` columns and is
+    written as one map column of two leaves: the file equals the JAX
+    ``write_file``'s of the same column, byte for byte, and scans back
+    equal.  The JAX ``write_device_table`` writes each leaf as a column of
+    the map's type, a file its own scan cannot read (pinned here); a table
+    that holds only one of the leaves raises in the port."""
+    from strawboat_tpu_torch.errors import NotYetImplementedError
+
+    n = 700
+    m = pa.array([None if i % 9 == 0 else [(f"k{i % 5}", i), ("x", None if i % 4 else -i)]
+                  for i in range(n)], type=pa.map_(pa.utf8(), pa.int64()))
+    table = pa.table({"a": pa.array(np.arange(n, dtype=np.int64)), "m": m})
+    port_opts, ref_opts = _opts(default_compress_ratio=1.0, sample_seed=3, max_page_size=256)
+    src, want = str(tmp_path / "src.str"), str(tmp_path / "want.str")
+    ref_write(src, table, options=ref_opts)
+    ref_write(want, table.select(["m"]), options=ref_opts)
+    dst = str(tmp_path / "dst.str")
+    write_device_table(dst, scan_file(src, "cpu", columns=["m"]), port_opts)
+    assert open(dst, "rb").read() == open(want, "rb").read()
+    # beside a flat column: the scan's columns come back
+    scanned = scan_file(src, "cpu")
+    assert list(scanned.columns) == ["a", "m.key", "m.value"]
+    write_device_table(dst, scanned, port_opts)
+    back = scan_file(dst, "cpu")
+    assert list(back.columns) == list(scanned.columns)
+    for name in scanned.columns:
+        assert back.to_arrow().column(name).to_pylist() == scanned.to_arrow().column(name).to_pylist()
+    assert ref_read_table(dst).column("m").to_pylist() == table.column("m").to_pylist()
+    ref_dst = str(tmp_path / "ref_dst.str")
+    ref_write_device_table(ref_dst, ref_scan(src), ref_opts)
+    with pytest.raises(IndexError):
+        ref_scan(ref_dst)
+    with pytest.raises(NotYetImplementedError, match="multi-leaf"):
+        write_device_table(str(tmp_path / "x.str"), DeviceTable({"m.key": scanned["m.key"]}, n),
+                           port_opts)
 
 
 # ---------------------------------------------------------------------------

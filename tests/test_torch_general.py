@@ -32,7 +32,7 @@ from strawboat_tpu.exec.query import Query as RefQuery
 from strawboat_tpu.exec.scan import scan_file as ref_scan
 from strawboat_tpu_torch.benchsuite import tpch
 from strawboat_tpu_torch.device import SIGN64
-from strawboat_tpu_torch.errors import CapacityError, NotYetImplementedError, OutOfSpecError
+from strawboat_tpu_torch.errors import CapacityError, OutOfSpecError
 from strawboat_tpu_torch.exec import (
     DeviceColumn,
     DeviceTable,
@@ -319,9 +319,10 @@ def test_query_over_a_file_runs_on_cuda_by_default(sort_file):
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             q.run()
+    # a glob and a list of files run as datasets, as in the JAX package
     for p in (path.replace("s.str", "*.str"), [path, path]):
-        with pytest.raises(NotYetImplementedError, match="datasets"):
-            Query(p, device="cpu").agg(n=("count", "v")).run()
+        got = Query(p, device="cpu").agg(n=("count", "v")).run()
+        assert int(got["n"]) == int(RefQuery(p).agg(n=("count", "v")).run()["n"])
 
 
 def test_order_by_string_is_lexical_over_resident_tables():

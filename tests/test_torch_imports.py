@@ -12,7 +12,9 @@ decimal type (DICT pages, then PATAS) and loads them resident, writes,
 scans and sums a list<struct<int64, utf8>> column beside a timestamp
 column (``list_segment_sum``, ``list_sum``, ``load_resident``), writes the
 lineitem columns through the adaptive chooser with LZ4 and rewrites their
-scan with ``write_device_table`` (both scanned back), and checks
+scan with ``write_device_table`` (both scanned back), writes them as a
+dataset of parts and scans, queries, streams, plans and loads it, and
+checks
 ``sys.modules`` afterwards: no
 ``jax``, no ``pyarrow``, no ``strawboat_tpu`` or ``strawboat_tpu.*``.  A
 source check holds every port file and ``chip_smoke.py`` to the same.
@@ -135,6 +137,20 @@ with tempfile.TemporaryDirectory() as d:
             assert np.array_equal(host_values(t[k]), cols[k]), (p, k)
         words = np.array([v.decode() for v in t["l_shipmode"].dictionary])
         assert np.array_equal(words[host_values(t["l_shipmode"])], cols["l_shipmode"]), p
+    from strawboat_tpu_torch.exec import dataset, iter_dataset_chunks, scan_dataset
+    parts = dataset.write_dataset(os.path.join(d, "ds"), {{k: cols[k] for k in tpch.LINEITEM_COLUMNS}},
+                                  2000, options=opts)
+    glob = os.path.join(d, "ds", "part-*.str")
+    ds = scan_dataset(glob, "cpu")
+    for k in tpch.INT_COLUMNS:
+        assert np.array_equal(host_values(ds[k]), cols[k]), k
+    pruned = scan_dataset(parts, "cpu", predicates=tpch.q6_pruning_predicates())
+    assert int(tpch.q6(pruned)) == tpch.q6_numpy_reference(cols)
+    assert tpch.q1_rows(tpch.q1_query(glob, "cpu")) == tpch.q1_numpy_reference(cols)
+    assert sum(c.num_rows for c in iter_dataset_chunks(glob, 1, "cpu")) == 5000
+    assert dataset.scan_dataset_with_manifest(dataset.dataset_manifest(glob), "cpu").num_rows == 5000
+    rtd = load_resident(glob, "cpu", columns=tpch.Q1_Q6_COLUMNS, tile=512)
+    assert int(tpch.q6(rtd)) == tpch.q6_numpy_reference(cols)
 ref = sorted(m for m in sys.modules if m == "strawboat_tpu" or m.startswith("strawboat_tpu."))
 print(json.dumps({{"jax": "jax" in sys.modules, "pyarrow": "pyarrow" in sys.modules,
                   "strawboat_tpu": ref}}))
@@ -149,6 +165,7 @@ def test_port_modules_listed():
     assert "strawboat_tpu_torch.schema" in MODULES
     assert "strawboat_tpu_torch.codecs.binary" in MODULES
     assert "strawboat_tpu_torch.exec.pruning" in MODULES
+    assert "strawboat_tpu_torch.exec.dataset" in MODULES
 
 
 def test_port_runs_without_jax_or_pyarrow():

@@ -172,9 +172,10 @@ def test_load_resident_columns_pick_and_order_as_jax(tmp_path):
     rt = load_resident(path, "cpu", columns=want, tile=TILE)
     _assert_same_planes(rt, ref_load(path, columns=want, tile=TILE))
     assert list(rt.columns) == ["u32", "neg", "nullable"]
-    for p in (str(tmp_path / "*.str"), [path]):
-        with pytest.raises(NotYetImplementedError, match="datasets"):
-            load_resident(p, "cpu")
+    # a glob and a list of files load as datasets, as in the JAX package
+    for p in (str(tmp_path / "*.str"), [path, path]):
+        _assert_same_planes(load_resident(p, "cpu", columns=want, tile=TILE),
+                            ref_load(p, columns=want, tile=TILE))
 
 
 def test_natural_slot_index_equals_jax(tmp_path):

@@ -15,7 +15,7 @@ import pyarrow as pa
 import pytest
 import torch
 
-from strawboat_tpu_torch.errors import NotYetImplementedError
+from strawboat_tpu_torch.errors import NotYetImplementedError, OutOfSpecError
 from strawboat_tpu_torch.benchsuite import tpch as port_tpch
 from strawboat_tpu_torch.exec import Query, col, dense_group_sum, make_resident
 
@@ -260,8 +260,7 @@ def test_dense_group_sum_matches_reference():
 
 
 def test_unported_query_shapes_raise():
-    """What the port still lacks raises ``NotYetImplementedError`` naming
-    ROADMAP.md: Query over globs and lists of files.  Nested resident
+    """What the port lacks raises ``NotYetImplementedError``.  Nested resident
     columns load now (``tests/test_torch_nested_resident.py``), and list
     columns stay out of ``as_device_table``.  The device-direct f64 encode runs now
     (``tests/test_torch_types.py``), and so do the shapes that raised before
@@ -272,12 +271,11 @@ def test_unported_query_shapes_raise():
     from strawboat_tpu.exec.resident import make_resident as ref_make
 
     rt, rt_ref = _both(_small_table(seed=5, n=600))
-    for q in (
-        Query("lineitem_*.str", device="cpu").agg(s=("sum", "v")),
-        Query(["a.str", "b.str"], device="cpu").agg(s=("sum", "v")),
-    ):
-        with pytest.raises(NotYetImplementedError, match="ROADMAP"):
-            q.run()
+    # globs and lists of files run as datasets now
+    # (``tests/test_torch_dataset.py``); a glob that matches nothing raises,
+    # as in the JAX package
+    with pytest.raises(OutOfSpecError, match="matched no files"):
+        Query("lineitem_*.str", device="cpu").agg(s=("sum", "v")).run()
     nested = make_resident(pa.table({"l": pa.array([[1], [2, 3]])}), "cpu", tile=TILE)
     assert nested["l"].kind == "list" and nested.list_sum("l").tolist() == [1, 5]
     with pytest.raises(NotYetImplementedError, match="list column"):
