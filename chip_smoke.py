@@ -87,8 +87,8 @@ the nested orders file (K1's and K3's launches are counted over 15):
 
 the adaptive write path (K3's launches are counted over 16):
 
-16. adaptive — the ten lineitem columns, the first 30 M generated rows
-   (SF5), through ``write_file`` with the JAX benchmark's write options
+16. adaptive — the ten lineitem columns, the first 15 M generated rows
+   (SF2.5), through ``write_file`` with the JAX benchmark's write options
    (LZ4, ratio 1.0, sample_seed 3, pages of 65 536 rows, zone maps):
    seconds and bytes, the codecs chosen (a handler on the port's logger)
    and each column's page codecs; scanned whole twice (every column equal
@@ -113,9 +113,28 @@ the dataset path (K1's and K3's launches are counted over 17):
    (every column equal, Q6); a warm scan inside ``device_trace``: the
    device's idle share and longest idle gap;
 
+the multi-device path (K1's and K3's launches are counted over 18):
+
+18. multidevice — a mesh of 4 shards on the one card
+   (``strawboat_tpu_torch/parallel``): the SF10 resident table sharded by
+   tile blocks, Q6 (``sharded_filter_sum``) and the sums by l_returnflag
+   (``sharded_group_sum``) == the single-device ``filter_sum`` /
+   ``group_sum``, median of 20 warm calls each; ``distributed_scan`` of the
+   ``dict`` file (each shard's columns == numpy over its page range,
+   padding rows not ``__valid__``); ``distributed_aggregate`` of it by
+   l_suppkey (grown from 4096 groups) == numpy, its exchange's bytes,
+   CUDA-event ms and bound, and its device idle share (``device_trace``);
+   ``distributed_join`` of lineitem with the orders file, revenue over
+   o_orderdate < 1995-03-15 == numpy; ``distributed_scan_dataset`` of the
+   60 parts (global dictionaries of the three utf8 columns; every shard ==
+   numpy); ``shuffle_by_key`` of its l_returnflag codes with and without
+   salt 4 (every row once; rows per shard printed);
+   ``streamed_dataset_aggregate`` by l_suppkey with Q6's range pruning
+   parts == numpy; ``dryrun_multidevice(4, "cuda")``;
+
 and last:
 
-18. k2_k0  — K2 and K0 bit-exact against their plain versions (b = 1..32),
+19. k2_k0  — K2 and K0 bit-exact against their plain versions (b = 1..32),
    then (their launches counted) l_shipdate's bit-packed pages decoded
    through K2's and K0's natural-order entry points == the generated column;
    each width group's lane count, times and bound are printed.
@@ -167,9 +186,13 @@ TYPED_STRIDE = 5
 DATASET_PART_ROWS = 1_000_000
 DATASET_CHUNK_PAGES = 16
 DATASET_K3_REPS = 5
-# the adaptive phase takes the first 30 M generated rows (SF5); its SF10
-# numbers are in PERF.md
-ADAPTIVE_ROWS = 30_000_000
+# the adaptive phase takes the first 15 M generated rows (SF2.5); its SF10
+# and SF5 numbers are in PERF.md
+ADAPTIVE_ROWS = 15_000_000
+# the multidevice phase: shards of the mesh on the one card, and Q3's date
+# (1995-03-15 in days since 1992-01-01)
+MULTI_SHARDS = 4
+Q3_DATE = 1169
 FILES = {
     "dict": {"STRAWBOAT_DICT_COMPRESSION": "1", "STRAWBOAT_BITPACK_COMPRESSION": "1"},
     "bitpack": {"STRAWBOAT_BITPACK_COMPRESSION": "1"},
@@ -1319,8 +1342,9 @@ def phase_dataset(cols, tmpdir, device):
     the resident Q6 and Q1, ``compact_dataset`` of the first 8 parts into
     2, and a warm scan inside ``device_trace`` for the device's idle share;
     every answer against numpy.  Returns the parts' paths, whose K3 groups
-    the kernel line times, and the resident table, whose planes it times
-    K1 over."""
+    the kernel line times, the resident table, whose planes it times K1
+    over, and the sorted columns, which the multidevice phase checks its
+    dataset scan against."""
     from strawboat_tpu_torch.benchsuite import tpch
     from strawboat_tpu_torch.codecs import WriteOptions
     from strawboat_tpu_torch.constants import Compression
@@ -1458,7 +1482,264 @@ def phase_dataset(cols, tmpdir, device):
     emit("dataset", rows=len(data["l_shipdate"]), part_rows=DATASET_PART_ROWS, page_rows=PAGE_ROWS,
          order="l_shipdate", options="LZ4, ratio 1.0, sample_seed 3, zone maps", **facts,
          max_memory_allocated=torch.cuda.max_memory_allocated(), nvidia_smi=nvidia_smi())
-    return paths, rt
+    return paths, rt, data
+
+
+def _exchanges(records) -> dict:
+    """Recorded collectives summed by kind: calls, bytes read and written,
+    CUDA-event ms and the bound (read + write bytes at HBM_BYTES_PER_S)."""
+    from strawboat_tpu_torch.parallel.collectives import exchange_summary
+
+    out = {}
+    for r in exchange_summary(records):
+        e = out.setdefault(r["op"], {"calls": 0, "read_bytes": 0, "write_bytes": 0, "ms": 0.0})
+        e["calls"] += 1
+        e["read_bytes"] += r["read_bytes"]
+        e["write_bytes"] += r["write_bytes"]
+        e["ms"] += r["ms"]
+    for e in out.values():
+        e["bound_ms"] = bound_ms(e["read_bytes"] + e["write_bytes"])
+    return out
+
+
+def _shard_rows(valid) -> list:
+    return [int(v.sum()) for v in valid.shards]
+
+
+def _group_check(what: str, res, keys: np.ndarray, sums: dict) -> int:
+    """A distributed aggregate's valid slots against numpy bincounts
+    (``sums``: result name → per-key numpy totals)."""
+    from strawboat_tpu_torch.parallel import concat_shards
+
+    ok = _host(concat_shards(res["valid"]))
+    got_keys = _host(concat_shards(res["keys"]))[ok]
+    want_keys = np.flatnonzero(np.bincount(keys))
+    _check_equal(f"{what}: keys", sorted(got_keys.tolist()), want_keys.tolist())
+    for name, want in sums.items():
+        got = _host(concat_shards(res[name]))[ok]
+        if not np.array_equal(got, want[got_keys]):
+            raise AssertionError(f"{what}: {name} differs from numpy")
+    return len(got_keys)
+
+
+def phase_multidevice(rt, cols, paths, o_path, dataset_paths, data, tmpdir, device):
+    """The multi-device layer on a mesh of MULTI_SHARDS shards on the one
+    card, over what the earlier phases built: the SF10 resident table
+    sharded (Q6 and the grouped sums by l_returnflag against the
+    single-device table), ``distributed_scan`` of the ``dict`` integer
+    file (each shard's columns against numpy over its page range),
+    ``distributed_aggregate`` of it by l_suppkey (from 4096 groups, grown),
+    ``distributed_join`` of lineitem with the orders file (revenue over
+    o_orderdate < 1995-03-15), ``distributed_scan_dataset`` of the
+    dataset's parts, ``shuffle_by_key`` of its l_returnflag codes (a hot
+    key) with and without salt, ``streamed_dataset_aggregate`` pruned by
+    Q6's range, and ``dryrun_multidevice``; every answer against numpy or
+    the single-device path.  The exchanges' bytes, CUDA-event times and
+    bound, and one aggregate's device idle share, are printed.  Returns
+    the sharded table, whose planes the kernel line times K1 over."""
+    from strawboat_tpu_torch import parallel as par
+    from strawboat_tpu_torch.benchsuite import tpch
+    from strawboat_tpu_torch.exec import dataset as ds
+    from strawboat_tpu_torch.exec.scan import _open, page_keep_mask
+    from strawboat_tpu_torch.parallel import ShardedTensor, concat_shards, dist_scan
+    from strawboat_tpu_torch.parallel.collectives import record_exchanges
+    from strawboat_tpu_torch.parallel.dryrun import dryrun_multidevice
+    from strawboat_tpu_torch.util.obs import device_trace
+
+    torch.cuda.reset_peak_memory_stats()
+    mesh = par.make_mesh(MULTI_SHARDS, device)
+    facts = {"shards": MULTI_SHARDS, "devices": sorted({str(d) for d in mesh.devices.flat})}
+
+    # the resident table sharded by tile blocks, K1 on each shard's planes
+    t0 = time.perf_counter()
+    srt = par.shard_resident(rt, mesh, "shards")
+    torch.cuda.synchronize()
+    q6 = ({"l_shipdate": (731, 1096), "l_discount": (5, 8), "l_quantity": (None, 24)},
+          "l_extendedprice", "l_discount")
+    n_flags = len(rt["l_returnflag"].dictionary_host)
+    group = ("l_returnflag", ["l_quantity", "l_extendedprice"], n_flags)
+    got = int(par.sharded_filter_sum(srt, *q6))
+    _check_equal("sharded Q6 against filter_sum", got, int(rt.filter_sum(*q6)))
+    _check_equal("sharded Q6", got, tpch.q6_numpy_reference(cols))
+    sums, cnt = par.sharded_group_sum(srt, *group)
+    want_sums, want_cnt = rt.group_sum(*group)
+    if not (all(torch.equal(a, b) for a, b in zip(sums, want_sums)) and torch.equal(cnt, want_cnt)):
+        raise AssertionError("sharded group_sum differs from group_sum")
+    with record_exchanges() as recs:
+        par.sharded_filter_sum(srt, *q6)
+        par.sharded_group_sum(srt, *group)
+    facts["resident"] = {
+        "shard_s": time.perf_counter() - t0, "rows_per_shard": srt.rows_per_shard,
+        "q6_ms": wall_ms(lambda: par.sharded_filter_sum(srt, *q6).item()),
+        "q6_single_device_ms": wall_ms(lambda: rt.filter_sum(*q6).item()),
+        "group_sum_ms": wall_ms(lambda: par.sharded_group_sum(srt, *group)[1].cpu()),
+        "group_sum_single_device_ms": wall_ms(lambda: rt.group_sum(*group)[1].cpu()),
+        "psum": _exchanges(recs), "equal_to_single_device": True}
+
+    # the dict file's pages over the shards, each shard's rows against numpy
+    t0 = time.perf_counter()
+    dt = par.distributed_scan(paths["dict"], mesh)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    n = len(cols["l_orderkey"])
+    ranges = dist_scan.shard_page_ranges(-(-n // PAGE_ROWS), MULTI_SHARDS)
+    for si, r in enumerate(ranges):
+        lo, hi = r.start * PAGE_ROWS, min(r.stop * PAGE_ROWS, n)
+        valid = _host(dt["__valid__"].values.shards[si])
+        if not (valid[: hi - lo].all() and not valid[hi - lo:].any()):
+            raise AssertionError(f"distributed scan: shard {si}'s __valid__")
+        for k in tpch.INT_COLUMNS:
+            if not np.array_equal(_host(dt[k].values.shards[si][: hi - lo]), cols[k][lo:hi]):
+                raise AssertionError(f"distributed scan: shard {si}'s {k}")
+    facts["scan"] = {"seconds": scan_s, "rows_per_shard": _shard_rows(dt["__valid__"].values),
+                     "padded_rows": dt.num_rows, "equal_to_numpy": True}
+
+    # grouped by l_suppkey (10 000 groups): the capacity grows from 4096
+    valid = dt["__valid__"].values
+    aggs = {"qty": ("sum", dt["l_quantity"].values), "price": ("sum", dt["l_extendedprice"].values),
+            "n": ("count", dt["l_quantity"].values)}
+
+    def aggregate():
+        return par.distributed_aggregate(mesh, "shards", dt["l_suppkey"].values, aggs, mask=valid,
+                                         num_groups=4096)
+
+    t0 = time.perf_counter()
+    res = aggregate()
+    torch.cuda.synchronize()
+    agg_s = time.perf_counter() - t0
+    sk = cols["l_suppkey"]
+    groups = _group_check("distributed aggregate by l_suppkey", res, sk, {
+        "qty": np.bincount(sk, weights=cols["l_quantity"]).astype(np.int64),
+        "price": np.bincount(sk, weights=cols["l_extendedprice"]).astype(np.int64),
+        "n": np.bincount(sk)})
+    with record_exchanges() as recs:
+        aggregate()
+    with device_trace(os.path.join(tmpdir, "multidevice_trace"), device) as tr:
+        aggregate()
+    os.remove(tr.path)
+    facts["aggregate"] = {"seconds": agg_s, "groups": groups,
+                          "slots_per_shard": len(res["keys"].shards[0]),
+                          "warm_ms": wall_ms(lambda: aggregate()["n"].shards[0].cpu(), reps=3),
+                          "exchange": _exchanges(recs), "idle_share": tr.idle_share,
+                          "device_busy_s": tr.busy_s, "window_s": tr.window_s,
+                          "equal_to_numpy": True}
+    del res
+
+    # lineitem ⋈ orders on the order key, revenue over o_orderdate < 1995-03-15
+    orders = tpch.generate_orders(SF10_ROWS / tpch.ROWS_PER_SF, seed=1)
+    t0 = time.perf_counter()
+    ot = par.distributed_scan(o_path, mesh, columns=["o_orderkey", "o_orderdate"])
+
+    def join():
+        return par.distributed_join(mesh, "shards", dt["l_orderkey"].values,
+                                    (dt["l_extendedprice"].values,), ot["o_orderkey"].values,
+                                    (ot["o_orderdate"].values,), probe_valid=valid,
+                                    build_valid=ot["__valid__"].values)
+
+    _k, (price,), (odate,), jvalid = join()
+    revenue = sum(int(torch.where(v & (d < Q3_DATE), p, 0).sum())
+                  for p, d, v in zip(price.shards, odate.shards, jvalid.shards))
+    matched = sum(int(v.sum()) for v in jvalid.shards)
+    join_s = time.perf_counter() - t0
+    lk = cols["l_orderkey"]
+    hit = lk < len(orders["o_orderkey"])
+    late = orders["o_orderdate"][lk[hit]] < Q3_DATE
+    _check_equal("distributed join: matched rows", matched, int(hit.sum()))
+    _check_equal("distributed join: revenue", revenue,
+                 int(cols["l_extendedprice"][hit][late].sum()))
+    del _k, price, odate, jvalid
+    with record_exchanges() as recs:
+        out = join()
+    del out
+    facts["join"] = {"seconds": join_s, "probe_rows": n, "build_rows": len(orders["o_orderkey"]),
+                     "build_rows_per_shard": _shard_rows(ot["__valid__"].values),
+                     "matched": matched, "revenue": revenue,
+                     "exchange": _exchanges(recs), "equal_to_numpy": True}
+    del dt, ot, valid, aggs
+    torch.cuda.empty_cache()
+
+    # the dataset's 60 parts over the shards, one global dictionary a string
+    t0 = time.perf_counter()
+    dd = par.distributed_scan_dataset(dataset_paths, mesh)
+    torch.cuda.synchronize()
+    dscan_s = time.perf_counter() - t0
+    units, opened, _schema = dist_scan._dataset_units(dataset_paths, MULTI_SHARDS)
+    part = {p: i * DATASET_PART_ROWS for i, p in enumerate(dataset_paths)}
+    for si, ids in enumerate(dist_scan._assign_units(units, opened, MULTI_SHARDS)):
+        idx = np.concatenate([np.arange(part[p] + r.start * PAGE_ROWS,
+                                        part[p] + min(r.stop * PAGE_ROWS, DATASET_PART_ROWS))
+                              for p, r in (units[i] for i in ids)])
+        if not _host(dd["__valid__"].values.shards[si])[: len(idx)].all():
+            raise AssertionError(f"dataset scan: shard {si}'s __valid__")
+        for k in tpch.LINEITEM_COLUMNS:
+            got = _host(dd[k].values.shards[si][: len(idx)])
+            if dd[k].dictionary is not None:
+                got = np.array([v.decode() for v in dd[k].dictionary])[got]
+            if not np.array_equal(got, data[k][idx]):
+                raise AssertionError(f"dataset scan: shard {si}'s {k}")
+    facts["dataset_scan"] = {"seconds": dscan_s, "parts": len(dataset_paths), "units": len(units),
+                             "rows_per_shard": _shard_rows(dd["__valid__"].values),
+                             "dictionary_sizes": {k: len(dd[k].dictionary) for k in dd.columns
+                                                  if dd[k].dictionary is not None},
+                             "equal_to_numpy": True}
+
+    # a hot key: l_returnflag's codes (half the rows are 'N'), with and without salt
+    key = dd["l_returnflag"].values
+    m = len(key.shards[0])
+    row_id = ShardedTensor(torch.arange(si * m, (si + 1) * m, device=d)
+                           for si, d in enumerate(mesh.axis_devices("shards")))
+    facts["shuffle"] = {}
+    flat_key = concat_shards(key)
+    for salt in (0, 4):
+        t0 = time.perf_counter()
+        k2, (r2,), v2 = par.shuffle_by_key(mesh, "shards", key, (row_id,), capacity=1 << 20,
+                                           salt=salt)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        ok = concat_shards(v2)
+        got_rows = concat_shards(r2)[ok]
+        if not (torch.equal(torch.sort(got_rows).values, torch.arange(len(key), device=device))
+                and torch.equal(concat_shards(k2)[ok], flat_key[got_rows])):
+            raise AssertionError(f"shuffle (salt {salt}) lost or changed rows")
+        facts["shuffle"][f"salt_{salt}"] = {"seconds": seconds, "rows_per_shard": _shard_rows(v2),
+                                            "capacity": len(v2.shards[0]) // MULTI_SHARDS}
+        del k2, r2, v2, ok, got_rows
+    del dd, key, row_id, flat_key
+    torch.cuda.empty_cache()
+
+    # streamed by l_suppkey, parts and pages pruned by Q6's range
+    preds = tpch.q6_pruning_predicates()
+    t0 = time.perf_counter()
+    res = par.streamed_dataset_aggregate(
+        mesh, "shards", dataset_paths, key="l_suppkey",
+        aggs={"price": ("sum", "l_extendedprice"), "n": ("count", "l_extendedprice")},
+        chunk_pages=DATASET_CHUNK_PAGES, num_groups=16384, predicates=preds)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    kept = []
+    for p in dataset_paths:
+        if ds.file_may_match(p, preds):
+            keep = page_keep_mask(p, _open(p)[1], preds)
+            rows = np.arange(DATASET_PART_ROWS) if keep is None else _pages_rows(
+                keep, DATASET_PART_ROWS)
+            kept.append(part[p] + rows)
+    kept = np.concatenate(kept)
+    sk = data["l_suppkey"][kept]
+    groups = _group_check("streamed dataset aggregate", res, sk, {
+        "price": np.bincount(sk, weights=data["l_extendedprice"][kept]).astype(np.int64),
+        "n": np.bincount(sk)})
+    facts["streamed"] = {"seconds": stream_s, "rows": len(kept), "groups": groups,
+                         "equal_to_numpy": True}
+    del res
+
+    t0 = time.perf_counter()
+    dry = dryrun_multidevice(MULTI_SHARDS, device)
+    facts["dryrun"] = {"seconds": time.perf_counter() - t0, **dry}
+    emit("multidevice", **facts, max_memory_allocated=torch.cuda.max_memory_allocated(),
+         nvidia_smi=nvidia_smi(),
+         exchange_note="all_to_all and psum are copies within one card (every shard on "
+                       "cuda:0); the bound is their read + write bytes at 3.35 TB/s")
+    return srt
 
 
 def k3_summary(paths, device) -> dict:
@@ -1664,7 +1945,7 @@ def main() -> int:
         # the dataset path: count only its launches
         bu.bitunpack_tiled.launches = 0
         bu.bitunpack_natural.launches = 0
-        dataset_paths, dataset_rt = phase_dataset(cols, tmpdir, device)
+        dataset_paths, dataset_rt, sorted_cols = phase_dataset(cols, tmpdir, device)
         dataset = {"K1": bu.bitunpack_tiled.launches, "K3": bu.bitunpack_natural.launches}
         if min(dataset.values()) <= 0:
             raise AssertionError(f"the dataset path did not launch K1 and K3: {dataset}")
@@ -1672,6 +1953,19 @@ def main() -> int:
         k3_launches += dataset["K3"]
         torch.cuda.empty_cache()
         phase_s["dataset"] = time.perf_counter() - started
+        # the multi-device path: count only its launches
+        bu.bitunpack_tiled.launches = 0
+        bu.bitunpack_natural.launches = 0
+        srt = phase_multidevice(rt, cols, paths, o_path, dataset_paths, sorted_cols, tmpdir,
+                                device)
+        multi = {"K1": bu.bitunpack_tiled.launches, "K3": bu.bitunpack_natural.launches}
+        if min(multi.values()) <= 0:
+            raise AssertionError(f"the multidevice path did not launch K1 and K3: {multi}")
+        k1_launches += multi["K1"]
+        k3_launches += multi["K3"]
+        del sorted_cols
+        torch.cuda.empty_cache()
+        phase_s["multidevice"] = time.perf_counter() - started
         # K3 over one scan of each file the paths scan: the two integer
         # lineitem files, the orders file, the whole lineitem file, the
         # typed ones, the nested orders file and the two adaptive files
@@ -1689,12 +1983,13 @@ def main() -> int:
     planes = [(w, b) for t in (rt, scan_rt, float_rt, dataset_rt) for c in t.columns.values()
               for w, b in c.planes]
     planes += [p for c in nested_rt.columns.values() for p in _all_planes(c)]
+    planes += [p for c in srt.columns.values() for local in c.local for p in local.planes]
     k1["ms"] = sum(event_ms(lambda w=w, b=b: bu.bitunpack_tiled(w, 0, b)) for w, b in planes)
     k1["plain_ms"] = sum(
         event_ms(lambda w=w, b=b: bu.bitunpack_tiled_plain(w, 0, b)) for w, b in planes
     )
     k1["bound_ms"] = sum(bound_ms(w.numel() * 4 * (b + 32) // b) for w, b in planes)
-    del rt, scan_rt, float_rt, nested_rt, dataset_rt, planes
+    del rt, scan_rt, float_rt, nested_rt, dataset_rt, srt, planes
 
     def line(name, src, replaces, launches, facts):
         return {"name": name, "route": "cuda", "source": CSRC + src, "replaces": PALLAS + replaces,
@@ -1704,7 +1999,7 @@ def main() -> int:
                 "library_ms": None}
 
     emit("launches", general_path=general, lineitem_full_path=full, lineitem_typed_path=typed,
-         nested_path=nested, adaptive_path=adaptive, dataset_path=dataset,
+         nested_path=nested, adaptive_path=adaptive, dataset_path=dataset, multidevice_path=multi,
          script_s=time.perf_counter() - started, phase_end_s=phase_s)
     print(json.dumps({"kernels": [
         line("bitunpack_tiled", "bitunpack.cu", "222", k1_launches, k1),

@@ -152,7 +152,8 @@ def _identity(fn: str, dtype: torch.dtype):
 
 def _range_reduce(v: torch.Tensor, off: torch.Tensor, count: torch.Tensor, fn: str) -> torch.Tensor:
     """``fn`` (sum / min / max) of ``v`` over each range [off[g], off[g+1])
-    of a partition of ``v``; an empty range holds the reduction's identity.
+    of consecutive rows from ``v``'s start (rows past ``off[-1]`` count in
+    none); an empty range holds the reduction's identity.
 
     Integer sums are prefix-sum differences, exact mod 2^64.  Floats take
     ``torch.segment_reduce``; integers whose values float64 holds exactly
@@ -162,18 +163,22 @@ def _range_reduce(v: torch.Tensor, off: torch.Tensor, count: torch.Tensor, fn: s
         prefix = torch.zeros(v.shape[0] + 1, dtype=torch.int64, device=v.device)
         torch.cumsum(v, 0, out=prefix[1:])
         return prefix[off[1:]] - prefix[off[:-1]]
+    # rows past off[-1] (a grouped aggregate's masked rows) form one more
+    # range, dropped from the result
+    tail = torch.cat([off, off.new_full((1,), v.shape[0])])
     if v.is_floating_point():
-        return torch.segment_reduce(v, fn, offsets=off, initial=identity)
+        return torch.segment_reduce(v, fn, offsets=tail, initial=identity)[:-1]
     lo, hi = torch.aminmax(v) if v.numel() else (torch.zeros(()), torch.zeros(()))
     if -(1 << 53) <= int(lo) and int(hi) <= (1 << 53):
-        r = torch.segment_reduce(v.to(torch.float64), fn, offsets=off,
-                                 initial=_identity(fn, torch.float64))
+        r = torch.segment_reduce(v.to(torch.float64), fn, offsets=tail,
+                                 initial=_identity(fn, torch.float64))[:-1]
         r = torch.where(count > 0, r, 0.0).to(v.dtype)  # ±inf has no integer cast
         return torch.where(count > 0, r, identity)
-    seg = torch.repeat_interleave(torch.arange(count.shape[0], device=v.device), count,
+    lengths = tail[1:] - tail[:-1]
+    seg = torch.repeat_interleave(torch.arange(lengths.shape[0], device=v.device), lengths,
                                   output_size=v.shape[0])
-    out = torch.full(count.shape, identity, dtype=v.dtype, device=v.device)
-    return out.scatter_reduce_(0, seg, v, _REDUCE[fn], include_self=True)
+    out = torch.full(lengths.shape, identity, dtype=v.dtype, device=v.device)
+    return out.scatter_reduce_(0, seg, v, _REDUCE[fn], include_self=True)[:-1]
 
 
 def grouped_aggregate(
@@ -230,10 +235,12 @@ def grouped_aggregate(
     # (masked ones sort last), so slot g is the row range [off[g],
     # off[g+1]) and its valid part [voff[g], voff[g+1]): every reduction
     # reads ranges, with no atomics (a scatter into a few slots serializes
-    # on their addresses)
-    nv = n if msk is None else int(msk.sum())
+    # on their addresses).  The valid row count stays on the device (no
+    # host sync): the value columns keep every sorted row and the ranges
+    # end at the valid ones
+    nv = n if msk is None else msk.sum()
     off = torch.searchsorted(seg_ids, torch.arange(G + 1, device=dev))
-    voff = off.clamp(max=nv)
+    voff = off if msk is None else torch.minimum(off, nv)
     count = voff[1:] - voff[:-1]
     outs = []
     for fn, vi in agg_specs:
@@ -242,7 +249,7 @@ def grouped_aggregate(
             continue
         if fn not in ("sum", "min", "max"):
             raise ValueError(f"unknown aggregate {fn}")
-        v = value_cols[vi][order[:nv]]
+        v = value_cols[vi][order]
         flip, narrow = False, None
         if not v.is_floating_point():
             if fn == "sum":

@@ -1,0 +1,106 @@
+"""Distributed hash aggregate: local partials → keyed exchange → final.
+
+Counterpart of ``strawboat_tpu/parallel/dist_agg.py`` (BASELINE config 5:
+hash-partitioned scan → shuffle → hash aggregate).  Each shard
+pre-aggregates its rows with the port's ``grouped_aggregate``, the
+``num_groups`` partial slots of every shard are repartitioned by key hash
+(one all_to_all a payload), and each shard combines the partials it owns.
+The exchange moves ``P · num_groups`` slots a shard, not the rows.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from ..errors import CapacityError
+from ..exec.aggregate import grouped_aggregate
+from .collectives import ShardedTensor, max_to_host, shard
+from .shuffle import exchange, grown, hash_partition_ids
+
+_COMBINE = {"sum": "sum", "count": "sum", "min": "min", "max": "max"}
+
+
+def _slot_keys(key: torch.Tensor, rep: torch.Tensor) -> torch.Tensor:
+    """Each slot's key, read at its representative row (clipped, as the
+    reference reads it)."""
+    return key[rep.long().clamp(0, max(key.shape[0] - 1, 0))]
+
+
+def local_partials(key, cols, mask, num_groups: int, fns: Tuple[str, ...], n_parts: int):
+    """One shard's stage 1: its partial groups as exchange payloads
+    ``(slot keys, aggregates..., slot valid)``, each slot's destination
+    and the shard's group count (a 0-d tensor)."""
+    specs = tuple((fn, i) for i, fn in enumerate(fns))
+    _u, n_grp, rep, outs = grouped_aggregate((key,), cols, mask, num_groups, specs)
+    pvalid = torch.arange(num_groups, device=key.device) < n_grp
+    pkeys = _slot_keys(key, rep)
+    return (pkeys,) + tuple(outs) + (pvalid,), hash_partition_ids(pkeys, n_parts), n_grp
+
+
+def combine(keys, partials, valid, num_groups: int, fns: Tuple[str, ...]):
+    """One shard's final stage over the partials it received: ``(keys,
+    aggregates, valid, group count)``."""
+    specs = tuple((_COMBINE[fn], i) for i, fn in enumerate(fns))
+    _u, n2, rep, outs = grouped_aggregate((keys,), partials, valid, num_groups, specs)
+    fvalid = torch.arange(num_groups, device=keys.device) < n2
+    return _slot_keys(keys, rep), tuple(outs), fvalid, n2
+
+
+def exchange_partials(devs, staged, num_groups: int):
+    """Stage 2: every shard's partial slots to their owners; per shard
+    ``(keys, partials, valid)`` of ``P · num_groups`` slots."""
+    n_parts = len(devs)
+    per_shard, recv_valid = exchange(devs, [s[0] for s in staged], [s[1] for s in staged],
+                                     n_parts, num_groups)
+    out = []
+    for r, rv in zip(per_shard, recv_valid):
+        out.append((r[0], r[1:-1], rv & r[-1]))
+    return out
+
+
+def distributed_aggregate(
+    mesh,
+    axis: str,
+    key,
+    values: Dict[str, Tuple[str, object]],
+    mask=None,
+    num_groups: int = 4096,
+    on_overflow: str = "grow",
+):
+    """Group ``key`` rows sharded over ``axis``; returns per-shard final
+    ``{"keys", "valid", <name>...}`` as ``ShardedTensor``s of
+    ``num_groups`` slots a shard, globally partitioned by key hash.
+
+    ``values``: out_name → (fn, sharded values), fn in {sum, count, min,
+    max}.  More groups than ``num_groups`` on any shard, before or after
+    the exchange, never pass silently: ``"grow"`` (default) re-runs at the
+    next power of two at or above the need, ``"raise"`` raises
+    :class:`CapacityError`."""
+    devs = mesh.axis_devices(axis)
+    names = tuple(values)
+    fns = tuple(values[n][0] for n in names)
+    keys = shard(mesh, axis, key).shards
+    cols = [shard(mesh, axis, values[n][1]).shards for n in names]
+    masks = None if mask is None else shard(mesh, axis, mask).shards
+    cap = num_groups
+    while True:
+        staged = [local_partials(k, tuple(c[s] for c in cols), None if masks is None else masks[s],
+                                 cap, fns, len(devs))
+                  for s, k in enumerate(keys)]
+        final = [combine(k2, parts, valid, cap, fns)
+                 for k2, parts, valid in exchange_partials(devs, staged, cap)]
+        need = max_to_host([s[2] for s in staged] + [f[3] for f in final], devs[0])
+        if need <= cap:
+            break
+        if on_overflow == "raise":
+            raise CapacityError("distributed aggregate groups", cap, need)
+        cap = grown(need, cap)
+    result = {"keys": ShardedTensor(f[0] for f in final),
+              "valid": ShardedTensor(f[2] for f in final)}
+    for i, name in enumerate(names):
+        result[name] = ShardedTensor(f[1][i] for f in final)
+    return result
+
+

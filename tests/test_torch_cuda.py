@@ -392,3 +392,42 @@ def test_write_device_table_on_card_equals_cpu(cuda, tmp_path):
         out[name] = str(tmp_path / f"{name}.str")
         write_device_table(out[name], scan_file(path, dev), opts)
     assert open(out["cuda"], "rb").read() == open(out["cpu"], "rb").read()
+
+
+def test_sharded_k1_on_card_equals_plain(cuda):
+    """A resident table sharded over 4 shards on the card: each shard's
+    planes through K1 equal the plain version on the same blocks, and the
+    sharded Q6 / grouped sums equal the single-device table's."""
+    from strawboat_tpu_torch.benchsuite import tpch
+    from strawboat_tpu_torch.exec import make_resident
+    from strawboat_tpu_torch.parallel import make_mesh, shard_resident, sharded_group_sum
+
+    cols = tpch.generate_lineitem(1.0, seed=0, rows=3_000_000)
+    rt = make_resident({k: cols[k] for k in tpch.Q1_Q6_COLUMNS}, cuda)
+    srt = shard_resident(rt, make_mesh(4, cuda), "shards")
+    for c in srt.columns.values():
+        for local in c.local:
+            for w, b in local.planes:
+                before = bu.bitunpack_tiled.launches
+                got = bu.bitunpack_tiled(w, 0, b)
+                torch.cuda.synchronize()
+                assert bu.bitunpack_tiled.launches == before + 1
+                assert torch.equal(got, bu.bitunpack_tiled_plain(w, 0, b)), (c.name, b)
+    (sums,), cnt = sharded_group_sum(srt, "l_returnflag", ["l_quantity"], 3)
+    (want,), want_cnt = rt.group_sum("l_returnflag", ["l_quantity"], 3)
+    assert torch.equal(sums, want) and torch.equal(cnt, want_cnt)
+
+
+def test_all_to_all_and_psum_on_card(cuda):
+    """The collectives on a 4-shard mesh on the card equal them on the CPU."""
+    from strawboat_tpu_torch.parallel import all_to_all, make_mesh, psum
+
+    rng = np.random.default_rng(5)
+    bins = [torch.from_numpy(rng.integers(-(2**62), 2**62, (4, 1000))) for _ in range(4)]
+    cpu = make_mesh(4, "cpu").axis_devices("shards")
+    card = make_mesh(4, cuda).axis_devices("shards")
+    got = all_to_all([b.to(cuda) for b in bins], card)
+    for g, w in zip(got, all_to_all(bins, cpu)):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
+    sums = psum([b.to(cuda) for b in bins], card)
+    assert all(torch.equal(s.cpu(), psum(bins, cpu)[0]) for s in sums)

@@ -13,8 +13,9 @@ scans and sums a list<struct<int64, utf8>> column beside a timestamp
 column (``list_segment_sum``, ``list_sum``, ``load_resident``), writes the
 lineitem columns through the adaptive chooser with LZ4 and rewrites their
 scan with ``write_device_table`` (both scanned back), writes them as a
-dataset of parts and scans, queries, streams, plans and loads it, and
-checks
+dataset of parts and scans, queries, streams, plans and loads it, runs
+the multi-device dry run on a 4-shard CPU mesh and Q6 over the dataset's
+resident table sharded over it, and checks
 ``sys.modules`` afterwards: no
 ``jax``, no ``pyarrow``, no ``strawboat_tpu`` or ``strawboat_tpu.*``.  A
 source check holds every port file and ``chip_smoke.py`` to the same.
@@ -151,6 +152,13 @@ with tempfile.TemporaryDirectory() as d:
     assert dataset.scan_dataset_with_manifest(dataset.dataset_manifest(glob), "cpu").num_rows == 5000
     rtd = load_resident(glob, "cpu", columns=tpch.Q1_Q6_COLUMNS, tile=512)
     assert int(tpch.q6(rtd)) == tpch.q6_numpy_reference(cols)
+    from strawboat_tpu_torch.parallel import make_mesh, sharded_filter_sum, shard_resident
+    from strawboat_tpu_torch.parallel.dryrun import dryrun_multidevice
+    assert dryrun_multidevice(4, "cpu")["q1_groups"] == 6
+    srt = shard_resident(rtd, make_mesh(4, "cpu"), "shards")
+    assert int(sharded_filter_sum(srt, {{"l_shipdate": (731, 1096), "l_discount": (5, 8),
+                                        "l_quantity": (None, 24)}}, "l_extendedprice",
+                                  "l_discount")) == tpch.q6_numpy_reference(cols)
 ref = sorted(m for m in sys.modules if m == "strawboat_tpu" or m.startswith("strawboat_tpu."))
 print(json.dumps({{"jax": "jax" in sys.modules, "pyarrow": "pyarrow" in sys.modules,
                   "strawboat_tpu": ref}}))
@@ -166,6 +174,7 @@ def test_port_modules_listed():
     assert "strawboat_tpu_torch.codecs.binary" in MODULES
     assert "strawboat_tpu_torch.exec.pruning" in MODULES
     assert "strawboat_tpu_torch.exec.dataset" in MODULES
+    assert "strawboat_tpu_torch.parallel.dist_resident" in MODULES
 
 
 def test_port_runs_without_jax_or_pyarrow():
