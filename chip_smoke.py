@@ -9,7 +9,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 2. build   — compile kernels K1 and K3 (``strawboat_tpu_torch/kernels/csrc``)
    with nvcc, one process per source, started together;
 3. kernel  — K1 bit-exact against its plain torch version for every width
-   1..32 and two seeds, then K1 and plain times at the SF10 plane shapes;
+   1..32 and two seeds; ``bitunpack_tiled_many`` (one launch over a list
+   of planes) against the plain version over widths 1..32 at tiles 16384
+   and 512 and both seeds, past one launch's cap of planes, at an odd tile
+   and from a base off 16 bytes; then K1's event-window and device times
+   (``torch.profiler``) against the bound and a ``copy_`` of the same bytes
+   at (115, b, 16384) (SF10), (29, b, 16384) (a shard of 4) and (1, b,
+   16384) for the path's widths, and over the planes resident Q6, Q1 and
+   the sharded Q6 decode (one call held equal to the plain version plane
+   by plane), a launch a plane against one launch;
 4. kernel_natural — K3 likewise (b = 0..32, two seeds, block counts around
    one CTA's share and 2000), then K3 and plain times over 60 M values at
    the scan's widths and b = 16;
@@ -18,9 +26,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 the resident path (K1's launches are counted over 6–8):
 
 6. load    — ``make_resident(..., device="cuda")``;
-7. q6      — ``filter_sum`` Q6 == the numpy reference, warm latency;
+7. q6      — ``filter_sum`` Q6 == the numpy reference, one K1 launch,
+   warm latency;
 8. q1      — ``Query(rt)`` Q1 == the numpy reference (exact; ``avg_*`` to
-   rtol 1e-12), warm latency;
+   rtol 1e-12), one K1 launch, warm latency;
 
 the scan path (K3's launches are counted over 9–11):
 
@@ -117,9 +126,10 @@ the multi-device path (K1's and K3's launches are counted over 18):
 
 18. multidevice — a mesh of 4 shards on the one card
    (``strawboat_tpu_torch/parallel``): the SF10 resident table sharded by
-   tile blocks, Q6 (``sharded_filter_sum``) and the sums by l_returnflag
-   (``sharded_group_sum``) == the single-device ``filter_sum`` /
-   ``group_sum``, median of 20 warm calls each; ``distributed_scan`` of the
+   tile blocks, Q6 (``sharded_filter_sum``, one K1 launch over every
+   shard's planes) and the sums by l_returnflag (``sharded_group_sum``) ==
+   the single-device ``filter_sum`` / ``group_sum``, median of 20 warm
+   calls each; ``distributed_scan`` of the
    ``dict`` file (each shard's columns == numpy over its page range,
    padding rows not ``__valid__``); ``distributed_aggregate`` of it by
    l_suppkey (grown from 4096 groups) == numpy, its exchange's bytes,
@@ -130,19 +140,29 @@ the multi-device path (K1's and K3's launches are counted over 18):
    numpy); ``shuffle_by_key`` of its l_returnflag codes with and without
    salt 4 (every row once; rows per shard printed);
    ``streamed_dataset_aggregate`` by l_suppkey with Q6's range pruning
-   parts == numpy; ``dryrun_multidevice(4, "cuda")``;
+   parts == numpy; ``dryrun_multidevice(4, "cuda")``; a warm sharded and
+   single-device Q6 each inside ``device_trace``, with their longest
+   kernels' device ms;
 
 and last:
 
 19. k2_k0  — K2 and K0 bit-exact against their plain versions (b = 1..32),
    then (their launches counted) l_shipdate's bit-packed pages decoded
    through K2's and K0's natural-order entry points == the generated column;
-   each width group's lane count, times and bound are printed.
+   each width group's lane count, times and bound are printed;
+20. k1_batching — resident Q6, Q1 and the sharded Q6 warm with their
+   planes in one K1 call and a launch a plane, in turns.
 
-Then the kernel summary line (each kernel's launches on its paths, its
-time and its plain version's over that path's shapes, and ``bound_ms``: the
-bytes it must move, each input read once and each output written once, at
-the H100 SXM's 3.35 TB/s), the nvidia-smi line, and as the last line
+The launches line also tallies the planes the paths hand K1 by tile
+count, and what its calls of 1-tile planes alone cost by the kernel
+phase's (1, b) device time; the ``k1_groups`` line holds each table's
+planes through one call equal to the plain version.  Then the kernel
+summary line (each kernel's launches on its paths, its
+time and its plain version's over that path's shapes — ``ms`` the CUDA
+event window around the wrapper, ``device_ms`` the kernel's own duration
+from a ``torch.profiler`` trace — and ``bound_ms``: the bytes it must
+move, each input read once and each output written once, at the H100
+SXM's 3.35 TB/s), the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without a CUDA
 device the script fails before printing any result.
 """
@@ -167,6 +187,11 @@ SF10_ROWS = 60_000_000
 SEED = 0
 SF10_TILES = 115  # planes of 60 M rows at tile 16384
 PATH_WIDTHS = (1, 2, 4, 6, 12, 23)  # plane widths of the Q1/Q6 columns
+# the resident table's plane widths (phase load checks them) and the
+# columns each query decodes in one K1 launch
+COLUMN_WIDTHS = {"l_quantity": 6, "l_extendedprice": 23, "l_discount": 4, "l_tax": 4,
+                 "l_returnflag": 2, "l_linestatus": 1, "l_shipdate": 12}
+Q6_COLUMNS = ("l_shipdate", "l_discount", "l_quantity", "l_extendedprice")
 # block widths K3 meets in the scan: dict index codes 4 and 6 (7 for
 # l_shipdate), bit-packed l_shipdate 7..12
 SCAN_WIDTHS = (4, 6, 7, 8, 9, 10, 11, 12)
@@ -192,6 +217,11 @@ ADAPTIVE_ROWS = 15_000_000
 # the multidevice phase: shards of the mesh on the one card, and Q3's date
 # (1995-03-15 in days since 1992-01-01)
 MULTI_SHARDS = 4
+# tiles of the K1 shapes timed: SF10's planes, a shard's, one tile
+K1_TILES = (SF10_TILES, -(-SF10_TILES // MULTI_SHARDS), 1)
+# TPC-H Q6 as ``filter_sum`` / ``sharded_filter_sum`` arguments (code bounds)
+Q6_FILTER_SUM = ({"l_shipdate": (731, 1096), "l_discount": (5, 8), "l_quantity": (None, 24)},
+                 "l_extendedprice", "l_discount")
 Q3_DATE = 1169
 FILES = {
     "dict": {"STRAWBOAT_DICT_COMPRESSION": "1", "STRAWBOAT_BITPACK_COMPRESSION": "1"},
@@ -228,6 +258,149 @@ def event_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def whole_trace(tr, what: str):
+    """``tr``, a ``device_trace``; raises when its trace lacks kernels that
+    its window launched (its busy time and idle share would miss them)."""
+    if tr.lost_kernels:
+        raise AssertionError(f"{what}: the trace lacks {tr.lost_kernels} kernels its window launched")
+    return tr
+
+
+def kernel_launches() -> int:
+    """Launches the hand-written kernels' wrappers have counted (K1, K2,
+    K0 and K3)."""
+    from strawboat_tpu_torch.kernels import bitunpack as bu
+
+    return (bu.bitunpack_tiled.launches + bu.bitunpack_tiled_unseeded.launches
+            + bu.bitunpack_tmajor.launches + bu.bitunpack_natural.launches)
+
+
+def device_ms(calls, reps: int = REPS, warmup: int = 1) -> list:
+    """The device's own time of each ``(fn, n, match)`` in ``calls``, in
+    ms: the median over ``reps`` calls of the summed durations of the
+    kernels (or copies) whose names hold ``match`` that one ``fn()``
+    launches, from one ``torch.profiler`` trace over every call, each
+    call in a ``record_function`` range of its own that its launches are
+    matched to (``util/obs.py`` ``trace_device_ranges``).  ``n`` is the
+    count of such launches a call makes (None: what the kernels' wrappers
+    count in one warm-up call); a call whose records in the trace do not
+    number ``n`` raises.  ``event_ms``'s window holds the wrapper's host
+    time as well; this holds only the device's."""
+    from torch.profiler import record_function
+
+    from strawboat_tpu_torch.util.obs import device_trace, trace_device_ranges
+
+    counts = []
+    for fn, n, _match in calls:
+        before = kernel_launches()
+        for _ in range(warmup):
+            fn()
+        counts.append(n if n is not None else (kernel_launches() - before) // warmup)
+    with tempfile.TemporaryDirectory() as logdir:
+        with device_trace(logdir, "cuda") as tr:
+            for i, (fn, _n, _match) in enumerate(calls):
+                for r in range(reps):
+                    with record_function(f"sb_call_{i}_{r}"):
+                        fn()
+        ranges = trace_device_ranges(whole_trace(tr, "device_ms").path, "sb_call_")
+    out = []
+    for i, ((_fn, _n, match), n) in enumerate(zip(calls, counts)):
+        durs = [[d for name, d in ranges.get(f"sb_call_{i}_{r}", ()) if match in name]
+                for r in range(reps)]
+        short = [r for r, d in enumerate(durs) if len(d) != n]
+        if short:
+            raise AssertionError(f"call {i} of {len(calls)}: reps {short} lack their {n} "
+                                 f"{match!r} records in the trace")
+        out.append(statistics.median([sum(d) for d in durs]) * 1e3)
+    return out
+
+
+def kernel_ms(path: str, top: int = 8) -> dict:
+    """The ``top`` longest kernels that ran inside a ``device_trace``
+    window, by name (its first 120 characters): summed device ms and
+    count (the trace's lead-in before the window is left out)."""
+    from strawboat_tpu_torch.util.obs import _TRACE_SPAN
+
+    with open(path) as f:
+        events = [e for e in json.load(f).get("traceEvents", []) if e.get("ph") == "X"]
+    span = next(e for e in events if e.get("name") == _TRACE_SPAN and e.get("cat") == "user_annotation")
+    lo, hi = float(span["ts"]), float(span["ts"]) + float(span["dur"])
+    by = {}
+    for e in events:
+        if e.get("cat") == "kernel" and lo <= float(e["ts"]) <= hi:
+            ms, n = by.get(e["name"][:120], (0.0, 0))
+            by[e["name"][:120]] = (ms + float(e.get("dur", 0)) * 1e-3, n + 1)
+    return {k: {"ms": ms, "n": n}
+            for k, (ms, n) in sorted(by.items(), key=lambda kv: -kv[1][0])[:top]}
+
+
+@contextlib.contextmanager
+def k1_plane_tiles():
+    """Tallies the planes the paths hand K1 (every K1 call of the port goes
+    through ``exec/resident.py``): ``{"planes_by_tiles": {n_tiles: planes},
+    "lone_one_tile_calls": calls of 1-tile planes alone}``."""
+    from strawboat_tpu_torch.exec import resident
+
+    tally = {"planes_by_tiles": {}, "lone_one_tile_calls": 0}
+    one, many = resident.bitunpack_tiled, resident.bitunpack_tiled_many
+
+    def seen(shapes):
+        for w in shapes:
+            tally["planes_by_tiles"][w.shape[0]] = tally["planes_by_tiles"].get(w.shape[0], 0) + 1
+        if shapes and all(w.shape[0] == 1 for w in shapes):
+            tally["lone_one_tile_calls"] += 1
+
+    def one_seen(w, seed, b):
+        seen([w])
+        return one(w, seed, b)
+
+    def many_seen(planes, seed=0):
+        planes = list(planes)
+        seen([w for w, _b in planes])
+        return many(planes, seed)
+
+    resident.bitunpack_tiled, resident.bitunpack_tiled_many = one_seen, many_seen
+    try:
+        yield tally
+    finally:
+        resident.bitunpack_tiled, resident.bitunpack_tiled_many = one, many
+
+
+@contextlib.contextmanager
+def k1_a_launch_a_plane():
+    """The resident callers' K1 calls as the parent made them: a launch a
+    plane through ``bitunpack_tiled``, not one ``bitunpack_tiled_many``."""
+    from strawboat_tpu_torch.exec import resident
+    from strawboat_tpu_torch.kernels import bitunpack as bu
+
+    many = resident.bitunpack_tiled_many
+    resident.bitunpack_tiled_many = lambda planes, seed=0: [
+        bu.bitunpack_tiled(w, seed, b) for w, b in planes]
+    try:
+        yield
+    finally:
+        resident.bitunpack_tiled_many = many
+
+
+def phase_k1_batching(rt, srt) -> dict:
+    """Resident Q6, Q1 and the sharded Q6, warm, with their planes in one
+    K1 call and a launch a plane, in turns (one, per plane, per plane,
+    one): what the batching alone moves end to end."""
+    from strawboat_tpu_torch import parallel as par
+    from strawboat_tpu_torch.benchsuite import tpch
+
+    out = {}
+    for name, run in (("q6", lambda: int(tpch.q6(rt))), ("q1", lambda: tpch.q1(rt)),
+                      ("sharded_q6", lambda: par.sharded_filter_sum(srt, *Q6_FILTER_SUM).item())):
+        ms = {"one_call_ms": [], "per_plane_ms": []}
+        for key in ("one_call_ms", "per_plane_ms", "per_plane_ms", "one_call_ms"):
+            with k1_a_launch_a_plane() if key == "per_plane_ms" else contextlib.nullcontext():
+                ms[key].append(wall_ms(run))
+        out[name] = {k: statistics.mean(v) for k, v in ms.items()} | {"turns": ms}
+    emit("k1_batching", **out)
+    return out
+
+
 def wall_ms(fn, reps: int = REPS) -> float:
     """Median host time of ``fn()`` in ms; ``fn`` ends in a host copy or a
     synchronize, so the device work is inside the window."""
@@ -251,9 +424,65 @@ def random_words(rng, n_tiles: int, b: int, tile: int, device) -> torch.Tensor:
     return torch.from_numpy(w.view(np.int32)).to(device)
 
 
-def phase_kernel(device, seed: int, tile: int, n_tiles: int) -> dict:
-    """K1 vs its plain version: every width and seed at (8, b, tile), then
-    times at the path's plane shapes.  Returns the kernel summary."""
+def k1_bytes(planes) -> int:
+    """What K1 must move over ``planes`` [(words, bits)]: b words in and
+    32 out per lane column."""
+    return sum(w.numel() * 4 * (b + 32) // b for w, b in planes)
+
+
+def _k1_many_equal(what: str, planes) -> int:
+    """``bitunpack_tiled_many(planes)`` == the plain version of every
+    plane (else it raises); returns the launches it made."""
+    from strawboat_tpu_torch.kernels import bitunpack as bu
+
+    before = k1_counts()
+    got = bu.bitunpack_tiled_many(planes)
+    torch.cuda.synchronize()
+    launched, _planes = k1_counts(before)
+    for i, ((w, b), g) in enumerate(zip(planes, got)):
+        if not torch.equal(g, bu.bitunpack_tiled_plain(w, 0, b)):
+            raise AssertionError(f"{what} disagree with plain: plane {i} of {len(planes)}, "
+                                 f"{tuple(w.shape)}")
+    return launched
+
+
+def _k1_many_checks(rng, device) -> dict:
+    """``bitunpack_tiled_many`` == the plain version: widths 1..32 at tiles
+    16384 and 512 (64 planes, one launch) under both seeds, 70 planes (two
+    launches), and an odd tile and a base 4 bytes past 16 (the kernel's
+    scalar path) among aligned planes."""
+    from strawboat_tpu_torch.kernels import bitunpack as bu
+
+    def check(what, planes, seed, launches):
+        before = (bu.bitunpack_tiled.launches, bu.bitunpack_tiled.planes)
+        got = bu.bitunpack_tiled_many(planes, seed)
+        torch.cuda.synchronize()
+        moved = (bu.bitunpack_tiled.launches - before[0], bu.bitunpack_tiled.planes - before[1])
+        if moved != (launches, len(planes)):
+            raise AssertionError(f"K1 many {what}: launches, planes {moved} != {launches, len(planes)}")
+        for i, ((w, b), g) in enumerate(zip(planes, got)):
+            if not torch.equal(g, bu.bitunpack_tiled_plain(w, seed, b)):
+                raise AssertionError(f"K1 many {what} disagrees with plain: plane {i} b={b}")
+
+    mixed = [(random_words(rng, 3, b, tile, device), b) for tile in (bu.TILE3D, 512)
+             for b in range(1, 33)]
+    for s in SEEDS:
+        check("widths 1..32, tiles 16384 and 512", mixed, s, 1)
+    check("past the cap", mixed + mixed[:6], SEEDS[1], 2)
+    flat = random_words(rng, 1, 1, 4 + 2 * 7 * 1000, device).reshape(-1)
+    odd = [(random_words(rng, 2, 5, 1001, device), 5), mixed[10],
+           (flat[1 : 1 + 2 * 7 * 1000].view(2, 7, 1000), 7), mixed[40]]
+    check("odd tile, base off 16 bytes", odd, SEEDS[1], 1)
+    return {"mixed_planes": len(mixed), "past_cap_planes": len(mixed) + 6,
+            "odd": [[tuple(w.shape), w.data_ptr() % 16] for w, _b in odd]}
+
+
+def phase_kernel(device, seed: int, tile: int) -> dict:
+    """K1 vs its plain version: every width and seed at (8, b, tile), the
+    many-plane entry over mixed lists; then K1's times at the path's
+    shapes and plane groups, by CUDA events and by the profiler, against
+    the bound and a same-window ``copy_`` of the same bytes.  Returns the
+    kernel summary."""
     from strawboat_tpu_torch.kernels import bitunpack as bu
 
     rng = np.random.default_rng(seed)
@@ -268,20 +497,64 @@ def phase_kernel(device, seed: int, tile: int, n_tiles: int) -> dict:
             if err:
                 raise AssertionError(f"K1 disagrees with plain: b={b} seed={s:#x} err={err}")
             max_err = max(max_err, err)
-    times = {}
-    for b in PATH_WIDTHS:
-        w = random_words(rng, n_tiles, b, tile, device)
-        got = bu.bitunpack_tiled(w, 0, b)
-        err = int((got.long() - bu.bitunpack_tiled_plain(w, 0, b).long()).abs().max())
-        if err:
-            raise AssertionError(f"K1 disagrees with plain at the path shape: b={b}")
-        ms = event_ms(lambda: bu.bitunpack_tiled(w, 0, b))
-        plain_ms = event_ms(lambda: bu.bitunpack_tiled_plain(w, 0, b))
-        nbytes = (b + 32) * 4 * n_tiles * tile
-        times[b] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms(nbytes),
-                    "GB_per_s": nbytes / 1e6 / ms, "plain_GB_per_s": nbytes / 1e6 / plain_ms}
+    many = _k1_many_checks(rng, device)
+
+    # shapes: (n_tiles, b) at the path's widths; groups: the planes of
+    # resident Q6 and Q1 (SF10) and of the sharded Q6 (every shard's)
+    shapes = {(n, b): random_words(rng, n, b, tile, device) for n in K1_TILES for b in PATH_WIDTHS}
+    for (n, b), w in shapes.items():
+        if not torch.equal(bu.bitunpack_tiled(w, 0, b), bu.bitunpack_tiled_plain(w, 0, b)):
+            raise AssertionError(f"K1 disagrees with plain at ({n}, {b}, {tile})")
+    groups = {
+        "q6": [(random_words(rng, SF10_TILES, COLUMN_WIDTHS[c], tile, device), COLUMN_WIDTHS[c])
+               for c in Q6_COLUMNS],
+        "q1": [(random_words(rng, SF10_TILES, b, tile, device), b)
+               for b in COLUMN_WIDTHS.values()],
+        "sharded_q6": [(random_words(rng, K1_TILES[1], COLUMN_WIDTHS[c], tile, device),
+                        COLUMN_WIDTHS[c]) for _s in range(MULTI_SHARDS) for c in Q6_COLUMNS],
+    }
+    copies = {}
+
+    def copy_of(nbytes):
+        if nbytes not in copies:
+            half = torch.empty(nbytes // 8, dtype=torch.int32, device=device)
+            copies[nbytes] = (half, torch.ones_like(half))
+        dst, src = copies[nbytes]
+        return lambda: dst.copy_(src)
+
+    calls, times = [], {}
+    for (n, b), w in shapes.items():
+        nbytes = k1_bytes([(w, b)])
+        times[f"{n}x{b}"] = {
+            "ms": event_ms(lambda w=w, b=b: bu.bitunpack_tiled(w, 0, b)),
+            "bound_ms": bound_ms(nbytes)}
+        if n == SF10_TILES:
+            times[f"{n}x{b}"]["plain_ms"] = event_ms(lambda w=w, b=b: bu.bitunpack_tiled_plain(w, 0, b))
+        calls += [(lambda w=w, b=b: bu.bitunpack_tiled(w, 0, b), None, "bitunpack"),
+                  (copy_of(nbytes), 1, "Memcpy")]
+    for name, planes in groups.items():
+        nbytes = k1_bytes(planes)
+        n_launches = _k1_many_equal(f"K1 {name} planes", planes)
+        times[name] = {
+            "planes": len(planes), "launches": n_launches, "bound_ms": bound_ms(nbytes),
+            "ms": event_ms(lambda p=planes: bu.bitunpack_tiled_many(p)),
+            "per_plane_ms": event_ms(lambda p=planes: [bu.bitunpack_tiled(w, 0, b) for w, b in p])}
+        calls += [(lambda p=planes: bu.bitunpack_tiled_many(p), None, "bitunpack"),
+                  (lambda p=planes: [bu.bitunpack_tiled(w, 0, b) for w, b in p], None,
+                   "bitunpack"),
+                  (copy_of(nbytes), 1, "Memcpy")]
+    dev = iter(device_ms(calls))
+    for key, t in times.items():
+        t["device_ms"] = next(dev)
+        if "per_plane_ms" in t:
+            t["per_plane_device_ms"] = next(dev)
+        t["copy_device_ms"] = next(dev)
+        t["bound_share"] = t["bound_ms"] / t["device_ms"]
+        t["TB_per_s"] = t["bound_share"] * HBM_BYTES_PER_S / 1e12
     emit("kernel", widths_checked=32, seeds=[hex(s) for s in SEEDS], max_abs_err=max_err,
-         shape=[n_tiles, "b", tile], times=times)
+         many=many, tile=tile, times=times)
+    del shapes, groups, copies
+    torch.cuda.empty_cache()
     return {"max_abs_err": max_err, "times": times}
 
 
@@ -299,6 +572,9 @@ def phase_load(cols, device) -> object:
             "bytes": sum(w.numel() * 4 for w, _b in c.planes)}
         for n, c in rt.columns.items()
     }
+    widths = {n: c["bits"] for n, c in planes.items()}
+    if widths != {n: [b] for n, b in COLUMN_WIDTHS.items()}:
+        raise AssertionError(f"plane widths {widths} != the kernel phase's {COLUMN_WIDTHS}")
     emit("load", rows=rt.num_rows, tile=rt.tile, load_s=load_s, planes=planes,
          plane_bytes=sum(p["bytes"] for p in planes.values()),
          memory_allocated=torch.cuda.memory_allocated(),
@@ -306,20 +582,27 @@ def phase_load(cols, device) -> object:
     return rt
 
 
-def phase_q6(rt, cols) -> None:
-    from strawboat_tpu_torch.benchsuite import tpch
+def k1_counts(before=(0, 0)) -> tuple:
+    """K1's (launches, planes) counts, less ``before``."""
     from strawboat_tpu_torch.kernels import bitunpack as bu
 
-    before = bu.bitunpack_tiled.launches
+    return (bu.bitunpack_tiled.launches - before[0], bu.bitunpack_tiled.planes - before[1])
+
+
+def phase_q6(rt, cols) -> None:
+    from strawboat_tpu_torch.benchsuite import tpch
+
+    before = k1_counts()
     got = int(tpch.q6(rt))
-    launched = bu.bitunpack_tiled.launches - before
+    launched, planes = k1_counts(before)
     want = tpch.q6_numpy_reference(cols)
     if got != want:
         raise AssertionError(f"Q6 {got} != numpy {want}")
-    if launched <= 0:
-        raise AssertionError("Q6 did not launch K1")
+    if launched != 1:
+        raise AssertionError(f"Q6 launched K1 {launched} times, not once")
     ms = wall_ms(lambda: int(tpch.q6(rt)))
-    emit("q6", revenue=got, equal_to_numpy=True, k1_launches=launched, warm_median_ms=ms)
+    emit("q6", revenue=got, equal_to_numpy=True, k1_launches=launched, k1_planes=planes,
+         warm_median_ms=ms)
 
 
 def _q1_check(what: str, got, want) -> None:
@@ -336,17 +619,17 @@ def _q1_check(what: str, got, want) -> None:
 
 def phase_q1(rt, cols) -> None:
     from strawboat_tpu_torch.benchsuite import tpch
-    from strawboat_tpu_torch.kernels import bitunpack as bu
 
-    before = bu.bitunpack_tiled.launches
+    before = k1_counts()
     res = tpch.q1(rt)
-    launched = bu.bitunpack_tiled.launches - before
+    launched, planes = k1_counts(before)
     got = tpch.q1_rows(res)
     _q1_check("Q1", got, tpch.q1_numpy_reference(cols))
-    if launched <= 0:
-        raise AssertionError("Q1 did not launch K1")
+    if launched != 1:
+        raise AssertionError(f"Q1 launched K1 {launched} times, not once")
     ms = wall_ms(lambda: tpch.q1(rt))
-    emit("q1", groups=len(got), equal_to_numpy=True, k1_launches=launched, warm_median_ms=ms,
+    emit("q1", groups=len(got), equal_to_numpy=True, k1_launches=launched, k1_planes=planes,
+         warm_median_ms=ms,
          count_order=sum(a["count_order"] for a in got.values()))
 
 
@@ -1475,6 +1758,7 @@ def phase_dataset(cols, tmpdir, device):
     with device_trace(os.path.join(tmpdir, "trace"), device) as tr:
         table = ds.scan_dataset(glob, device)
     del table
+    whole_trace(tr, "traced dataset scan")
     facts["traced_scan"] = {"window_s": tr.window_s, "device_busy_s": tr.busy_s,
                             "idle_share": tr.idle_share, "longest_idle_gap_s": tr.longest_gap_s,
                             "trace_bytes": os.path.getsize(tr.path)}
@@ -1554,8 +1838,7 @@ def phase_multidevice(rt, cols, paths, o_path, dataset_paths, data, tmpdir, devi
     t0 = time.perf_counter()
     srt = par.shard_resident(rt, mesh, "shards")
     torch.cuda.synchronize()
-    q6 = ({"l_shipdate": (731, 1096), "l_discount": (5, 8), "l_quantity": (None, 24)},
-          "l_extendedprice", "l_discount")
+    q6 = Q6_FILTER_SUM
     n_flags = len(rt["l_returnflag"].dictionary_host)
     group = ("l_returnflag", ["l_quantity", "l_extendedprice"], n_flags)
     got = int(par.sharded_filter_sum(srt, *q6))
@@ -1566,10 +1849,24 @@ def phase_multidevice(rt, cols, paths, o_path, dataset_paths, data, tmpdir, devi
     if not (all(torch.equal(a, b) for a, b in zip(sums, want_sums)) and torch.equal(cnt, want_cnt)):
         raise AssertionError("sharded group_sum differs from group_sum")
     with record_exchanges() as recs:
+        before = k1_counts()
         par.sharded_filter_sum(srt, *q6)
+        q6_k1 = k1_counts(before)
         par.sharded_group_sum(srt, *group)
+    if q6_k1[0] != 1:
+        raise AssertionError(f"sharded Q6 launched K1 {q6_k1[0]} times, not once")
+    traces = {}  # where a warm Q6's time goes: the device's busy share
+    for name, run in (("sharded", lambda: par.sharded_filter_sum(srt, *q6).item()),
+                      ("single_device", lambda: rt.filter_sum(*q6).item())):
+        run()
+        with device_trace(os.path.join(tmpdir, "traces"), device) as tr:
+            run()
+        whole_trace(tr, f"traced {name} Q6")
+        traces[name] = {"window_ms": tr.window_s * 1e3, "busy_ms": tr.busy_s * 1e3,
+                        "idle_share": tr.idle_share, "kernel_ms": kernel_ms(tr.path)}
     facts["resident"] = {
         "shard_s": time.perf_counter() - t0, "rows_per_shard": srt.rows_per_shard,
+        "q6_k1_launches": q6_k1[0], "q6_k1_planes": q6_k1[1], "q6_traced": traces,
         "q6_ms": wall_ms(lambda: par.sharded_filter_sum(srt, *q6).item()),
         "q6_single_device_ms": wall_ms(lambda: rt.filter_sum(*q6).item()),
         "group_sum_ms": wall_ms(lambda: par.sharded_group_sum(srt, *group)[1].cpu()),
@@ -1616,6 +1913,7 @@ def phase_multidevice(rt, cols, paths, o_path, dataset_paths, data, tmpdir, devi
         aggregate()
     with device_trace(os.path.join(tmpdir, "multidevice_trace"), device) as tr:
         aggregate()
+    whole_trace(tr, "traced aggregate")
     os.remove(tr.path)
     facts["aggregate"] = {"seconds": agg_s, "groups": groups,
                           "slots_per_shard": len(res["keys"].shards[0]),
@@ -1747,13 +2045,17 @@ def k3_summary(paths, device) -> dict:
     and the bound, over every launch one scan of each file in ``paths``
     makes (a name maps to a path, or to a dataset's list of parts); the
     ``k3_groups`` line has them per file and per launch (column, width,
-    blocks), a dataset's as totals and its count of launches."""
+    blocks), a dataset's as totals and its count of launches.  ``ms`` is
+    the CUDA event window around each launch, ``device_ms`` the kernel's
+    own duration (one profiler trace over every file's launches)."""
     from strawboat_tpu_torch.exec.scan import k3_launch_groups
     from strawboat_tpu_torch.kernels import bitunpack as bu
 
     files = {}
+    launches = {}  # name → [(words on the card, b)]
     for name, path in paths.items():
         groups = []
+        launches[name] = []
         # a dataset's hundreds of small groups: fewer repetitions each
         reps, warmup = (REPS, 3) if isinstance(path, str) else (DATASET_K3_REPS, 1)
         for part in [path] if isinstance(path, str) else path:
@@ -1761,6 +2063,7 @@ def k3_summary(paths, device) -> dict:
                 w = torch.from_numpy(words.view(np.int32)).to(device)
                 if not torch.equal(bu.bitunpack_natural(w, 0, b), bu.bitunpack_natural_plain(w, 0, b)):
                     raise AssertionError(f"K3 disagrees with plain over {part}/{col}: b={b}")
+                launches[name].append((w, b))
                 groups.append({"column": col, "b": b, "n_blocks": words.shape[0],
                                "ms": event_ms(lambda: bu.bitunpack_natural(w, 0, b), reps, warmup),
                                "plain_ms": event_ms(lambda: bu.bitunpack_natural_plain(w, 0, b),
@@ -1771,8 +2074,22 @@ def k3_summary(paths, device) -> dict:
             files[name]["groups"] = groups
         else:
             files[name].update(parts=len(path), launch_groups=len(groups))
+    for single in (True, False):  # the files' launches, then the datasets'
+        names = [n for n, p in paths.items() if isinstance(p, str) == single]
+        calls = [(lambda w=w, b=b: bu.bitunpack_natural(w, 0, b), None, "bitunpack")
+                 for n in names for w, b in launches[n]]
+        dev = iter(device_ms(calls, reps=REPS if single else DATASET_K3_REPS))
+        for n in names:
+            per = [next(dev) for _ in launches[n]]
+            files[n]["device_ms"] = sum(per)
+            if single:
+                for g, d in zip(files[n]["groups"], per):
+                    g["device_ms"] = d
+            else:
+                files[n]["device_ms_per_launch"] = [min(per), statistics.median(per), max(per)]
+    del launches
     emit("k3_groups", files=files)
-    return {k: sum(f[k] for f in files.values()) for k in ("ms", "plain_ms", "bound_ms")}
+    return {k: sum(f[k] for f in files.values()) for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
 
 
 def phase_k2_k0(path: str, shipdate: np.ndarray, device, seed: int) -> dict:
@@ -1814,27 +2131,70 @@ def phase_k2_k0(path: str, shipdate: np.ndarray, device, seed: int) -> dict:
     launches = {"K2": bu.bitunpack_tiled_unseeded.launches, "K0": bu.bitunpack_tmajor.launches}
     if min(launches.values()) <= 0:
         raise AssertionError(f"the K2/K0 path did not launch both kernels: {launches}")
-    times = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0} for k in ("K2", "K0")}
+    times = {k: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+             for k in ("K2", "K0")}
+    dev = iter(device_ms([call for b, _want, w3, wt in inputs for call in (
+        (lambda w3=w3, b=b: bu.bitunpack_tiled_unseeded(w3, b), None, "bitunpack"),
+        (lambda wt=wt, b=b: bu.bitunpack_tmajor(wt, b), None, "bitunpack"))]))
     per_launch = []
     for b, _want, w3, wt in inputs:
         one = {
             "K2": {"n_lanes": w3.shape[0] * w3.shape[2],
                    "ms": event_ms(lambda: bu.bitunpack_tiled_unseeded(w3, b)),
+                   "device_ms": next(dev),
                    "plain_ms": event_ms(lambda: bu.bitunpack_tiled_unseeded_plain(w3, b)),
                    # b words in, 32 values out per lane column
                    "bound_ms": bound_ms(w3.numel() * 4 * (b + 32) // b)},
             "K0": {"n_lanes": wt.shape[1],
                    "ms": event_ms(lambda: bu.bitunpack_tmajor(wt, b)),
+                   "device_ms": next(dev),
                    "plain_ms": event_ms(lambda: bu.bitunpack_tmajor_plain(wt, b)),
                    "bound_ms": bound_ms(wt.numel() * 4 * (b + 32) // b)},
         }
         for k in ("K2", "K0"):
-            for f in ("ms", "plain_ms", "bound_ms"):
+            for f in ("ms", "device_ms", "plain_ms", "bound_ms"):
                 times[k][f] += one[k][f]
         per_launch.append({"b": b, **one})
     emit("k2_k0", widths_checked=32, max_abs_err=0, path_widths=[g[0] for g in groups],
          launches=launches, times=times, per_launch=per_launch, equal_to_numpy=True)
     return {k: {"launches": launches[k], "max_abs_err": 0, **times[k]} for k in launches}
+
+
+def k1_summary(tables, nested_rt, srt) -> dict:
+    """K1 over every plane shape the paths decode, once each: the
+    host-encoded planes of the resident table (Q1, Q6 and the general
+    queries over it; Q6 over load_resident decodes planes equal to these
+    word for word), the device-direct planes of make_resident(scan), those
+    of the float64 money scan and of the dataset's resident table
+    (``tables``), the nested table's lengths, leaf and validity planes, and
+    the sharded table's.  A table's planes go in one call as its queries
+    make it (``ms``, ``device_ms``; held equal to the plain version plane
+    by plane first), and a launch a plane as the parent
+    made them (``per_plane_ms``, ``per_plane_device_ms``); the
+    ``k1_groups`` line has the totals."""
+    from strawboat_tpu_torch.kernels import bitunpack as bu
+
+    groups = [[(w, b) for c in t.columns.values() for w, b in c.planes] for t in tables]
+    groups.append([p for c in nested_rt.columns.values() for p in _all_planes(c)])
+    groups.append([p for c in srt.columns.values() for local in c.local for p in local.planes])
+    planes = [p for g in groups for p in g]
+    launches = [_k1_many_equal(f"K1 table {i}'s planes", g) for i, g in enumerate(groups)]
+    k1 = {"ms": sum(event_ms(lambda g=g: bu.bitunpack_tiled_many(g)) for g in groups),
+          "per_plane_ms": sum(event_ms(lambda w=w, b=b: bu.bitunpack_tiled(w, 0, b))
+                              for w, b in planes)}
+    dev = device_ms([(lambda g=g: bu.bitunpack_tiled_many(g), None, "bitunpack")
+                     for g in groups]
+                    + [(lambda w=w, b=b: bu.bitunpack_tiled(w, 0, b), None, "bitunpack")
+                       for w, b in planes])
+    k1["device_ms"] = sum(dev[: len(groups)])
+    k1["per_plane_device_ms"] = sum(dev[len(groups):])
+    # the plain version repeats the kernel's arithmetic in torch ops: a few
+    # reps tell its time
+    k1["plain_ms"] = sum(event_ms(lambda w=w, b=b: bu.bitunpack_tiled_plain(w, 0, b), 5, 1)
+                         for w, b in planes)
+    k1["bound_ms"] = sum(bound_ms(k1_bytes([p])) for p in planes)
+    emit("k1_groups", planes=[len(g) for g in groups], launches=launches, **k1)
+    return k1
 
 
 def main() -> int:
@@ -1857,13 +2217,18 @@ def main() -> int:
     emit("build", kernels=["bitunpack", "bitunpack_natural"], seconds=time.perf_counter() - t0,
          compile_seconds=dict(_build.build_seconds), nvcc=_build.nvcc_path())
 
-    k1 = phase_kernel(device, SEED, bu.TILE3D, SF10_TILES)
+    k1 = phase_kernel(device, SEED, bu.TILE3D)
     k3 = phase_kernel_natural(device, SEED)
 
     t0 = time.perf_counter()
     cols = tpch.generate_lineitem(1.0, seed=SEED, rows=SF10_ROWS)
     emit("generate", rows=SF10_ROWS, seed=SEED, seconds=time.perf_counter() - t0)
     phase_s["generate"] = time.perf_counter() - started
+
+    # the planes K1 decodes on every path, by tile count, from here to the
+    # multi-device path's end
+    tiles = contextlib.ExitStack()
+    k1_tiles = tiles.enter_context(k1_plane_tiles())
 
     # the resident path: count only its launches
     bu.bitunpack_tiled.launches = 0
@@ -1966,6 +2331,12 @@ def main() -> int:
         del sorted_cols
         torch.cuda.empty_cache()
         phase_s["multidevice"] = time.perf_counter() - started
+        tiles.close()
+        # a lone 1-tile plane's device time (the kernel phase's (1, b)
+        # shapes) times the path's calls of such planes alone
+        one_tile_ms = statistics.mean(k1["times"][f"1x{b}"]["device_ms"] for b in PATH_WIDTHS)
+        k1_tiles["one_tile_device_ms"] = one_tile_ms
+        k1_tiles["lone_one_tile_device_ms"] = one_tile_ms * k1_tiles["lone_one_tile_calls"]
         # K3 over one scan of each file the paths scan: the two integer
         # lineitem files, the orders file, the whole lineitem file, the
         # typed ones, the nested orders file and the two adaptive files
@@ -1974,33 +2345,21 @@ def main() -> int:
                               "dataset": dataset_paths}, device))
         phase_s["k3_summary"] = time.perf_counter() - started
         k2_k0 = phase_k2_k0(paths["bitpack"], cols["l_shipdate"], device, SEED)
-    # K1 over every plane shape the paths decode: the host-encoded planes of
-    # the resident table (Q1, Q6 and the general queries over it; Q6 over
-    # load_resident decodes planes equal to these word for word), the
-    # device-direct planes of make_resident(scan), those of the float64
-    # money scan, and the nested table's lengths, leaf and validity planes,
-    # once each
-    planes = [(w, b) for t in (rt, scan_rt, float_rt, dataset_rt) for c in t.columns.values()
-              for w, b in c.planes]
-    planes += [p for c in nested_rt.columns.values() for p in _all_planes(c)]
-    planes += [p for c in srt.columns.values() for local in c.local for p in local.planes]
-    k1["ms"] = sum(event_ms(lambda w=w, b=b: bu.bitunpack_tiled(w, 0, b)) for w, b in planes)
-    k1["plain_ms"] = sum(
-        event_ms(lambda w=w, b=b: bu.bitunpack_tiled_plain(w, 0, b)) for w, b in planes
-    )
-    k1["bound_ms"] = sum(bound_ms(w.numel() * 4 * (b + 32) // b) for w, b in planes)
-    del rt, scan_rt, float_rt, nested_rt, dataset_rt, srt, planes
+    phase_k1_batching(rt, srt)
+    k1.update(k1_summary([rt, scan_rt, float_rt, dataset_rt], nested_rt, srt))
+    del rt, scan_rt, float_rt, nested_rt, dataset_rt, srt
 
     def line(name, src, replaces, launches, facts):
         return {"name": name, "route": "cuda", "source": CSRC + src, "replaces": PALLAS + replaces,
                 "launches": launches, "max_abs_err": facts["max_abs_err"], "ms": facts["ms"],
-                "plain_ms": facts["plain_ms"], "bound_ms": facts["bound_ms"], "bound_by": "bytes",
+                "device_ms": facts["device_ms"], "plain_ms": facts["plain_ms"],
+                "bound_ms": facts["bound_ms"], "bound_by": "bytes",
                 # no single torch call unpacks BitPacker4x
                 "library_ms": None}
 
     emit("launches", general_path=general, lineitem_full_path=full, lineitem_typed_path=typed,
          nested_path=nested, adaptive_path=adaptive, dataset_path=dataset, multidevice_path=multi,
-         script_s=time.perf_counter() - started, phase_end_s=phase_s)
+         k1_plane_tiles=k1_tiles, script_s=time.perf_counter() - started, phase_end_s=phase_s)
     print(json.dumps({"kernels": [
         line("bitunpack_tiled", "bitunpack.cu", "222", k1_launches, k1),
         line("bitunpack_tiled_unseeded", "bitunpack.cu", "174", k2_k0["K2"]["launches"], k2_k0["K2"]),

@@ -52,28 +52,20 @@ def bound_ms(b: int, n_blocks: int) -> float:
     return (16 * b + 512) * n_blocks / HBM_BYTES_PER_S * 1e3
 
 
-def compile_kernel(name: str, src: str, build_dir: str, out_dir: str):
-    """nvcc with -Xptxas -v → (ctypes entry point, per-width ptxas facts)."""
-    out = os.path.join(build_dir, f"lib{name}.so")
-    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", out, src]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}{proc.stderr}")
-    report = proc.stdout + proc.stderr
-    with open(os.path.join(out_dir, f"k3_ptxas_{name}.txt"), "w") as f:
-        f.write(report)
+def ptxas_facts(report: str) -> dict:
+    """Registers, static shared memory and spills of each entry function
+    of a ``-Xptxas -v`` report, keyed by the width of a kernel templated on
+    b (``...ILi<b>E...``), else by "all"."""
     facts = {}
-    width = None
+    entry = None
     for line in report.splitlines():
-        m = re.search(r"Compiling entry function '\w*?ILi(\d+)E", line)
+        m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            width = int(m.group(1))
+            w = re.search(r"ILi(\d+)E", m.group(1))
+            entry = facts.setdefault(int(w.group(1)) if w else "all", {})
             continue
-        if width is None:
+        if entry is None:
             continue
-        entry = facts.setdefault(width, {})
         m = re.search(r"Used (\d+) registers", line)
         if m:
             entry["registers"] = int(m.group(1))
@@ -82,7 +74,30 @@ def compile_kernel(name: str, src: str, build_dir: str, out_dir: str):
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             entry["spill_stores"], entry["spill_loads"] = int(m.group(1)), int(m.group(2))
-    fn = ctypes.CDLL(out).sb_bitunpack_natural
+    return facts
+
+
+def build(name: str, src: str, build_dir: str, out_dir: str, prefix: str, flags=()):
+    """nvcc with the port's flags, ``-Xptxas -v`` and ``flags`` → (the
+    loaded library, its ptxas facts, seconds); the full report goes to
+    ``<out_dir>/<prefix>_ptxas_<name>.txt``."""
+    out = os.path.join(build_dir, f"lib{name}.so")
+    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", *flags, "-o", out, src]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}{proc.stderr}")
+    report = proc.stdout + proc.stderr
+    with open(os.path.join(out_dir, f"{prefix}_ptxas_{name}.txt"), "w") as f:
+        f.write(report)
+    return ctypes.CDLL(out), ptxas_facts(report), seconds
+
+
+def compile_kernel(name: str, src: str, build_dir: str, out_dir: str):
+    """nvcc with -Xptxas -v → (ctypes entry point, per-width ptxas facts)."""
+    lib, facts, seconds = build(name, src, build_dir, out_dir, "k3")
+    fn = lib.sb_bitunpack_natural
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint, ctypes.c_int,
                    ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int

@@ -45,7 +45,7 @@ from .aggregate import (
 from .dataset import scan_dataset
 from .expr import Expr
 from .join import hash_join
-from .resident import ResidentTable, _unpack_plane_tiled
+from .resident import ResidentTable, _unpack_columns
 from .scan import DeviceColumn, DeviceTable, scan_file, unsigned_view
 from .sort import _by_items, _dictionary_rank, head_table, sort_indices, sort_table, take_table
 
@@ -239,14 +239,14 @@ class Query:
         )
 
         cols, key_codes = {}, {}
-        for n in names:
-            c = rt.columns[n]
-            vals = [_unpack_plane_tiled(w, b) for w, b in c.planes]
+        read = [rt.columns[n] for n in names]
+        # every read column's planes and validity planes: one K1 launch
+        for n, c, vals, valid in zip(names, read, *_unpack_columns(read)):
             cols[n] = DeviceColumn(
                 n,
                 c.arrow_type,
                 rt._combine(c, vals, True),
-                rt.validity_tiled(n),
+                valid,
                 dictionary=c.dictionary_host if c.kind == "str" else None,
             )
             if n in keys:

@@ -42,7 +42,12 @@ from .. import columns as cm
 from .. import native
 from ..device import U32_MASK, as_device, shr_u32, u64_to_i64, widen_i64, words_u32
 from ..errors import NotYetImplementedError, OutOfSpecError
-from ..kernels.bitunpack import TILE3D, bitunpack_tiled, transpose_words_host_tiled
+from ..kernels.bitunpack import (
+    TILE3D,
+    bitunpack_tiled,
+    bitunpack_tiled_many,
+    transpose_words_host_tiled,
+)
 from ..kernels.decode import dict_gather_device
 from ..util.bits import pack_blocks
 from .aggregate import segment_reduce
@@ -140,6 +145,37 @@ def _pa_of(t):
 def _unpack_plane_tiled(wt3: torch.Tensor, bits: int) -> torch.Tensor:
     """One packed plane → flat int32 (u32 bits) values in tiled-slot order."""
     return bitunpack_tiled(wt3, 0, bits).reshape(-1)
+
+
+def _unpack_planes(planes) -> List[torch.Tensor]:
+    """Packed planes ``[(words, bits)]`` → flat int32 values each, in
+    tiled-slot order, through one K1 call a device
+    (``bitunpack_tiled_many``)."""
+    by_dev: Dict[torch.device, List[int]] = {}
+    for i, (w, _b) in enumerate(planes):
+        by_dev.setdefault(w.device, []).append(i)
+    out: List[Optional[torch.Tensor]] = [None] * len(planes)
+    for idx in by_dev.values():
+        for i, o in zip(idx, bitunpack_tiled_many([planes[i] for i in idx])):
+            out[i] = o.reshape(-1)
+    return out
+
+
+def _unpack_columns(cols: Sequence["ResidentColumn"]):
+    """The planes and validity planes of ``cols`` through one K1 call a
+    device → (each column's unpacked planes, each column's validity as
+    bools in tiled order or None)."""
+    planes = []
+    for c in cols:
+        planes.extend(c.planes)
+        if c.validity_plane is not None:
+            planes.append((c.validity_plane, 1))
+    flat = iter(_unpack_planes(planes))
+    vals, valid = [], []
+    for c in cols:
+        vals.append([next(flat) for _ in c.planes])
+        valid.append(None if c.validity_plane is None else next(flat) != 0)
+    return vals, valid
 
 
 @dataclass
@@ -267,8 +303,7 @@ class ResidentTable:
         return u
 
     def _decode_col(self, c: ResidentColumn, with_dict: bool = True):
-        vals = [_unpack_plane_tiled(w, b) for w, b in c.planes]
-        return self._combine(c, vals, with_dict)
+        return self._combine(c, _unpack_planes(c.planes), with_dict)
 
     def decode_tiled(self, name: str, with_dict: bool = True) -> torch.Tensor:
         """Column values in tiled order, padding slots included.  Dict columns
@@ -442,16 +477,13 @@ class ResidentTable:
         for ``value_cols``, code space for ``code_cols``; plus the row mask
         (padding, nulls of every read column, the predicates)."""
         cols, codes = {}, {}
-        for n in names:
-            c = self.columns[n]
-            vals = [_unpack_plane_tiled(w, b) for w, b in c.planes]
+        read = [self.columns[n] for n in names]
+        m = self.mask_tiled()
+        for n, c, vals, valid in zip(names, read, *_unpack_columns(read)):
             if n in value_cols:
                 cols[n] = self._combine(c, vals, True)
             if n in code_cols:
                 codes[n] = self._combine(c, vals, False)
-        m = self.mask_tiled()
-        for n in names:
-            valid = self.validity_tiled(n)
             if valid is not None:
                 m = m & valid
         los, his = self._bound_scalars(predicates, pcols)

@@ -7,7 +7,9 @@ values of ``b`` bits LSB-first into its ``b`` words.  Words travel as
 
 - K1 ``bitunpack_tiled`` returns ``(n_tiles, 32, tile)`` with row ``t``
   holding value ``t`` of each column, for every ``b`` — the reference
-  kernel's output after ``_rows_to_t_major``.
+  kernel's output after ``_rows_to_t_major``; ``bitunpack_tiled_many``
+  decodes a list of planes in one launch, up to ``K1_MAX_PLANES``
+  (``plan_tiled_launch`` splits longer lists).
 - K2 ``bitunpack_tiled_unseeded`` and K0 ``bitunpack_tmajor`` are the K1
   kernel at seed 0, on tiles and on one ``(b, n_lanes)`` stripe.
 - K3 ``bitunpack_natural`` unpacks a page's BitPacker4x block words
@@ -21,6 +23,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import struct
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -135,8 +139,8 @@ def _launch_tiled(words: torch.Tensor, seed: int, bits: int) -> torch.Tensor:
     """Launch the K1 kernel on CUDA ``words`` (checked by the caller)."""
     _require_cuda(words)
     n_tiles, _, tile = words.shape
-    if not 1 <= n_tiles <= 65535:
-        raise ValueError(f"n_tiles must be in 1..65535, got {n_tiles}")
+    if n_tiles < 1:
+        raise ValueError(f"n_tiles must be at least 1, got {n_tiles}")
     out = torch.empty((n_tiles, 32, tile), dtype=torch.int32, device=words.device)
     fn = _kernel("bitunpack", "sb_bitunpack_tiled", _TILED_ARGS)
     with torch.cuda.device(words.device):
@@ -158,10 +162,91 @@ def bitunpack_tiled(words: torch.Tensor, seed: int, bits: int) -> torch.Tensor:
         return bitunpack_tiled_plain(words, seed, bits)
     out = _launch_tiled(words, seed, bits)
     bitunpack_tiled.launches += 1
+    bitunpack_tiled.planes += 1
     return out
 
 
 bitunpack_tiled.launches = 0  # K1 launches since the last reset
+bitunpack_tiled.planes = 0  # planes K1 decoded since the last reset
+
+
+# ---------------------------------------------------------------------------
+# K1 over many planes: one launch decodes up to K1_MAX_PLANES planes
+
+# descriptors one launch carries (``kMaxPlanes`` of csrc/bitunpack.cu, whose
+# entry refuses more; 4 KB of parameters)
+K1_MAX_PLANES = 64
+
+# one plane's descriptor, the kernel's ``Plane`` (40 bytes): words, out,
+# tile, n_tiles, cta_begin (laid out by the C entry; 0 here), seed, bits
+_PLANE = struct.Struct("<QQqiiIi")
+assert _PLANE.size == 40
+
+_MANY_ARGS = (ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p)
+
+
+def plan_tiled_launch(n_planes: int) -> List[Tuple[int, int]]:
+    """The launches of a K1 call over ``n_planes`` planes: ``[(first, end)]``
+    of consecutive planes, at most ``K1_MAX_PLANES`` a launch."""
+    return [(lo, min(lo + K1_MAX_PLANES, n_planes)) for lo in range(0, n_planes, K1_MAX_PLANES)]
+
+
+def tiled_descriptors(planes, out_ptrs, seed: int) -> bytes:
+    """The kernel's descriptors of ``planes`` ``[(words, bits)]`` decoding
+    into ``out_ptrs``, ``_PLANE.size`` bytes a plane."""
+    seed &= 0xFFFFFFFF
+    return b"".join(_PLANE.pack(w.data_ptr(), o, w.shape[2], w.shape[0], 0, seed, b)
+                    for (w, b), o in zip(planes, out_ptrs))
+
+
+def bitunpack_tiled_many_plain(planes, seed: int = 0) -> List[torch.Tensor]:
+    """Plain torch version of :func:`bitunpack_tiled_many`: each plane
+    through :func:`bitunpack_tiled_plain`."""
+    return [bitunpack_tiled_plain(w, seed, b) for w, b in planes]
+
+
+def bitunpack_tiled_many(planes: Sequence[Tuple[torch.Tensor, int]], seed: int = 0
+                         ) -> List[torch.Tensor]:
+    """K1 over ``planes`` ``[(words, bits)]``, each ``(n_tiles, bits,
+    tile)`` int32: the ``(n_tiles, 32, tile)`` values of each, views of
+    one ``torch.empty``.  The planes must share one device and be
+    contiguous (else it raises); on CUDA one launch decodes up to
+    ``K1_MAX_PLANES`` of them (each launch counts in
+    ``bitunpack_tiled.launches``, each plane in
+    ``bitunpack_tiled.planes``); CPU planes run
+    :func:`bitunpack_tiled_many_plain`."""
+    planes = list(planes)
+    shapes = []
+    for w, b in planes:
+        _check(w, b)
+        shapes.append(tuple(w.shape))
+    if not planes:
+        return []
+    dev = planes[0][0].device
+    for w, _b in planes:
+        if w.device != dev:
+            raise ValueError(f"planes on different devices: {dev} and {w.device}")
+        if not w.is_contiguous():
+            raise ValueError("words must be contiguous")
+    if dev.type == "cpu":
+        return bitunpack_tiled_many_plain(planes, seed)
+    for (w, _b), (n, _, _t) in zip(planes, shapes):
+        _require_cuda(w)
+        if n < 1:
+            raise ValueError(f"n_tiles must be at least 1, got {n}")
+    sizes = [n * 32 * tile for n, _b, tile in shapes]
+    out = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
+    views = [v.view(n, 32, tile) for v, (n, _b, tile) in zip(out.split(sizes), shapes)]
+    descs = tiled_descriptors(planes, [v.data_ptr() for v in views], seed)
+    fn = _kernel("bitunpack", "sb_bitunpack_tiled_many", _MANY_ARGS)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for lo, hi in plan_tiled_launch(len(planes)):
+            err = fn(descs[lo * _PLANE.size : hi * _PLANE.size], hi - lo, stream)
+            _raise_on(err, "bitunpack")
+            bitunpack_tiled.launches += 1
+    bitunpack_tiled.planes += len(planes)
+    return views
 
 
 # ---------------------------------------------------------------------------

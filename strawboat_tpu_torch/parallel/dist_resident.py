@@ -4,10 +4,11 @@ Counterpart of ``strawboat_tpu/parallel/dist_resident.py``.  A resident
 table's planes are packed so that tiled slot ``s`` holds row ``s``, so the
 tile axis is a row axis: cutting every plane's leading (tile) dimension
 into equal blocks gives each shard a contiguous row range, aligned across
-columns and validity planes.  A query decodes each shard's planes through
-kernel K1 at local shapes (``ResidentTable._combine``: K1's output is
-already in slot order, so the reference's ``_rows_to_t_major`` has no
-counterpart), reduces locally and combines with one ``psum``.
+columns and validity planes.  A query decodes every shard's planes through
+kernel K1 at local shapes, one launch for all the shards on a device
+(``ResidentTable._combine``: K1's output is already in slot order, so the
+reference's ``_rows_to_t_major`` has no counterpart), reduces locally and
+combines with one ``psum``.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 
 from ..errors import NotYetImplementedError
 from ..exec.aggregate import dense_group_sum, segment_reduce
-from ..exec.resident import ResidentColumn, ResidentTable, _unpack_plane_tiled
+from ..exec.resident import ResidentColumn, ResidentTable, _unpack_columns
 from .collectives import psum
 
 Bounds = Dict[str, Tuple[Optional[float], Optional[float]]]
@@ -93,11 +94,16 @@ def shard_resident(rt: ResidentTable, mesh, axis: str) -> ShardedResidentTable:
     return ShardedResidentTable(cols, rt.num_rows, rt.tile, mesh, axis, rows_per_shard)
 
 
-def _decode_local(c: ResidentColumn):
-    """One shard's planes of a column through K1 at local shapes (the
-    reference's per-shard Pallas call), flat in slot order;
-    ``ResidentTable._combine`` turns them into values or codes."""
-    return [_unpack_plane_tiled(w, b) for w, b in c.planes]
+def _decode_shards(srt: ShardedResidentTable, names):
+    """Every shard's planes and validity planes of ``names`` through K1 at
+    local shapes, one call a device (the reference's per-shard Pallas
+    calls): per shard, (each column's unpacked planes, each column's
+    validity or None), as ``_unpack_columns`` gives them."""
+    n_shards = len(srt.mesh.axis_devices(srt.axis))
+    vals, valid = _unpack_columns(
+        [srt.columns[n].local[s] for s in range(n_shards) for n in names])
+    k = len(names)
+    return [(vals[s * k : (s + 1) * k], valid[s * k : (s + 1) * k]) for s in range(n_shards)]
 
 
 def _code_bounds(srt: ShardedResidentTable, predicates: Bounds, pcols):
@@ -114,23 +120,23 @@ def _code_bounds(srt: ShardedResidentTable, predicates: Bounds, pcols):
     return out
 
 
-def _local_inputs(srt, s: int, names, value_cols, code_cols, bounds):
-    """Shard ``s``'s decoded values (``value_cols``), codes (``code_cols``)
-    and row mask: real rows (global slot below the row count), non-null in
-    every read column, inside every bound."""
+def _local_inputs(srt, s: int, names, value_cols, code_cols, bounds, decoded):
+    """Shard ``s``'s values (``value_cols``), codes (``code_cols``) and
+    row mask from its ``decoded`` planes (``_decode_shards``): real rows
+    (global slot below the row count), non-null in every read column,
+    inside every bound."""
     dev = srt.mesh.axis_devices(srt.axis)[s]
     rows = s * srt.rows_per_shard + torch.arange(srt.rows_per_shard, dtype=torch.int64, device=dev)
     m = rows < srt.num_rows
     cols, codes = {}, {}
-    for n in names:
+    for n, vals, valid in zip(names, *decoded):
         c = srt.columns[n].local[s]
-        vals = _decode_local(c)
         if n in value_cols:
             cols[n] = ResidentTable._combine(c, vals, True)
         if n in code_cols:
             codes[n] = ResidentTable._combine(c, vals, False)
-        if c.validity_plane is not None:
-            m = m & (_unpack_plane_tiled(c.validity_plane, 1) != 0)
+        if valid is not None:
+            m = m & valid
     for cname, lo, hi in bounds:
         if lo is not None:
             m = m & (codes[cname] >= lo)
@@ -156,8 +162,10 @@ def sharded_filter_sum(
     bounds = _code_bounds(srt, predicates, pcols)
     devs = srt.mesh.axis_devices(srt.axis)
     partial = []
+    decoded = _decode_shards(srt, names)
     for s in range(len(devs)):
-        cols, _codes, m = _local_inputs(srt, s, names, {value, *extra}, set(pcols), bounds)
+        cols, _codes, m = _local_inputs(srt, s, names, {value, *extra}, set(pcols), bounds,
+                                        decoded[s])
         acc = cols[value]
         if product_with is not None:
             acc = (acc if acc.is_floating_point() else acc.long()) * cols[product_with]
@@ -188,8 +196,10 @@ def sharded_group_sum(
     devs = srt.mesh.axis_devices(srt.axis)
     sums = [[] for _ in values]
     counts = []
+    decoded = _decode_shards(srt, names)
     for s in range(len(devs)):
-        cols, codes, m = _local_inputs(srt, s, names, set(values), {key, *pcols}, bounds)
+        cols, codes, m = _local_inputs(srt, s, names, set(values), {key, *pcols}, bounds,
+                                       decoded[s])
         k = codes[key].to(torch.int32)
         for i, vname in enumerate(values):
             vv = cols[vname]

@@ -7,18 +7,21 @@ the ``"strawboat_tpu_torch"`` logger: a handler at INFO sees one record per
 page, ``"choose <family> compression : <codec>"`` with the family and the
 codec's name as its arguments.  :func:`device_trace` profiles a region
 through ``torch.profiler`` and reads the device's idle share from the
-trace (the reference's ``device_trace``, ``util/obs.py:28``).
+trace (the reference's ``device_trace``, ``util/obs.py:28``);
+:func:`trace_device_ranges` reads the device's own durations from it,
+by the host range that launched them.
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import json
 import logging
 import os
 import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 log = logging.getLogger("strawboat_tpu_torch")
 
@@ -40,20 +43,28 @@ def log_compress_ratio(family: str, total_bytes: int, compressed: int) -> None:
 _TRACE_SPAN = "strawboat_device_trace"
 # chrome-trace categories of work on the card (kernels, copies, memsets)
 _CUDA_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# seconds of idle launches between a CUDA profiler session's start and its
+# span: late in a long process a session records kernels only some ms after
+# it starts (on an H100, 5.6 ms and the first 45 launches in one trace; a
+# traced sharded Q6 lost its first kernels without the lead-in)
+_LEAD_IN_S = 0.05
 
 
 @dataclass
 class DeviceTrace:
     """What :func:`device_trace` measured over its window: the Chrome
     trace's path, the window (seconds), the device's busy time (the union
-    of its intervals, seconds), ``idle_share = 1 - busy / window`` and the
-    longest stretch the device sat idle (seconds)."""
+    of its intervals, seconds), ``idle_share = 1 - busy / window``, the
+    longest stretch the device sat idle (seconds), and the kernel launches
+    in the window whose kernel the trace lacks (not 0: the other numbers
+    miss that work)."""
 
     path: Optional[str] = None
     window_s: float = 0.0
     busy_s: float = 0.0
     idle_share: float = 1.0
     longest_gap_s: float = 0.0
+    lost_kernels: int = 0
 
 
 def trace_busy(path: str, device_type: str) -> DeviceTrace:
@@ -84,7 +95,41 @@ def trace_busy(path: str, device_type: str) -> DeviceTrace:
     gap = max(gap, hi - end)
     window = hi - lo
     idle = 1.0 - busy / window if window > 0 else 0.0
-    return DeviceTrace(path, window * 1e-6, busy * 1e-6, idle, gap * 1e-6)
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "LaunchKernel" in e.get("name", "") and lo <= float(e["ts"]) <= hi
+                and "correlation" in e.get("args", {})}
+    recorded = {e.get("args", {}).get("correlation") for e in events if e.get("cat") == "kernel"}
+    return DeviceTrace(path, window * 1e-6, busy * 1e-6, idle, gap * 1e-6,
+                       len(launched - recorded))
+
+
+def trace_device_ranges(path: str, prefix: str) -> Dict[str, List[Tuple[str, float]]]:
+    """The device's kernels, copies and memsets in a Chrome trace written
+    by :func:`device_trace`, grouped by the ``record_function`` range
+    (a name starting with ``prefix``) in which the host launched them:
+    ``{range name: [(name, duration in seconds)]}`` in start order, each
+    record matched to its launch through the runtime call's correlation
+    id, so a record lost from the trace cannot shift the others."""
+    with open(path) as f:
+        events = [e for e in json.load(f).get("traceEvents", []) if e.get("ph") == "X"]
+    ranges = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), e["name"])
+                    for e in events if e.get("cat") == "user_annotation"
+                    and e.get("name", "").startswith(prefix))
+    starts = [r[0] for r in ranges]
+    launched = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    out: Dict[str, List[Tuple[str, float]]] = {name: [] for _lo, _hi, name in ranges}
+    device = sorted((e for e in events if e.get("cat") in _CUDA_CATS), key=lambda e: float(e["ts"]))
+    for e in device:
+        ts = launched.get(e.get("args", {}).get("correlation"))
+        if ts is None:
+            continue
+        i = bisect.bisect_right(starts, ts) - 1
+        if i >= 0 and ts <= ranges[i][1]:
+            out[ranges[i][2]].append((e.get("name", ""), float(e.get("dur", 0)) * 1e-6))
+    return out
 
 
 @contextlib.contextmanager
@@ -92,7 +137,8 @@ def device_trace(logdir: str, device):
     """Profile a region on ``device``: ``with device_trace(logdir, "cuda")
     as tr: run()``, then ``tr.idle_share``.  CUDA activity is traced on a
     CUDA device (CPU activity too, for the window), CPU activity on the
-    CPU; the device is synchronized at both ends, the Chrome trace is
+    CPU; on a CUDA device ``_LEAD_IN_S`` of idle launches precede the
+    span; the device is synchronized at both ends, the Chrome trace is
     written under ``logdir`` (open it in Perfetto or chrome://tracing) and
     ``tr`` is filled in from it by :func:`trace_busy`."""
     import torch
@@ -108,6 +154,12 @@ def device_trace(logdir: str, device):
     if cuda:
         torch.cuda.synchronize(dev)
     with profile(activities=activities) as prof:
+        if cuda:
+            lead = torch.zeros(1, device=dev)
+            end = time.perf_counter() + _LEAD_IN_S
+            while time.perf_counter() < end:
+                lead.add_(1)
+                torch.cuda.synchronize(dev)
         with record_function(_TRACE_SPAN):
             yield out
             if cuda:

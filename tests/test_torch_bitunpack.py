@@ -153,3 +153,82 @@ def test_k2_k0_plain_versions_and_counts():
         port.bitunpack_tmajor(torch.zeros((9, 500), dtype=torch.int32), 9)  # lanes % 512
     with pytest.raises(ValueError):
         port.bitunpack_tmajor(w, 9)  # not 2-D
+
+
+# ---------------------------------------------------------------------------
+# K1 over many planes: one launch over a list of planes, and its launches
+
+
+def _plane_list(specs, seed=0):
+    """[(int32 words, bits)] of ``specs`` [(n_tiles, bits, tile)], seeded."""
+    out = []
+    for i, (n, b, tile) in enumerate(specs):
+        w = _words(b, n_tiles=n, tile=tile, seed=seed + 7 * i)
+        out.append((torch.from_numpy(w.view(np.int32)), b))
+    return out
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_many_matches_reference(ref, seed):
+    """Mixed widths and tiles in one call equal the reference's seeded
+    kernel plane by plane, after ``_rows_to_t_major``."""
+    from strawboat_tpu.exec.resident import _rows_to_t_major
+
+    specs = [(2, b, tile) for b, tile in ((1, 512), (5, 1024), (12, 512), (23, 1024), (32, 512),
+                                          (2, 1024), (7, 512))]
+    planes = _plane_list(specs, seed & 0xFF)
+    got = port.bitunpack_tiled_many(planes, seed)
+    assert len(got) == len(planes)
+    for (w, b), g in zip(planes, got):
+        out3 = ref.bitunpack_pallas_tiled_seeded(jnp.asarray(w.numpy().view(np.uint32)),
+                                                 jnp.uint32(seed), b)
+        want = np.asarray(_rows_to_t_major(out3, b))
+        assert tuple(g.shape) == (w.shape[0], 32, w.shape[2])
+        np.testing.assert_array_equal(g.numpy().view(np.uint32), want, err_msg=f"b={b}")
+
+
+def test_many_odd_tiles_and_long_lists_equal_plain():
+    """Tiles that are not a multiple of 4 and lists past one launch's cap
+    give each plane's plain unpack."""
+    specs = [(1 + i % 3, 1 + i % 32, (1001, 512, 3, 16384)[i % 4]) for i in range(70)]
+    planes = _plane_list(specs)
+    got = port.bitunpack_tiled_many(planes, 0xA5A500FF)
+    for (w, b), g in zip(planes, got):
+        assert torch.equal(g, port.bitunpack_tiled_plain(w, 0xA5A500FF, b))
+    assert port.bitunpack_tiled_many([]) == []
+
+
+@pytest.mark.parametrize("n_planes", [0, 1, 64, 70, 129])
+def test_plan_splits_past_the_cap(n_planes):
+    """Every plane in exactly one launch, in order, at most
+    ``K1_MAX_PLANES`` a launch, in as few launches as that allows."""
+    plan = port.plan_tiled_launch(n_planes)
+    assert [i for lo, hi in plan for i in range(lo, hi)] == list(range(n_planes))
+    assert all(0 < hi - lo <= port.K1_MAX_PLANES for lo, hi in plan)
+    assert len(plan) == -(-n_planes // port.K1_MAX_PLANES)
+
+
+def test_descriptors_pack_each_plane():
+    """A plane's descriptor: its words and out, shape, seed and width; the
+    C entry lays out the CTAs, so ``cta_begin`` goes as 0."""
+    planes = _plane_list([(2, 3, 512), (1, 5, 1024)])
+    descs = port.tiled_descriptors(planes, [4096, 8192], 0x1A5A500FF)
+    assert len(descs) == 2 * port._PLANE.size == 80
+    assert port._PLANE.unpack(descs[:40]) == (planes[0][0].data_ptr(), 4096, 512, 2, 0, 0xA5A500FF, 3)
+    assert port._PLANE.unpack(descs[40:]) == (planes[1][0].data_ptr(), 8192, 1024, 1, 0, 0xA5A500FF, 5)
+
+
+def test_many_cpu_counts_no_launch_and_rejects_bad_lists():
+    before = (port.bitunpack_tiled.launches, port.bitunpack_tiled.planes)
+    planes = _plane_list([(1, 3, 512), (2, 8, 512)])
+    got = port.bitunpack_tiled_many(planes, 3)
+    assert all(torch.equal(g, port.bitunpack_tiled_plain(w, 3, b)) for (w, b), g in zip(planes, got))
+    assert (port.bitunpack_tiled.launches, port.bitunpack_tiled.planes) == before
+    meta = torch.empty((1, 3, 512), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="different devices"):
+        port.bitunpack_tiled_many([planes[0], (meta, 3)])
+    w8 = torch.zeros((2, 8, 1024), dtype=torch.int32)[:, :, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        port.bitunpack_tiled_many([planes[0], (w8, 8)])
+    with pytest.raises(ValueError):
+        port.bitunpack_tiled_many([(planes[0][0], 4)])  # plane count disagrees with bits

@@ -405,17 +405,83 @@ def test_sharded_k1_on_card_equals_plain(cuda):
     cols = tpch.generate_lineitem(1.0, seed=0, rows=3_000_000)
     rt = make_resident({k: cols[k] for k in tpch.Q1_Q6_COLUMNS}, cuda)
     srt = shard_resident(rt, make_mesh(4, cuda), "shards")
-    for c in srt.columns.values():
-        for local in c.local:
-            for w, b in local.planes:
-                before = bu.bitunpack_tiled.launches
-                got = bu.bitunpack_tiled(w, 0, b)
-                torch.cuda.synchronize()
-                assert bu.bitunpack_tiled.launches == before + 1
-                assert torch.equal(got, bu.bitunpack_tiled_plain(w, 0, b)), (c.name, b)
+    planes = [p for c in srt.columns.values() for local in c.local for p in local.planes]
+    before = (bu.bitunpack_tiled.launches, bu.bitunpack_tiled.planes)
+    got = bu.bitunpack_tiled_many(planes)
+    torch.cuda.synchronize()
+    # every shard's planes in one launch
+    assert (bu.bitunpack_tiled.launches, bu.bitunpack_tiled.planes) == (
+        before[0] + 1, before[1] + len(planes))
+    for (w, b), g in zip(planes, got):
+        assert torch.equal(g, bu.bitunpack_tiled_plain(w, 0, b)), b
     (sums,), cnt = sharded_group_sum(srt, "l_returnflag", ["l_quantity"], 3)
     (want,), want_cnt = rt.group_sum("l_returnflag", ["l_quantity"], 3)
     assert torch.equal(sums, want) and torch.equal(cnt, want_cnt)
+
+
+@pytest.mark.parametrize("seed", [0, 0xA5A500FF])
+def test_k1_many_matches_plain_on_card(cuda, seed):
+    """One launch over up to 64 planes of mixed widths and tiles, at each
+    split; two launches past the cap."""
+    g = torch.Generator(device=cuda).manual_seed(seed & 0xFFFF)
+
+    def plane(n, b, tile):
+        return (torch.randint(-(2**31), 2**31 - 1, (n, b, tile), dtype=torch.int32, device=cuda,
+                              generator=g), b)
+
+    planes = [plane(2, b, tile) for tile in (16384, 512) for b in range(1, 33)]
+    for many in (planes, planes[:5], planes + planes[:6]):
+        before = (bu.bitunpack_tiled.launches, bu.bitunpack_tiled.planes)
+        got = bu.bitunpack_tiled_many(many, seed)
+        torch.cuda.synchronize()
+        launches = 1 if len(many) <= bu.K1_MAX_PLANES else 2
+        assert (bu.bitunpack_tiled.launches, bu.bitunpack_tiled.planes) == (
+            before[0] + launches, before[1] + len(many))
+        for (w, b), o in zip(many, got):
+            assert torch.equal(o, bu.bitunpack_tiled_plain(w, seed, b)), (b, tuple(w.shape))
+
+
+def test_k1_odd_tile_and_misaligned_base_on_card(cuda):
+    """A tile that is not a multiple of 4 and a base 4 bytes past 16 take
+    the kernel's scalar path and equal the plain version; a non-contiguous
+    plane raises before any launch."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    odd = torch.randint(-(2**31), 2**31 - 1, (3, 9, 1001), dtype=torch.int32, device=cuda,
+                        generator=g)
+    flat = torch.randint(-(2**31), 2**31 - 1, (1 + 2 * 13 * 512,), dtype=torch.int32,
+                         device=cuda, generator=g)
+    shifted = flat[1:].view(2, 13, 512)
+    assert shifted.data_ptr() % 16 == 4
+    for w, b in ((odd, 9), (shifted, 13)):
+        assert torch.equal(bu.bitunpack_tiled(w, 7, b), bu.bitunpack_tiled_plain(w, 7, b))
+    for w, o in zip((odd, shifted), bu.bitunpack_tiled_many([(odd, 9), (shifted, 13)], 7)):
+        assert torch.equal(o, bu.bitunpack_tiled_plain(w, 7, w.shape[1]))
+    before = bu.bitunpack_tiled.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        bu.bitunpack_tiled_many([(odd, 9), (flat[: 2 * 13 * 512].view(2, 512, 13).transpose(1, 2), 13)])
+    assert bu.bitunpack_tiled.launches == before
+
+
+def test_sharded_and_resident_q6_launch_k1_once_on_card(cuda):
+    """Resident Q6 and Q1 and the sharded Q6 over 4 shards on one card each
+    make exactly one K1 launch, with the numpy answers."""
+    from strawboat_tpu_torch.benchsuite import tpch
+    from strawboat_tpu_torch.exec import make_resident
+    from strawboat_tpu_torch.parallel import make_mesh, shard_resident, sharded_filter_sum
+
+    cols = tpch.generate_lineitem(1.0, seed=0, rows=2_000_000)
+    rt = make_resident({k: cols[k] for k in tpch.Q1_Q6_COLUMNS}, cuda)
+    srt = shard_resident(rt, make_mesh(4, cuda), "shards")
+    q6 = ({"l_shipdate": (731, 1096), "l_discount": (5, 8), "l_quantity": (None, 24)},
+          "l_extendedprice", "l_discount")
+    for run, planes in ((lambda: tpch.q6(rt), 4), (lambda: tpch.q1(rt), 7),
+                        (lambda: sharded_filter_sum(srt, *q6), 16)):
+        before = (bu.bitunpack_tiled.launches, bu.bitunpack_tiled.planes)
+        run()
+        torch.cuda.synchronize()
+        assert (bu.bitunpack_tiled.launches, bu.bitunpack_tiled.planes) == (
+            before[0] + 1, before[1] + planes)
+    assert int(sharded_filter_sum(srt, *q6)) == int(tpch.q6(rt)) == tpch.q6_numpy_reference(cols)
 
 
 def test_all_to_all_and_psum_on_card(cuda):

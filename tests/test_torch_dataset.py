@@ -14,6 +14,7 @@ code a null slot holds is whatever its part's remap gives.
 import collections
 import dataclasses
 import importlib
+import json
 import os
 import runpy
 import sys
@@ -508,6 +509,58 @@ def test_device_trace_on_the_cpu(tmp_path):
     assert 0.0 <= tr.idle_share <= 1.0
     assert 0.0 < tr.busy_s <= tr.window_s
     assert 0.0 <= tr.longest_gap_s <= tr.window_s
+
+
+def test_trace_busy_counts_launches_whose_kernel_is_missing(tmp_path):
+    """A kernel launch inside the span without its kernel record counts in
+    ``lost_kernels``; launches outside the span, and copies, do not."""
+    from strawboat_tpu_torch.util.obs import _TRACE_SPAN, trace_busy
+
+    def x(cat, name, ts, dur, **args):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur, "args": args}
+
+    events = [x("user_annotation", _TRACE_SPAN, 100, 100),
+              x("cuda_runtime", "cudaLaunchKernel", 50, 2, correlation=1),  # before the span
+              x("cuda_runtime", "cudaLaunchKernel", 110, 2, correlation=2),
+              x("cuda_runtime", "cudaLaunchKernelExC", 120, 2, correlation=3),
+              x("cuda_runtime", "cudaMemcpyAsync", 130, 2, correlation=4),
+              x("cuda_runtime", "cudaLaunchKernel", 140, 2, correlation=5),
+              x("kernel", "k2", 150, 10, correlation=2), x("gpu_memcpy", "Memcpy", 170, 10, correlation=4)]
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    tr = trace_busy(str(path), "cuda")
+    assert tr.lost_kernels == 2  # correlations 3 and 5
+    assert abs(tr.busy_s - 20e-6) < 1e-12 and abs(tr.window_s - 100e-6) < 1e-12
+    events.append(x("kernel", "k3", 185, 5, correlation=3))
+    events.append(x("kernel", "k5", 192, 5, correlation=5))
+    path.write_text(json.dumps({"traceEvents": events}))
+    assert trace_busy(str(path), "cuda").lost_kernels == 0
+
+
+def test_trace_device_ranges_match_records_to_their_ranges(tmp_path):
+    """Device records go to the host range whose launch made them, by the
+    runtime call's correlation id; a record whose launch is outside every
+    range, or missing from the trace, goes nowhere and shifts nothing."""
+    from strawboat_tpu_torch.util.obs import trace_device_ranges
+
+    def x(cat, name, ts, dur, **args):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur, "args": args}
+
+    events = [x("user_annotation", "sb_call_0_0", 0, 100), x("user_annotation", "sb_call_0_1", 100, 100),
+              x("user_annotation", "other", 200, 100),
+              x("cuda_runtime", "cudaLaunchKernel", 10, 5, correlation=1),
+              x("cuda_runtime", "cudaLaunchKernel", 20, 5, correlation=2),
+              x("cuda_runtime", "cudaMemcpyAsync", 150, 5, correlation=3),
+              x("cuda_runtime", "cudaLaunchKernel", 250, 5, correlation=4),
+              # device records, out of order; correlation 5 has no launch in the trace
+              x("gpu_memcpy", "Memcpy DtoD", 400, 7, correlation=3),
+              x("kernel", "k_b", 320, 3, correlation=2), x("kernel", "k_a", 300, 2, correlation=1),
+              x("kernel", "k_c", 500, 9, correlation=4), x("kernel", "k_d", 600, 9, correlation=5)]
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    got = trace_device_ranges(str(path), "sb_call_")
+    assert got == {"sb_call_0_0": [("k_a", 2e-6), ("k_b", 3e-6)],
+                   "sb_call_0_1": [("Memcpy DtoD", 7e-6)]}
 
 
 def test_torch_dataset_demo_runs_on_the_cpu(tmp_path, monkeypatch, capsys):

@@ -825,6 +825,41 @@ def test_sharded_resident_nullable_and_dict_columns(meshes, interp_pallas):
     assert int(got) == int(val[(word == "yy") & ~nulls].sum())
 
 
+def test_sharded_queries_decode_every_shard_in_one_k1_call(meshes, tmp_path, interp_pallas,
+                                                          monkeypatch):
+    """Every shard's planes of every read column go to one K1 call (all
+    shards share the CPU), and the answers equal the JAX package's."""
+    from strawboat_tpu.parallel.dist_resident import shard_resident as ref_shard
+    from strawboat_tpu.parallel.dist_resident import sharded_filter_sum as ref_filter_sum
+    from strawboat_tpu.parallel.dist_resident import sharded_group_sum as ref_group_sum
+    from strawboat_tpu_torch.exec import resident as res_mod
+
+    jmesh, mesh = meshes
+    ref, rt, _cols = _resident(tmp_path, 4096, 29)
+    jsrt = ref_shard(ref, jmesh, "shards")
+    srt = par.shard_resident(rt, mesh, "shards")
+    calls = []
+    orig = res_mod.bitunpack_tiled_many
+
+    def counting(planes, seed=0):
+        calls.append(len(planes))
+        return orig(planes, seed)
+
+    monkeypatch.setattr(res_mod, "bitunpack_tiled_many", counting)
+    preds = {"sd": (731, 1096), "disc": (5, 8), "qty": (None, 24)}
+    got = par.sharded_filter_sum(srt, preds, value="ep", product_with="disc")
+    assert calls == [N * 4]  # one plane a column a shard
+    assert int(got) == int(ref_filter_sum(jsrt, preds, value="ep", product_with="disc"))
+    calls.clear()
+    (sums,), cnt = par.sharded_group_sum(srt, "grp", ["ep"], num_groups=6,
+                                         predicates={"sd": (400, 2000)})
+    assert calls == [N * 3]
+    (wsums,), wcnt = ref_group_sum(jsrt, "grp", ["ep"], num_groups=6,
+                                   predicates={"sd": (400, 2000)})
+    _same(sums, np.asarray(wsums))
+    _same(cnt, np.asarray(wcnt))
+
+
 def test_shard_resident_refuses_list_columns():
     from strawboat_tpu_torch import columns as cm
     from strawboat_tpu_torch.exec import make_resident

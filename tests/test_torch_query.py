@@ -92,6 +92,32 @@ def test_q6_matches_jax_and_numpy(lineitem):
     assert int(res["rev"]) == int(got)
 
 
+def test_fused_q1_and_q6_decode_in_one_k1_call(lineitem, monkeypatch):
+    """Q1 through ``Query(rt)``'s fused branch and Q6 through ``filter_sum``
+    each hand every plane they read to one K1 call, and equal the JAX
+    package's answers and numpy's."""
+    from strawboat_tpu.benchsuite.tpch import q1_numpy_reference, q6_numpy_reference
+    from strawboat_tpu_torch.exec import resident as res_mod
+
+    _cols, table, rt, rt_ref = lineitem
+    calls = []
+    orig = res_mod.bitunpack_tiled_many
+
+    def counting(planes, seed=0):
+        calls.append(len(planes))
+        return orig(planes, seed)
+
+    monkeypatch.setattr(res_mod, "bitunpack_tiled_many", counting)
+    _assert_q1_equal(port_tpch.q1_rows(port_tpch.q1(rt)), q1_numpy_reference(table))
+    assert calls == [7]  # the seven Q1/Q6 columns, one plane each
+    calls.clear()
+    want = rt_ref.filter_sum(
+        {"l_shipdate": (731, 1096), "l_discount": (5, 8), "l_quantity": (None, 24)},
+        value="l_extendedprice", product_with="l_discount")
+    assert int(port_tpch.q6(rt)) == int(want) == q6_numpy_reference(table)
+    assert calls == [4]
+
+
 def test_q1_matches_jax_and_numpy(lineitem):
     from strawboat_tpu.benchsuite.tpch import q1_numpy_reference
     from strawboat_tpu.exec.expr import col as ref_col

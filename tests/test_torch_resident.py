@@ -284,6 +284,31 @@ def test_queries_match_reference(tables, ref_decoded, case):
         _same_values(carried.decode_natural(name), ref_decoded(case, name), name)
 
 
+@pytest.mark.parametrize("case", CASES)
+def test_fused_queries_decode_in_one_k1_call(tables, case, monkeypatch):
+    """filter_sum and group_sum hand every plane and validity plane of the
+    columns they read to one K1 call, and give the reference's answers."""
+    _t, rt_ref, rt = tables(case)
+    want = _queries(rt_ref, case)
+    calls = []
+    orig = port.bitunpack_tiled_many
+
+    def counting(planes, seed=0):
+        calls.append(len(planes))
+        return orig(planes, seed)
+
+    monkeypatch.setattr(port, "bitunpack_tiled_many", counting)
+    got = [x.numpy() for x in map(torch.as_tensor, _queries(rt, case))]
+
+    def planes(*names):
+        cs = [rt.columns[n] for n in dict.fromkeys(n for n in names if n)]
+        return sum(len(c.planes) + (c.validity_plane is not None) for c in cs)
+
+    fcol, _bounds, value, prod, key, _ng = QUERIES[case]
+    assert calls == [planes(fcol, value, prod), planes(key, value, fcol)]
+    _assert_same_answers(got, want, case)
+
+
 def _masked(arr: pa.Array):
     """pa column → numpy (a MaskedArray where it has nulls)."""
     t = arr.type
