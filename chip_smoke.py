@@ -66,9 +66,21 @@ the whole lineitem file (K1's and K3's launches are counted over 13):
    ``tpch.q1_query`` over the file == numpy; ``load_resident`` of the ten
    columns with the fused Q1 and Q6 == numpy;
 
-the typed lineitem files (K1's and K3's launches are counted over 14):
+the file-format API (K3's launches are counted over 14):
 
-14. lineitem_typed — every 5th row (12 M, SF2) of the ten lineitem
+14. file_api — over the lineitem_full file: ``api.read_table`` plain and
+   twice through one ``ReadArena`` (every column of the plain and the
+   recycled read equal to the generated one), ``api.iter_batches`` over
+   the first 200 pages (each batch equal to the generated rows),
+   ``stat.stat_simple`` of every column (pages by codec), ``scan_file`` on
+   the card with ``to_arrow`` (equal to the plain read), each timed; a
+   file of int64 and ``pa.nulls`` through ``NativeWriter``, scanned on the
+   card (the null column's int32 zeros and False validity there), through
+   ``Query`` and through ``read_table`` (a ``null`` column);
+
+the typed lineitem files (K1's and K3's launches are counted over 15):
+
+15. lineitem_typed — every 5th row (12 M, SF2) of the ten lineitem
    columns with the money columns typed: as ``decimal128(15, 2)`` under the ``dict`` flags with zone maps
    (whole scan, every column equal to the generated one in unscaled ints;
    Q6 over a scan pruned by the l_shipdate zones, Q1 through ``Query``
@@ -80,9 +92,9 @@ the typed lineitem files (K1's and K3's launches are counted over 14):
    as float64 under the PATAS flag and ``l_linestatus == "F"`` as a bool
    column, written and scanned bit for bit;
 
-the nested orders file (K1's and K3's launches are counted over 15):
+the nested orders file (K1's and K3's launches are counted over 16):
 
-15. nested — TPC-H orders at SF2.5 (3.75 M rows, seed 1, in o_orderdate
+16. nested — TPC-H orders at SF2.5 (3.75 M rows, seed 1, in o_orderdate
    order) with their 1–7 lineitems each (about 15 M, seed 0) nested as
    ``o_lineitems`` list<struct<l_quantity, l_extendedprice, l_discount,
    l_tax, l_shipdate, l_returnflag>> and ``o_lineprices`` list<int64>,
@@ -94,9 +106,9 @@ the nested orders file (K1's and K3's launches are counted over 15):
    ``list_sum`` and every leaf decoded from its planes through K1;
    ``make_resident`` of the scan's list column;
 
-the adaptive write path (K3's launches are counted over 16):
+the adaptive write path (K3's launches are counted over 17):
 
-16. adaptive — the ten lineitem columns, the first 15 M generated rows
+17. adaptive — the ten lineitem columns, the first 15 M generated rows
    (SF2.5), through ``write_file`` with the JAX benchmark's write options
    (LZ4, ratio 1.0, sample_seed 3, pages of 65 536 rows, zone maps):
    seconds and bytes, the codecs chosen (a handler on the port's logger)
@@ -108,9 +120,9 @@ the adaptive write path (K3's launches are counted over 16):
    (every column equal to numpy permuted alike) and scanned pruned by
    ``l_suppkey < 1000`` (the kept pages' rows equal numpy's);
 
-the dataset path (K1's and K3's launches are counted over 17):
+the dataset path (K1's and K3's launches are counted over 18):
 
-17. dataset — the ten lineitem columns at SF10 sorted by l_shipdate,
+18. dataset — the ten lineitem columns at SF10 sorted by l_shipdate,
    written by ``write_dataset`` in 60 parts of 1 M rows with the same
    options; ``scan_dataset`` of the glob cold and warm (every column equal
    to the sorted one); Q6 over the scan pruned by Q6's range (files kept by
@@ -122,9 +134,9 @@ the dataset path (K1's and K3's launches are counted over 17):
    (every column equal, Q6); a warm scan inside ``device_trace``: the
    device's idle share and longest idle gap;
 
-the multi-device path (K1's and K3's launches are counted over 18):
+the multi-device path (K1's and K3's launches are counted over 19):
 
-18. multidevice — a mesh of 4 shards on the one card
+19. multidevice — a mesh of 4 shards on the one card
    (``strawboat_tpu_torch/parallel``): the SF10 resident table sharded by
    tile blocks, Q6 (``sharded_filter_sum``, one K1 launch over every
    shard's planes) and the sums by l_returnflag (``sharded_group_sum``) ==
@@ -146,11 +158,11 @@ the multi-device path (K1's and K3's launches are counted over 18):
 
 and last:
 
-19. k2_k0  — K2 and K0 bit-exact against their plain versions (b = 1..32),
+20. k2_k0  — K2 and K0 bit-exact against their plain versions (b = 1..32),
    then (their launches counted) l_shipdate's bit-packed pages decoded
    through K2's and K0's natural-order entry points == the generated column;
    each width group's lane count, times and bound are printed;
-20. k1_batching — resident Q6, Q1 and the sharded Q6 warm with their
+21. k1_batching — resident Q6, Q1 and the sharded Q6 warm with their
    planes in one K1 call and a launch a plane, in turns.
 
 The launches line also tallies the planes the paths hand K1 by tile
@@ -217,6 +229,9 @@ ADAPTIVE_ROWS = 15_000_000
 # the multidevice phase: shards of the mesh on the one card, and Q3's date
 # (1995-03-15 in days since 1992-01-01)
 MULTI_SHARDS = 4
+# the file_api phase reads the first this many pages through iter_batches
+# (the whole SF10 file, 916 pages a column, would take most of its budget)
+FILE_API_BATCHES = 200
 # tiles of the K1 shapes timed: SF10's planes, a shard's, one tile
 K1_TILES = (SF10_TILES, -(-SF10_TILES // MULTI_SHARDS), 1)
 # TPC-H Q6 as ``filter_sum`` / ``sharded_filter_sum`` arguments (code bounds)
@@ -262,8 +277,32 @@ def whole_trace(tr, what: str):
     """``tr``, a ``device_trace``; raises when its trace lacks kernels that
     its window launched (its busy time and idle share would miss them)."""
     if tr.lost_kernels:
-        raise AssertionError(f"{what}: the trace lacks {tr.lost_kernels} kernels its window launched")
+        raise AssertionError(
+            f"{what}: the trace lacks {tr.lost_kernels} kernels its window launched (launched "
+            f"from {tr.lost_span_s[0]:.6f} s to {tr.lost_span_s[1]:.6f} s of its "
+            f"{tr.window_s:.6f} s)")
     return tr
+
+
+def traced(logdir: str, device, what: str, fn):
+    """``fn()`` inside ``device_trace`` → (the trace, ``fn``'s result, what
+    the first try lacked or None).  Late in a long process a profiler
+    session sometimes misses kernels its window launched (one SF10 run on
+    the H100 lost 815 of a dataset scan's, PERF.md §7); such a trace is
+    taken once more, the first try's loss kept for the phase's line, and a
+    second trace that lacks kernels fails (``whole_trace``)."""
+    from strawboat_tpu_torch.util.obs import device_trace
+
+    first = None
+    for _ in range(2):
+        with device_trace(logdir, device) as tr:
+            out = fn()
+        if not tr.lost_kernels:
+            return tr, out, first
+        first = {"lost_kernels": tr.lost_kernels, "launched_from_s": tr.lost_span_s[0],
+                 "launched_to_s": tr.lost_span_s[1], "window_s": tr.window_s}
+        os.remove(tr.path)
+    whole_trace(tr, what)
 
 
 def kernel_launches() -> int:
@@ -275,9 +314,10 @@ def kernel_launches() -> int:
             + bu.bitunpack_tmajor.launches + bu.bitunpack_natural.launches)
 
 
-def device_ms(calls, reps: int = REPS, warmup: int = 1) -> list:
-    """The device's own time of each ``(fn, n, match)`` in ``calls``, in
-    ms: the median over ``reps`` calls of the summed durations of the
+def device_ms(calls, reps: int = REPS, warmup: int = 1):
+    """→ (the device's own time of each ``(fn, n, match)`` in ``calls``,
+    what the first trace lacked or None).  The time, in ms, is the median
+    over ``reps`` calls of the summed durations of the
     kernels (or copies) whose names hold ``match`` that one ``fn()``
     launches, from one ``torch.profiler`` trace over every call, each
     call in a ``record_function`` range of its own that its launches are
@@ -285,10 +325,12 @@ def device_ms(calls, reps: int = REPS, warmup: int = 1) -> list:
     count of such launches a call makes (None: what the kernels' wrappers
     count in one warm-up call); a call whose records in the trace do not
     number ``n`` raises.  ``event_ms``'s window holds the wrapper's host
-    time as well; this holds only the device's."""
+    time as well; this holds only the device's.  A trace short of kernels
+    is taken once more (``traced``); the first try's loss is returned for
+    the caller's line, so that a time from a retaken trace shows there."""
     from torch.profiler import record_function
 
-    from strawboat_tpu_torch.util.obs import device_trace, trace_device_ranges
+    from strawboat_tpu_torch.util.obs import trace_device_ranges
 
     counts = []
     for fn, n, _match in calls:
@@ -296,13 +338,15 @@ def device_ms(calls, reps: int = REPS, warmup: int = 1) -> list:
         for _ in range(warmup):
             fn()
         counts.append(n if n is not None else (kernel_launches() - before) // warmup)
+    def run():
+        for i, (fn, _n, _match) in enumerate(calls):
+            for r in range(reps):
+                with record_function(f"sb_call_{i}_{r}"):
+                    fn()
+
     with tempfile.TemporaryDirectory() as logdir:
-        with device_trace(logdir, "cuda") as tr:
-            for i, (fn, _n, _match) in enumerate(calls):
-                for r in range(reps):
-                    with record_function(f"sb_call_{i}_{r}"):
-                        fn()
-        ranges = trace_device_ranges(whole_trace(tr, "device_ms").path, "sb_call_")
+        tr, _, first = traced(logdir, "cuda", "device_ms", run)
+        ranges = trace_device_ranges(tr.path, "sb_call_")
     out = []
     for i, ((_fn, _n, match), n) in enumerate(zip(calls, counts)):
         durs = [[d for name, d in ranges.get(f"sb_call_{i}_{r}", ()) if match in name]
@@ -312,7 +356,7 @@ def device_ms(calls, reps: int = REPS, warmup: int = 1) -> list:
             raise AssertionError(f"call {i} of {len(calls)}: reps {short} lack their {n} "
                                  f"{match!r} records in the trace")
         out.append(statistics.median([sum(d) for d in durs]) * 1e3)
-    return out
+    return out, first
 
 
 def kernel_ms(path: str, top: int = 8) -> dict:
@@ -543,7 +587,8 @@ def phase_kernel(device, seed: int, tile: int) -> dict:
                   (lambda p=planes: [bu.bitunpack_tiled(w, 0, b) for w, b in p], None,
                    "bitunpack"),
                   (copy_of(nbytes), 1, "Memcpy")]
-    dev = iter(device_ms(calls))
+    dev, first = device_ms(calls)
+    dev = iter(dev)
     for key, t in times.items():
         t["device_ms"] = next(dev)
         if "per_plane_ms" in t:
@@ -552,7 +597,7 @@ def phase_kernel(device, seed: int, tile: int) -> dict:
         t["bound_share"] = t["bound_ms"] / t["device_ms"]
         t["TB_per_s"] = t["bound_share"] * HBM_BYTES_PER_S / 1e12
     emit("kernel", widths_checked=32, seeds=[hex(s) for s in SEEDS], max_abs_err=max_err,
-         many=many, tile=tile, times=times)
+         many=many, tile=tile, times=times, device_ms_first_try_short=first)
     del shapes, groups, copies
     torch.cuda.empty_cache()
     return {"max_abs_err": max_err, "times": times}
@@ -1104,6 +1149,139 @@ def phase_lineitem_full(cols, tmpdir, device) -> str:
     return path
 
 
+def _check_arrow(what: str, arr, want: np.ndarray) -> None:
+    """An arrow column of ``read_table`` against the generated numpy
+    column (strings through their dictionary encoding)."""
+    import pyarrow.compute as pc
+
+    if hasattr(arr, "combine_chunks"):  # a table's column, not a batch's
+        arr = arr.combine_chunks()
+    if arr.null_count or len(arr) != len(want):
+        raise AssertionError(f"{what}: {len(arr)} rows, {arr.null_count} null, want {len(want)}")
+    if want.dtype.kind == "U":
+        enc = pc.dictionary_encode(arr)
+        got = np.array(enc.dictionary.to_pylist())[enc.indices.to_numpy()]
+    else:
+        got = arr.to_numpy()
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{what} != the generated column")
+
+
+def phase_file_api(path, cols, tmpdir, device) -> dict:
+    """The file-format API over the ``lineitem_full`` file: ``read_table``
+    (plain, then twice through one ``ReadArena``: its first read
+    allocates, the second recycles), every column of the plain read equal
+    to the generated one and every column of each arena read equal to the
+    plain read's; ``iter_batches`` over the first
+    ``FILE_API_BATCHES`` pages, each batch's columns equal to the
+    generated rows; ``stat_simple`` of every column (pages by codec);
+    ``scan_file`` on the card with ``to_arrow``, equal to the plain read;
+    then a small file of int64 and ``pa.nulls`` through ``NativeWriter``,
+    scanned on the card (the null column's tensors there: zeros, validity
+    False), through ``Query`` and through ``read_table`` (a null column)."""
+    import collections
+
+    import pyarrow as pa
+
+    from strawboat_tpu_torch import api, stat
+    from strawboat_tpu_torch.benchsuite import tpch
+    from strawboat_tpu_torch.exec import Query, col, scan_file
+    from strawboat_tpu_torch.read.fast import ReadArena
+    from strawboat_tpu_torch.read.reader import open_readers
+    from strawboat_tpu_torch.write import NativeWriter
+
+    facts = {"file_bytes": os.path.getsize(path), "rows": len(cols["l_orderkey"])}
+    arena = ReadArena()
+    seconds = {}
+    for turn, a in (("plain", None), ("arena_first", arena), ("arena_recycled", arena)):
+        t0 = time.perf_counter()
+        table = api.read_table(path, arena=a)
+        seconds[turn] = time.perf_counter() - t0
+        # each read checked before the next one recycles the arena's
+        # buffers: the plain read against the generated columns, each
+        # arena read against the plain read (so against them too; an
+        # arrow comparison, where the string columns' check against numpy
+        # takes seconds a read at SF10)
+        if turn == "plain":
+            for k in tpch.LINEITEM_COLUMNS:
+                _check_arrow(f"read_table ({turn}) {k}", table[k], cols[k])
+            plain = table
+        else:
+            for k in tpch.LINEITEM_COLUMNS:
+                if not table[k].equals(plain[k]):
+                    raise AssertionError(f"read_table ({turn}) {k} != the plain read")
+        del table
+    facts["read_table"] = {"seconds": seconds, "columns_equal_to_generated": True,
+                           "arena_buffers": sum(len(b) for b in arena._free.values()) + len(arena._lent)}
+
+    t0 = time.perf_counter()
+    rows = batches = 0
+    for batch in api.iter_batches(path):
+        for k in tpch.LINEITEM_COLUMNS:
+            _check_arrow(f"iter_batches batch {batches} {k}", batch.column(k),
+                         cols[k][rows : rows + batch.num_rows])
+        rows += batch.num_rows
+        batches += 1
+        if batches == FILE_API_BATCHES:
+            break
+    facts["iter_batches"] = {"seconds": time.perf_counter() - t0, "batches": batches, "rows": rows,
+                             "first_batches_only": FILE_API_BATCHES, "equal_to_generated": True}
+
+    with open(path, "rb") as f:
+        schema, metas = api.infer_schema(f), api.read_meta(f)
+    t0 = time.perf_counter()
+    codecs = {}
+    for field, meta in zip(schema, metas):
+        (reader,) = open_readers(path, [meta])
+        info = stat.stat_simple(reader, field)
+        reader.page_reader.close()
+        codecs[field.name] = dict(collections.Counter(
+            p.body.common.name if p.body.kind == "common" else
+            f"dict/{p.body.dict.indices.body.kind}" if p.body.kind == "dict" else p.body.kind
+            for p in info.pages))
+    facts["stat_simple"] = {"seconds": time.perf_counter() - t0, "pages_by_codec": codecs}
+
+    t0 = time.perf_counter()
+    scanned = scan_file(path, device)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    arrow = scanned.to_arrow()
+    facts["scan_file"] = {"seconds": scan_s, "to_arrow_seconds": time.perf_counter() - t0 - scan_s}
+    del scanned
+    if not arrow.select(list(tpch.LINEITEM_COLUMNS)).equals(plain.select(list(tpch.LINEITEM_COLUMNS))):
+        raise AssertionError("scan_file(...).to_arrow() != read_table")
+    facts["scan_file"]["equal_to_read_table"] = True
+    del arrow, plain
+
+    n = 100_000
+    a = np.random.default_rng(SEED).integers(-(10**9), 10**9, n)
+    null_path = os.path.join(tmpdir, "nulls.str")
+    table = pa.table({"a": a, "n": pa.nulls(n)})
+    with open(null_path, "wb") as f:
+        w = NativeWriter(f, table.schema)
+        w.start()
+        w.write(table)
+        w.finish()
+    got = scan_file(null_path, device)
+    nc = got["n"]
+    if (nc.values.device.type != device.type or nc.validity.device.type != device.type
+            or nc.values.dtype != torch.int32 or bool(nc.values.any()) or bool(nc.validity.any())
+            or len(nc) != n or not np.array_equal(got["a"].values.cpu().numpy(), a)):
+        raise AssertionError("the null file's scan on the card")
+    res, mask = Query(null_path, device=device).filter(col("a") > 0).select("a", "n").run()
+    kept = res.to_arrow(mask)
+    if kept.num_rows != int((a > 0).sum()) or kept["n"].null_count != kept.num_rows:
+        raise AssertionError("Query over the null file")
+    back = api.read_table(null_path)
+    if back.schema.field("n").type != pa.null() or back["n"].null_count != n:
+        raise AssertionError("read_table of the null file")
+    facts["null_file"] = {"rows": n, "bytes": os.path.getsize(null_path),
+                          "device": str(nc.values.device), "query_rows": kept.num_rows,
+                          "read_table_type": str(back.schema.field("n").type)}
+    emit("file_api", **facts, nvidia_smi=nvidia_smi())
+    return facts
+
+
 def _close(what: str, got, want, exact: bool) -> None:
     """An answer against numpy: equal when ``exact``, else to rtol 1e-12."""
     if exact:
@@ -1635,7 +1813,6 @@ def phase_dataset(cols, tmpdir, device):
     from strawboat_tpu_torch.exec import dataset as ds
     from strawboat_tpu_torch.exec.scan import _open, page_keep_mask
     from strawboat_tpu_torch.kernels import bitunpack as bu
-    from strawboat_tpu_torch.util.obs import device_trace
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1755,13 +1932,11 @@ def phase_dataset(cols, tmpdir, device):
     facts["compact"].update(rows=table.num_rows, equal_to_numpy=True)
     del table, head
 
-    with device_trace(os.path.join(tmpdir, "trace"), device) as tr:
-        table = ds.scan_dataset(glob, device)
-    del table
-    whole_trace(tr, "traced dataset scan")
+    tr, _, first = traced(os.path.join(tmpdir, "trace"), device, "traced dataset scan",
+                          lambda: ds.scan_dataset(glob, device).num_rows)
     facts["traced_scan"] = {"window_s": tr.window_s, "device_busy_s": tr.busy_s,
                             "idle_share": tr.idle_share, "longest_idle_gap_s": tr.longest_gap_s,
-                            "trace_bytes": os.path.getsize(tr.path)}
+                            "trace_bytes": os.path.getsize(tr.path), "first_try_short": first}
     os.remove(tr.path)
     emit("dataset", rows=len(data["l_shipdate"]), part_rows=DATASET_PART_ROWS, page_rows=PAGE_ROWS,
          order="l_shipdate", options="LZ4, ratio 1.0, sample_seed 3, zone maps", **facts,
@@ -1828,7 +2003,6 @@ def phase_multidevice(rt, cols, paths, o_path, dataset_paths, data, tmpdir, devi
     from strawboat_tpu_torch.parallel import ShardedTensor, concat_shards, dist_scan
     from strawboat_tpu_torch.parallel.collectives import record_exchanges
     from strawboat_tpu_torch.parallel.dryrun import dryrun_multidevice
-    from strawboat_tpu_torch.util.obs import device_trace
 
     torch.cuda.reset_peak_memory_stats()
     mesh = par.make_mesh(MULTI_SHARDS, device)
@@ -1859,11 +2033,10 @@ def phase_multidevice(rt, cols, paths, o_path, dataset_paths, data, tmpdir, devi
     for name, run in (("sharded", lambda: par.sharded_filter_sum(srt, *q6).item()),
                       ("single_device", lambda: rt.filter_sum(*q6).item())):
         run()
-        with device_trace(os.path.join(tmpdir, "traces"), device) as tr:
-            run()
-        whole_trace(tr, f"traced {name} Q6")
+        tr, _, first = traced(os.path.join(tmpdir, "traces"), device, f"traced {name} Q6", run)
         traces[name] = {"window_ms": tr.window_s * 1e3, "busy_ms": tr.busy_s * 1e3,
-                        "idle_share": tr.idle_share, "kernel_ms": kernel_ms(tr.path)}
+                        "idle_share": tr.idle_share, "kernel_ms": kernel_ms(tr.path),
+                        "first_try_short": first}
     facts["resident"] = {
         "shard_s": time.perf_counter() - t0, "rows_per_shard": srt.rows_per_shard,
         "q6_k1_launches": q6_k1[0], "q6_k1_planes": q6_k1[1], "q6_traced": traces,
@@ -1911,15 +2084,15 @@ def phase_multidevice(rt, cols, paths, o_path, dataset_paths, data, tmpdir, devi
         "n": np.bincount(sk)})
     with record_exchanges() as recs:
         aggregate()
-    with device_trace(os.path.join(tmpdir, "multidevice_trace"), device) as tr:
-        aggregate()
-    whole_trace(tr, "traced aggregate")
+    tr, _, first = traced(os.path.join(tmpdir, "multidevice_trace"), device, "traced aggregate",
+                          aggregate)
     os.remove(tr.path)
     facts["aggregate"] = {"seconds": agg_s, "groups": groups,
                           "slots_per_shard": len(res["keys"].shards[0]),
                           "warm_ms": wall_ms(lambda: aggregate()["n"].shards[0].cpu(), reps=3),
                           "exchange": _exchanges(recs), "idle_share": tr.idle_share,
                           "device_busy_s": tr.busy_s, "window_s": tr.window_s,
+                          "trace_first_try_short": first,
                           "equal_to_numpy": True}
     del res
 
@@ -2074,11 +2247,15 @@ def k3_summary(paths, device) -> dict:
             files[name]["groups"] = groups
         else:
             files[name].update(parts=len(path), launch_groups=len(groups))
+    first_try_short = {}
     for single in (True, False):  # the files' launches, then the datasets'
         names = [n for n, p in paths.items() if isinstance(p, str) == single]
         calls = [(lambda w=w, b=b: bu.bitunpack_natural(w, 0, b), None, "bitunpack")
                  for n in names for w, b in launches[n]]
-        dev = iter(device_ms(calls, reps=REPS if single else DATASET_K3_REPS))
+        dev, first = device_ms(calls, reps=REPS if single else DATASET_K3_REPS)
+        if first:
+            first_try_short["files" if single else "datasets"] = first
+        dev = iter(dev)
         for n in names:
             per = [next(dev) for _ in launches[n]]
             files[n]["device_ms"] = sum(per)
@@ -2088,8 +2265,10 @@ def k3_summary(paths, device) -> dict:
             else:
                 files[n]["device_ms_per_launch"] = [min(per), statistics.median(per), max(per)]
     del launches
-    emit("k3_groups", files=files)
-    return {k: sum(f[k] for f in files.values()) for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+    first_try_short = first_try_short or None
+    emit("k3_groups", files=files, device_ms_first_try_short=first_try_short)
+    return {**{k: sum(f[k] for f in files.values()) for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
+            "device_ms_first_try_short": first_try_short}
 
 
 def phase_k2_k0(path: str, shipdate: np.ndarray, device, seed: int) -> dict:
@@ -2133,9 +2312,10 @@ def phase_k2_k0(path: str, shipdate: np.ndarray, device, seed: int) -> dict:
         raise AssertionError(f"the K2/K0 path did not launch both kernels: {launches}")
     times = {k: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
              for k in ("K2", "K0")}
-    dev = iter(device_ms([call for b, _want, w3, wt in inputs for call in (
+    dev, first = device_ms([call for b, _want, w3, wt in inputs for call in (
         (lambda w3=w3, b=b: bu.bitunpack_tiled_unseeded(w3, b), None, "bitunpack"),
-        (lambda wt=wt, b=b: bu.bitunpack_tmajor(wt, b), None, "bitunpack"))]))
+        (lambda wt=wt, b=b: bu.bitunpack_tmajor(wt, b), None, "bitunpack"))])
+    dev = iter(dev)
     per_launch = []
     for b, _want, w3, wt in inputs:
         one = {
@@ -2156,8 +2336,10 @@ def phase_k2_k0(path: str, shipdate: np.ndarray, device, seed: int) -> dict:
                 times[k][f] += one[k][f]
         per_launch.append({"b": b, **one})
     emit("k2_k0", widths_checked=32, max_abs_err=0, path_widths=[g[0] for g in groups],
-         launches=launches, times=times, per_launch=per_launch, equal_to_numpy=True)
-    return {k: {"launches": launches[k], "max_abs_err": 0, **times[k]} for k in launches}
+         launches=launches, times=times, per_launch=per_launch, equal_to_numpy=True,
+         device_ms_first_try_short=first)
+    return {k: {"launches": launches[k], "max_abs_err": 0, **times[k],
+                "device_ms_first_try_short": first} for k in launches}
 
 
 def k1_summary(tables, nested_rt, srt) -> dict:
@@ -2182,10 +2364,9 @@ def k1_summary(tables, nested_rt, srt) -> dict:
     k1 = {"ms": sum(event_ms(lambda g=g: bu.bitunpack_tiled_many(g)) for g in groups),
           "per_plane_ms": sum(event_ms(lambda w=w, b=b: bu.bitunpack_tiled(w, 0, b))
                               for w, b in planes)}
-    dev = device_ms([(lambda g=g: bu.bitunpack_tiled_many(g), None, "bitunpack")
-                     for g in groups]
-                    + [(lambda w=w, b=b: bu.bitunpack_tiled(w, 0, b), None, "bitunpack")
-                       for w, b in planes])
+    dev, k1["device_ms_first_try_short"] = device_ms(
+        [(lambda g=g: bu.bitunpack_tiled_many(g), None, "bitunpack") for g in groups]
+        + [(lambda w=w, b=b: bu.bitunpack_tiled(w, 0, b), None, "bitunpack") for w, b in planes])
     k1["device_ms"] = sum(dev[: len(groups)])
     k1["per_plane_device_ms"] = sum(dev[len(groups):])
     # the plain version repeats the kernel's arithmetic in torch ops: a few
@@ -2274,6 +2455,15 @@ def main() -> int:
         k3_launches += full["K3"]
         torch.cuda.empty_cache()
         phase_s["lineitem_full"] = time.perf_counter() - started
+        # the file-format API over the same file: count only its launches
+        bu.bitunpack_natural.launches = 0
+        phase_file_api(full_path, cols, tmpdir, device)
+        file_api = {"K3": bu.bitunpack_natural.launches}
+        if file_api["K3"] <= 0:
+            raise AssertionError("the file_api path never launched K3")
+        k3_launches += file_api["K3"]
+        torch.cuda.empty_cache()
+        phase_s["file_api"] = time.perf_counter() - started
         # the typed lineitem files: count only their launches
         bu.bitunpack_tiled.launches = 0
         bu.bitunpack_natural.launches = 0
@@ -2355,9 +2545,12 @@ def main() -> int:
                 "device_ms": facts["device_ms"], "plain_ms": facts["plain_ms"],
                 "bound_ms": facts["bound_ms"], "bound_by": "bytes",
                 # no single torch call unpacks BitPacker4x
-                "library_ms": None}
+                "library_ms": None,
+                # what a trace behind device_ms lacked before it was retaken
+                "device_ms_first_try_short": facts["device_ms_first_try_short"]}
 
-    emit("launches", general_path=general, lineitem_full_path=full, lineitem_typed_path=typed,
+    emit("launches", general_path=general, lineitem_full_path=full, file_api_path=file_api,
+         lineitem_typed_path=typed,
          nested_path=nested, adaptive_path=adaptive, dataset_path=dataset, multidevice_path=multi,
          k1_plane_tiles=k1_tiles, script_s=time.perf_counter() - started, phase_end_s=phase_s)
     print(json.dumps({"kernels": [

@@ -18,7 +18,8 @@ that ``dict_encode`` reuses); float32 / float64 pages above 8192 values
 alike over their bit patterns; every other page through numpy (distinct
 values by value).  The trial sample of a page is drawn once, from the
 first candidate's draw of the page's RNG, and every later candidate reuses
-it (``sample_stats``).
+it (``sample_stats``).  The host read's decoders of the RLE, ONE_VALUE,
+DICT and FREQ bodies close the module.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import numpy as np
 
 from .. import native
 from ..constants import SAMPLE_COUNT, SAMPLE_SIZE, Compression, get_bits_needed
+from ..errors import OutOfSpecError
 from ..util import roaring
 
 MIN_DICT_RATIO = 3
@@ -479,3 +481,56 @@ def compress_sample_ratio(codec_compress: Callable, stats: FamilyStats,
     if size == 0:
         return float(s.total_bytes)
     return s.total_bytes / size
+
+
+# ---------------------------------------------------------------------------
+# host page decoders (reference integer/{rle,one_value,dict,freq}.rs), for
+# the host read (``read/``); the scan decodes these bodies on the device.
+# The body parsers live in ``integer.py``, which imports this module.
+
+
+def rle_decode(buf, pos: int, length: int, dtype: np.dtype) -> Tuple[np.ndarray, int]:
+    """An RLE body → (its ``length`` values, end position)."""
+    from .integer import parse_rle
+
+    if length == 0:
+        return np.empty(0, dtype=dtype), pos
+    counts, vals = parse_rle(buf, pos, length, dtype)
+    out = np.repeat(vals, counts.astype(np.int64))[:length]
+    return out.astype(dtype, copy=False), pos + len(counts) * (4 + dtype.itemsize)
+
+
+def one_value_decode(buf, pos: int, length: int, dtype: np.dtype) -> Tuple[np.ndarray, int]:
+    from .integer import parse_one_value
+
+    val = parse_one_value(buf, pos, dtype)
+    return np.full(length, val[0], dtype=dtype), pos + dtype.itemsize
+
+
+def dict_decode(buf, pos: int, length: int, dtype: np.dtype,
+                decompress_indices: Callable) -> Tuple[np.ndarray, int]:
+    """A DICT body: the u32 index subpage, then ``[u32 count][values]``."""
+    from .integer import parse_dict_values
+
+    indices, pos = decompress_indices(buf, pos, length, np.dtype(np.uint32))
+    data = parse_dict_values(buf, pos, dtype)
+    count = int(np.frombuffer(buf, "<u4", 1, pos)[0])
+    if len(indices) and count == 0:
+        raise OutOfSpecError("dict page has indices but no values")
+    out = data[indices] if count else np.empty(0, dtype=dtype)
+    return out.astype(dtype, copy=False), pos + 4 + count * dtype.itemsize
+
+
+def freq_decode(buf, pos: int, length: int, dtype: np.dtype,
+                decompress_exceptions: Callable) -> Tuple[np.ndarray, int]:
+    """A FREQ body: the top value everywhere but at the roaring bitmap's
+    positions, which take the exceptions subpage's values."""
+    from .integer import parse_freq
+
+    top, positions, pos = parse_freq(buf, pos, dtype)
+    out = np.full(length, top[0], dtype=dtype)
+    exceptions, pos = decompress_exceptions(buf, pos, len(positions), dtype)
+    if len(exceptions) != len(positions):
+        raise OutOfSpecError("freq exceptions length mismatch")
+    out[positions] = exceptions
+    return out, pos

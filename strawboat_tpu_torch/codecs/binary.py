@@ -21,7 +21,8 @@ one), with the JAX writer's bytes: the DICT push rule for nulls and the
 dictionary in order of first appearance.  The page stats count distinct
 slices over every slot, null ones too, as arrow's ``dictionary_encode``
 of the page does in the reference.  The reader parses every page the JAX
-writer emits.
+writer emits: the scan takes DICT pages as codes on the device, the host
+read decodes them here (``decode_binary_page``).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from ..util import env, roaring
 from ..util.obs import log_codec_choice
 from . import WriteOptions, compress, decompress_raw, read_header, write_header
 from ._family import MIN_DICT_RATIO, _top_is_null, factorize_first_occurrence
-from .integer import compress_integer
+from .integer import compress_integer, decompress_integer
 
 # slices of at most this many bytes factorize as one u64 key each: the
 # bytes little-endian in the low 7 bytes, the length in the top byte
@@ -330,9 +331,18 @@ def parse_len_prefixed(buf, pos: int, count: int) -> Tuple[List[bytes], int]:
     return out, pos
 
 
+def _gather_rows(pool: np.ndarray, src: np.ndarray, lens: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Row ``i`` as ``pool[src[i] : src[i] + lens[i]]`` → (int64 offsets,
+    uint8 values)."""
+    offsets = np.zeros(len(lens) + 1, dtype=np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    idx = np.repeat(src - offsets[:-1], lens) + np.arange(int(offsets[-1]))
+    return offsets, pool[idx]
+
+
 def decode_binary_page(buf, pos: int, length: int, large: bool) -> Tuple[np.ndarray, np.ndarray, int]:
-    """A raw-mode, FREQ or ONE_VALUE page at ``pos`` → (int64 offsets,
-    uint8 values, end position).  DICT pages decode in the scan."""
+    """One binary page at ``pos``, of any codec, decoded on the host →
+    (int64 offsets, uint8 values, end position)."""
     codec, csize, _usize, body = read_header(buf, pos)
     if codec.raw_mode:
         odt = np.dtype("<i8" if large else "<i4")
@@ -344,6 +354,8 @@ def decode_binary_page(buf, pos: int, length: int, large: bool) -> Tuple[np.ndar
             raise OutOfSpecError("binary page offsets out of range")
         return offsets, np.asarray(values, dtype=np.uint8), body2 + csize2
     end = body + csize
+    if end > len(buf):
+        raise OutOfSpecError("binary page truncated")
     if codec == Compression.ONE_VALUE:
         ln = _u(buf, "<u4", body)
         value = _take_bytes(buf, body + 4, ln)
@@ -360,11 +372,20 @@ def decode_binary_page(buf, pos: int, length: int, large: bool) -> Tuple[np.ndar
         # every row reads the top slice, exceptions their own, from one pool
         lens = np.full(length, top_len, dtype=np.int64)
         lens[positions] = [len(x) for x in exceptions]
-        offsets = np.zeros(length + 1, dtype=np.int64)
-        np.cumsum(lens, out=offsets[1:])
         src = np.zeros(length, dtype=np.int64)
         src[positions] = top_len + np.cumsum(lens[positions]) - lens[positions]
         pool = np.frombuffer(top + b"".join(exceptions), np.uint8)
-        idx = np.repeat(src - offsets[:-1], lens) + np.arange(int(offsets[-1]))
-        return offsets, pool[idx], end
+        return (*_gather_rows(pool, src, lens), end)
+    if codec == Compression.DICT:
+        codes, p = decompress_integer(buf, body, length, np.dtype(np.uint32))
+        sets, _ = parse_len_prefixed(buf, p + 4, _u(buf, "<u4", p))
+        if not sets:  # an all-null page: its codes are 0, one empty slice
+            sets = [b""]
+        codes = codes.astype(np.int64)
+        if len(codes) and int(codes.max()) >= len(sets):
+            raise OutOfSpecError("dictionary code out of range")
+        set_lens = np.array([len(x) for x in sets], dtype=np.int64)
+        starts = np.cumsum(set_lens) - set_lens
+        pool = np.frombuffer(b"".join(sets), np.uint8)
+        return (*_gather_rows(pool, starts[codes], set_lens[codes]), end)
     raise OutOfSpecError(f"unknown binary codec {codec}")

@@ -14,7 +14,7 @@ the default codec.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -22,7 +22,7 @@ from ..constants import SAMPLE_COUNT, SAMPLE_SIZE, Compression
 from ..errors import OutOfSpecError
 from ..util import env
 from ..util.obs import log_codec_choice
-from . import WriteOptions, compress, write_header
+from . import WriteOptions, compress, decompress_raw, read_header, write_header
 from ._family import one_value_encode as _one_value_encode, rle_encode
 
 
@@ -146,3 +146,22 @@ def one_value_decode(buf, body: int, length: int) -> np.ndarray:
     if body >= len(buf):
         raise OutOfSpecError("data size is less than 1")
     return np.full(length, buf[body] > 0, dtype=bool)
+
+
+def decompress_boolean(buf, pos: int, length: int) -> Tuple[np.ndarray, int]:
+    """One boolean page at ``pos`` → (its ``length`` values, the position
+    past the header and the compressed body)."""
+    codec, csize, _usize, body = read_header(buf, pos)
+    end = body + csize
+    if end > len(buf):
+        raise OutOfSpecError("boolean page truncated")
+    if codec.raw_mode:
+        (raw,) = decompress_raw(codec, [np.asarray(buf[body:end], dtype=np.uint8)],
+                                [(length + 7) // 8])
+        bits = np.unpackbits(np.asarray(raw, dtype=np.uint8), count=length, bitorder="little")
+        return bits.astype(bool), end
+    if codec == Compression.RLE:
+        return rle_decode(buf, body, length), end
+    if codec == Compression.ONE_VALUE:
+        return one_value_decode(buf, body, length), end
+    raise OutOfSpecError(f"unknown boolean codec {codec}")

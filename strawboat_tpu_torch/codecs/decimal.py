@@ -22,7 +22,7 @@ JAX writer's bytes.  The reader decodes every page the JAX writer emits.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -31,7 +31,7 @@ from ..errors import OutOfSpecError
 from ..util import env, roaring
 from . import WriteOptions, compress, decompress_raw, read_header, write_header
 from ._family import MIN_DICT_RATIO, factorize_first_occurrence
-from .integer import compress_integer, parse_rle
+from .integer import compress_integer, decompress_integer, parse_rle
 
 
 def _void(values: np.ndarray) -> np.ndarray:
@@ -233,11 +233,10 @@ def parse_dict(buf, pos: int, width: int) -> np.ndarray:
     return _take(buf, pos + 4, count * width).reshape(count, width)
 
 
-def decompress_decimal(buf, pos: int, length: int, width: int,
-                       decode_indices: Callable) -> Tuple[np.ndarray, int]:
+def decompress_decimal(buf, pos: int, length: int, width: int) -> Tuple[np.ndarray, int]:
     """One decimal page at ``pos`` → (its ``(length, W)`` matrix, end).
-    ``decode_indices(buf, pos, length)`` decodes a DICT page's index
-    subpage (an integer page of u32 codes) → (int64 codes, end)."""
+    A DICT page's index subpage (an integer page of u32 codes) decodes on
+    the host."""
     codec, csize, _usize, body = read_header(buf, pos)
     end = body + csize
     if end > len(buf):
@@ -252,7 +251,8 @@ def decompress_decimal(buf, pos: int, length: int, width: int,
     if codec == Compression.ONE_VALUE:
         return np.tile(_take(buf, body, width), (length, 1)), end
     if codec == Compression.DICT:
-        codes, ipos = decode_indices(buf, body, length)
+        codes, ipos = decompress_integer(buf, body, length, np.dtype(np.uint32))
+        codes = codes.astype(np.int64)
         data = parse_dict(buf, ipos, width)
         if len(codes) and (not len(data) or int(codes.max()) >= len(data)):
             raise OutOfSpecError("dictionary code out of range")
@@ -264,7 +264,7 @@ def decompress_decimal(buf, pos: int, length: int, width: int,
         positions = roaring.deserialize(_take(buf, p + 4, bm).tobytes()).astype(np.int64)
         if len(positions) and int(positions[-1]) >= length:
             raise OutOfSpecError("FREQ exception position out of range")
-        exceptions, _ = decompress_decimal(buf, p + 4 + bm, len(positions), width, decode_indices)
+        exceptions, _ = decompress_decimal(buf, p + 4 + bm, len(positions), width)
         out = np.tile(top, (length, 1))
         out[positions] = exceptions
         return out, end

@@ -4,8 +4,9 @@ Counterpart of ``strawboat_tpu/codecs/double.py`` and of the float half of
 ``strawboat_tpu/codecs/_family.py``.  A float page shares the integer
 family's layouts (the reference reuses them for doubles): raw mode, RLE
 ``[u32 len][value]`` runs, DICT ``[index subpage][u32 count][values]``,
-ONE_VALUE and FREQ; the reader parses those bodies with
-``codecs/integer.py`` and decodes them on the device (``exec/scan.py``).
+ONE_VALUE and FREQ; the scan parses those bodies with
+``codecs/integer.py`` and decodes them on the device (``exec/scan.py``),
+the host read decodes whole pages here (``decompress_double``).
 PATAS is the float codec of its own: each value XORed against a value
 among the last 128, stored as the significant bytes of the XOR.
 
@@ -27,7 +28,7 @@ XOR with 31 trailing zeros has one significant byte).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -36,12 +37,12 @@ from ..constants import Compression
 from ..errors import OutOfSpecError
 from ..util import env
 from ..util.obs import log_codec_choice
-from . import WriteOptions, write_header
+from . import WriteOptions, decompress_raw, read_header, write_header
 from ._family import (
-    FamilyStats, compress_sample_ratio, dict_encode, dict_ratio, freq_encode, freq_ratio,
-    gen_stats, one_value_encode, rle_encode,
+    FamilyStats, compress_sample_ratio, dict_decode, dict_encode, dict_ratio, freq_decode,
+    freq_encode, freq_ratio, gen_stats, one_value_decode, one_value_encode, rle_decode, rle_encode,
 )
-from .integer import _compete, compress_integer, frame_raw
+from .integer import _compete, compress_integer, decompress_integer, frame_raw
 
 _RING = 128  # a value refers back at most this far
 _NATIVE_MIN = 256  # shorter pages take the Python loops, as in the reference
@@ -205,3 +206,36 @@ def compress_double(
     body = _codec_compress(codec, values, validity, stats, options)
     return write_header(codec, len(body), len(values) * values.dtype.itemsize) + body
 
+
+
+# ---------------------------------------------------------------------------
+# reader: whole-page host decode (reference double/mod.rs), for the
+# host read (``read/``)
+
+
+def decompress_double(buf, pos: int, length: int, dtype: np.dtype) -> Tuple[np.ndarray, int]:
+    """One float page at ``pos`` → (its ``length`` values, the position
+    past the header and the compressed body); a FREQ page's exceptions are
+    a float page, a DICT page's indices an integer page."""
+    dtype = np.dtype(dtype)
+    codec, csize, _usize, body = read_header(buf, pos)
+    end = body + csize
+    if end > len(buf):
+        raise OutOfSpecError("double page truncated")
+    if codec.raw_mode:
+        (raw,) = decompress_raw(codec, [np.asarray(buf[body:end], dtype=np.uint8)],
+                                [length * dtype.itemsize])
+        return np.frombuffer(raw, dtype=dtype), end
+    if codec == Compression.RLE:
+        out, _ = rle_decode(buf, body, length, dtype)
+    elif codec == Compression.DICT:
+        out, _ = dict_decode(buf, body, length, dtype, decompress_integer)
+    elif codec == Compression.ONE_VALUE:
+        out, _ = one_value_decode(buf, body, length, dtype)
+    elif codec == Compression.FREQ:
+        out, _ = freq_decode(buf, body, length, dtype, decompress_double)
+    elif codec == Compression.PATAS:
+        out = patas_decode(buf, body, length, dtype)
+    else:
+        raise OutOfSpecError(f"unknown double codec {codec}")
+    return out, end

@@ -10,8 +10,9 @@ counted ×1.5), else ``default_compression`` (NONE, or LZ4 / Zstd / Snappy
 over the page's bytes), with the JAX writer's bytes.  The RLE, DICT,
 ONE_VALUE and FREQ encoders are shared with the float family
 (``_family.py``).  The reader side parses the bodies of structured pages
-(RLE, DICT, FREQ, ONE_VALUE) on the host; the values are decoded on the
-device (``exec/scan.py``).
+(RLE, DICT, FREQ, ONE_VALUE) on the host for the scan, which decodes the
+values on the device (``exec/scan.py``), and decodes whole pages on the
+host for the host read (``decompress_integer``, ``read/``).
 """
 
 from __future__ import annotations
@@ -24,12 +25,12 @@ from .. import native
 from ..constants import Compression
 from ..errors import OutOfSpecError
 from ..util import env, roaring
-from ..util.bits import BLOCK_LEN, pack_blocks
+from ..util.bits import BLOCK_LEN, pack_blocks, unpack_blocks
 from ..util.obs import log_codec_choice
-from . import WriteOptions, compress, write_header
+from . import WriteOptions, compress, decompress_raw, read_header, write_header
 from ._family import (
-    FamilyStats, compress_sample_ratio, dict_encode, dict_ratio, freq_encode, freq_ratio,
-    gen_stats, one_value_encode, rle_encode,
+    FamilyStats, compress_sample_ratio, dict_decode, dict_encode, dict_ratio, freq_decode,
+    freq_encode, freq_ratio, gen_stats, one_value_decode, one_value_encode, rle_decode, rle_encode,
 )
 
 
@@ -266,3 +267,72 @@ def parse_freq(buf, body: int, dtype: np.dtype) -> Tuple[np.ndarray, np.ndarray,
     p += 4
     positions = roaring.deserialize(bytes(buf[p : p + bm_size]))
     return top, positions, p + bm_size
+
+
+# ---------------------------------------------------------------------------
+# reader: whole-page host decode (reference integer/mod.rs:72-117), for the
+# host read (``read/``)
+
+
+def bitpack_decode(buf, pos: int, length: int, dtype: np.dtype) -> Tuple[np.ndarray, int]:
+    """A bit-packed body (widths may differ by block) → (``length`` values
+    viewed as ``dtype``, end position): one native pass, or without the
+    native library the numpy unpack of each width's blocks."""
+    n_blocks = (length + BLOCK_LEN - 1) // BLOCK_LEN
+    buf = buf if isinstance(buf, np.ndarray) else np.frombuffer(buf, np.uint8)
+    if n_blocks and native.available():
+        vals, end = native.bp_decode(buf, pos, n_blocks)
+        return vals[:length].view(dtype), end
+    nbs = np.empty(n_blocks, dtype=np.int64)
+    starts = np.empty(n_blocks, dtype=np.int64)
+    p = pos
+    for b in range(n_blocks):
+        if p >= len(buf):
+            raise OutOfSpecError("bitpacked page truncated")
+        nbs[b], starts[b] = int(buf[p]), p + 1
+        p += 1 + int(buf[p]) * 16
+    if p > len(buf):
+        raise OutOfSpecError("bitpacked page truncated")
+    out = np.zeros((n_blocks, BLOCK_LEN), dtype=np.uint32)
+    for nb in np.unique(nbs):
+        nb = int(nb)
+        sel = np.flatnonzero(nbs == nb)
+        if nb:
+            idx = starts[sel][:, None] + np.arange(nb * 16)
+            out[sel] = unpack_blocks(buf[idx].view(np.uint32), nb)
+    return out.reshape(-1)[:length].view(dtype), p
+
+
+def delta_bitpack_decode(buf, pos: int, length: int, dtype: np.dtype) -> Tuple[np.ndarray, int]:
+    """The bit-packed deltas, summed from 0 (mod 2^32)."""
+    deltas, pos = bitpack_decode(buf, pos, length, np.dtype(np.uint32))
+    return np.cumsum(deltas, dtype=np.uint32).view(dtype), pos
+
+
+def decompress_integer(buf, pos: int, length: int, dtype: np.dtype) -> Tuple[np.ndarray, int]:
+    """One integer page at ``pos`` → (its ``length`` values, the position
+    past the header and the compressed body)."""
+    dtype = np.dtype(dtype)
+    codec, csize, _usize, body = read_header(buf, pos)
+    end = body + csize
+    if end > len(buf):
+        raise OutOfSpecError("integer page truncated")
+    if codec.raw_mode:
+        (raw,) = decompress_raw(codec, [np.asarray(buf[body:end], dtype=np.uint8)],
+                                [length * dtype.itemsize])
+        return np.frombuffer(raw, dtype=dtype), end
+    if codec == Compression.RLE:
+        out, _ = rle_decode(buf, body, length, dtype)
+    elif codec == Compression.DICT:
+        out, _ = dict_decode(buf, body, length, dtype, decompress_integer)
+    elif codec == Compression.ONE_VALUE:
+        out, _ = one_value_decode(buf, body, length, dtype)
+    elif codec == Compression.FREQ:
+        out, _ = freq_decode(buf, body, length, dtype, decompress_integer)
+    elif codec == Compression.BITPACKING:
+        out, _ = bitpack_decode(buf, body, length, dtype)
+    elif codec == Compression.DELTA_BITPACKING:
+        out, _ = delta_bitpack_decode(buf, body, length, dtype)
+    else:
+        raise OutOfSpecError(f"unknown integer codec {codec}")
+    return out, end

@@ -28,7 +28,6 @@ from typing import List, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .. import columns as cm
 from ..device import as_device
 from ..errors import NotYetImplementedError, OutOfSpecError
 from .pruning import check_predicates, prune_pages, read_zones
@@ -158,16 +157,6 @@ def scan_dataset(paths: Paths, device, columns: Optional[Sequence[str]] = None,
     return concat_device_tables(parts)
 
 
-def _arrow_columns(table):
-    """A ``pa.Table`` → (the port writer's columns, its fields), each
-    column the one chunk of ``table.combine_chunks()``, as the reference's
-    writer takes a table (a bitmap without nulls kept)."""
-    table = table.combine_chunks()
-    columns = {f.name: cm.from_arrow(c.chunk(0) if c.num_chunks else c.combine_chunks())
-               for f, c in zip(table.schema, table.columns)}
-    return columns, [cm.field_from_arrow(f) for f in table.schema]
-
-
 def write_dataset(directory: str, data, rows_per_file: int, options=None,
                   prefix: str = "part") -> List[str]:
     """Split ``data`` into part files of ``rows_per_file`` rows under
@@ -185,13 +174,9 @@ def write_dataset(directory: str, data, rows_per_file: int, options=None,
     paths = []
     for i, off in enumerate(range(0, max(n, 1), rows_per_file)):
         ln = min(rows_per_file, n - off)
-        schema = None
-        if arrow:
-            part, schema = _arrow_columns(data.slice(off, ln))
-        else:
-            part = {name: c[off : off + ln] for name, c in data.items()}
+        part = data.slice(off, ln) if arrow else {name: c[off : off + ln] for name, c in data.items()}
         p = os.path.join(directory, f"{prefix}-{i:05d}.str")
-        write_file(p, part, schema=schema, options=options)
+        write_file(p, part, options=options)
         paths.append(p)
     return paths
 

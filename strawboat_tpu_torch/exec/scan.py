@@ -3,7 +3,9 @@
 Counterpart of ``strawboat_tpu/exec/scan.py``: ``DeviceColumn`` /
 ``DeviceTable`` / ``DeviceListColumn`` and ``scan_file`` (pruned by zone
 maps under ``predicates``) and ``scan_chunks`` of flat columns (integers,
-temporal types, strings, floats, bool, decimals) and of nested ones
+temporal types, strings, floats, bool, decimals; a null column reads its
+pages through the host batch read, as the reference's scan does, and
+is int32 zeros with validity all False) and of nested ones
 (list, large_list, fixed-size list, map, struct: leaf by leaf, each leaf
 on the flat routes below, its levels expanded on the host).  The reference keeps a host copy of f64 columns
 (``host_exact``) because the TPU stores f64 as a float32 pair; float64 is
@@ -81,12 +83,12 @@ from ..read.levels import (
 )
 from ..read.reader import infer_schema, read_meta
 from ..schema import (
-    FLAT_FLOAT_TYPES, FLAT_INT_TYPES, Field, decimal_params, fixed_size, int_storage,
+    FLAT_FLOAT_TYPES, FLAT_INT_TYPES, NULL_TYPE, Field, decimal_params, fixed_size, int_storage,
 )
 from . import arena
 from .pruning import check_predicates, prune_pages, read_zones
 
-_SCAN_TODO = "ROADMAP.md 'Modules to port': scan_file, what is left"
+_SCAN_TODO = "ROADMAP.md queue 1, 'Types and pages still refused'"
 
 
 @dataclass
@@ -208,6 +210,9 @@ def to_pa_array(vals: np.ndarray, null_mask, dtype, dictionary=None):
     import pyarrow as pa
 
     t = arrow_type(dtype)
+    if t is not None and pa.types.is_null(t):
+        # int32 nulls: the reference's ``to_arrow`` cannot cast them to null
+        return pa.array(np.asarray(vals, dtype=np.int32), mask=null_mask)
     if dictionary is not None:
         if not len(dictionary):
             return pa.array(np.full(len(vals), None), type=t, mask=null_mask)
@@ -867,14 +872,6 @@ def _decode_boolean_column(plans, field: Field, dev) -> DeviceColumn:
     return DeviceColumn(field.name, field.dtype, values, _validity(plans, dev))
 
 
-def _host_indices(buf, pos: int, length: int):
-    """A DICT page's index subpage decoded on the host → (int64 codes,
-    end position)."""
-    codes, end = _decode_structured_to_device(buf, pos, length, np.dtype(np.uint32),
-                                              torch.device("cpu"))
-    return codes.numpy().view(np.uint32).astype(np.int64), end
-
-
 def _decimal_dict(width: int):
     """A DICT page's dictionary of ``width``-byte decimals as unscaled
     int64 (one zero for an all-null page, whose codes are 0), or None
@@ -939,7 +936,7 @@ def _decode_decimal_column(plans, field: Field, dev) -> DeviceColumn:
                 codes, _end = _decode_structured_to_device(buf, body, length, np.dtype(np.uint32), dev)
                 parts.append(_gather_dicts(codes, [lo], [length], i64, dev))
                 continue
-        mat, _end = decompress_decimal(buf, p, length, width, _host_indices)
+        mat, _end = decompress_decimal(buf, p, length, width)
         lo, fits = int64_rows(mat)
         if not fits.all():
             raise NotYetImplementedError(f"device scan of decimal {field.dtype} wider than int64")
@@ -1357,7 +1354,7 @@ def page_keep_mask(path: str, metas, predicates) -> Optional[np.ndarray]:
     return None if keep.all() else keep
 
 
-def _scan(file_bytes, schema, metas, columns, dev, keep) -> DeviceTable:
+def _scan(path, file_bytes, schema, metas, columns, dev, keep) -> DeviceTable:
     out: Dict[str, DeviceColumn] = {}
     nested: Dict[str, Any] = {}
     num_rows = 0
@@ -1367,10 +1364,31 @@ def _scan(file_bytes, schema, metas, columns, dev, keep) -> DeviceTable:
             out.update((c.name, c) for c in cols)
             nested[field.name] = (field, leaves)
             continue
-        col = decode_column_pages_device(file_bytes, leaf_metas[0], field, dev, keep)
+        if field.dtype == NULL_TYPE:
+            col = _null_column(path, leaf_metas, field, dev, keep)
+        else:
+            col = decode_column_pages_device(file_bytes, leaf_metas[0], field, dev, keep)
         out[field.name] = col
         num_rows = len(col)
     return DeviceTable(out, num_rows, nested)
+
+
+def _null_column(path: str, leaf_metas, field: Field, dev, keep) -> DeviceColumn:
+    """A null column's kept pages through the host batch read, as the
+    reference scan reads it (scan.py:1404, :1477): int32 zeros, validity
+    all False, on ``dev``."""
+    from ..read.batch_read import batch_read_column
+    from ..read.reader import open_readers, open_readers_subset
+
+    readers = (open_readers(path, leaf_metas) if keep is None
+               else open_readers_subset(path, leaf_metas, keep))
+    try:
+        n = len(batch_read_column(readers, field))
+    finally:
+        for r in readers:
+            r.page_reader.close()
+    return DeviceColumn(field.name, field.dtype, torch.zeros(n, dtype=torch.int32, device=dev),
+                        torch.zeros(n, dtype=torch.bool, device=dev))
 
 
 def scan_file(
@@ -1396,7 +1414,7 @@ def scan_file(
     dev = as_device(device)
     schema, metas, file_bytes = _open(path)
     keep = page_keep_mask(path, metas, predicates)
-    return _scan(file_bytes, schema, metas, columns, dev, keep)
+    return _scan(path, file_bytes, schema, metas, columns, dev, keep)
 
 
 def scan_chunks(
@@ -1423,7 +1441,7 @@ def scan_chunks(
         if base is not None:
             keep &= base
         if keep.any():
-            yield _scan(file_bytes, schema, metas, columns, dev, keep)
+            yield _scan(path, file_bytes, schema, metas, columns, dev, keep)
 
 
 def k3_launch_groups(path: str, columns: Optional[Sequence[str]] = None):

@@ -37,6 +37,25 @@ class ColumnMeta:
     offset: int
     pages: List[PageMeta] = field(default_factory=list)
 
+    def slice(self, start_page_index: int, end_page_index: int) -> "ColumnMeta":
+        """Pages [start, end), the offset moved to the first (reference
+        src/lib.rs:46-61)."""
+        if not 0 <= start_page_index < len(self.pages):
+            raise IndexError("start_page_index out of range")
+        if not start_page_index <= end_page_index <= len(self.pages):
+            raise IndexError("end_page_index out of range")
+        offset = self.offset + sum(p.length for p in self.pages[:start_page_index])
+        return ColumnMeta(offset, list(self.pages[start_page_index:end_page_index]))
+
+    def skip_one_page(self) -> "ColumnMeta":
+        return self.slice(1, len(self.pages))
+
+    def total_len(self) -> int:
+        return sum(p.length for p in self.pages)
+
+    def num_values(self) -> int:
+        return sum(p.num_values for p in self.pages)
+
 
 def serialize_metas(metas: Sequence[ColumnMeta]) -> bytes:
     """The footer meta block (reference src/write/writer.rs:143-152)."""

@@ -3,7 +3,8 @@
 Counterpart of ``strawboat_tpu/native/__init__.py``, with the functions
 the port calls: :func:`available`, :func:`decompress_batch`,
 :func:`decompress_batch_into`, :func:`compress_batch`, :func:`int_stats`,
-:func:`bp_walk`, :func:`bp_encode`, :func:`factorize`,
+:func:`bp_walk`, :func:`bp_encode`, :func:`bp_decode`,
+:func:`dict_column_decode`, :func:`factorize`,
 :func:`patas_decode_native` and :func:`patas_encode_native`
 (``strawboat_native.cpp`` beside this file).
 
@@ -90,6 +91,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.sb_bp_walk.argtypes = [p, i64, i64, i64, p]
     lib.sb_bp_encode.restype = i64
     lib.sb_bp_encode.argtypes = [p, i64, p, p]
+    lib.sb_bp_decode.restype = i64
+    lib.sb_bp_decode.argtypes = [p, i64, i64, i64, p]
+    lib.sb_dict_column_decode.restype = ctypes.c_int
+    lib.sb_dict_column_decode.argtypes = [
+        ctypes.POINTER(p), ctypes.POINTER(i64), ctypes.POINTER(i64), ctypes.POINTER(i64),
+        ctypes.POINTER(i64), ctypes.POINTER(i64), p, i64, p, i64, ctypes.c_int, p, ctypes.c_int,
+    ]
     for fn in (lib.sb_factorize_u64, lib.sb_factorize_u32):
         fn.restype = i64
         fn.argtypes = [p, i64, p, p, i64]
@@ -267,6 +275,46 @@ def bp_encode(payload_blocks: np.ndarray, width_blocks: np.ndarray) -> bytes:
     written = lib.sb_bp_encode(_ptr(payload_blocks), payload_blocks.shape[0],
                                _ptr(width_blocks), _ptr(out))
     return out[:written].tobytes()
+
+
+def bp_decode(buf: np.ndarray, pos: int, n_blocks: int) -> Tuple[np.ndarray, int]:
+    """A whole bit-packed page at ``buf[pos:]`` (widths may differ by
+    block) → (its ``n_blocks * 128`` u32 values, end offset).  Raises on
+    truncated input."""
+    lib = _require()
+    buf = _u8(buf)
+    out = np.empty(n_blocks * 128, dtype=np.uint32)
+    end = lib.sb_bp_decode(_ptr(buf), buf.size, pos, n_blocks, _ptr(out))
+    if end < 0:
+        raise OutOfSpecError("bitpacked page truncated")
+    return out, int(end)
+
+
+def dict_column_decode(pages, dict_values: np.ndarray, out: np.ndarray) -> None:
+    """Every DICT page of a fixed-width column in one call: each page's
+    u32 codes decode and gather ``out[row + k] = dict_values[code + base]``,
+    pages spread over all the host's hardware threads.
+
+    ``pages``: (uint8 buf, body offset or None, num_values, row, base,
+    kind), kind 0 = bit-packed codes at ``body``, 1 = ``buf`` holds the raw
+    u32 codes, 2 = bit-packed deltas.  ``out``: C-contiguous, of
+    ``dict_values``' layout and width (1, 2, 4 or 8 bytes).  Raises on a
+    truncated page or a code out of range."""
+    lib = _require()
+    n = len(pages)
+    bufs = [_u8(pg[0]) for pg in pages]
+
+    def i64s(vals):
+        return (ctypes.c_int64 * n)(*[int(v) for v in vals])
+
+    rc = lib.sb_dict_column_decode(
+        (ctypes.c_void_p * n)(*[b.ctypes.data for b in bufs]), i64s(b.size for b in bufs),
+        i64s(pg[1] or 0 for pg in pages), i64s(pg[2] for pg in pages),
+        i64s(pg[3] for pg in pages), i64s(pg[4] for pg in pages),
+        (ctypes.c_uint8 * n)(*[int(pg[5]) for pg in pages]), n,
+        _ptr(dict_values), len(dict_values), dict_values.dtype.itemsize, _ptr(out), 0)
+    if rc != 0:
+        raise OutOfSpecError(f"native dict column decode failed (rc={rc})")
 
 
 def factorize(values: np.ndarray, max_uniq: int = 1 << 62):

@@ -4,8 +4,9 @@
 // Cut from strawboat_tpu/native/strawboat_native.cpp, keeping what the port
 // calls: batched page decompression and compression (LZ4 block / Zstd at
 // level 0 / Snappy) over a std::thread pool, the bit-packed block-header
-// walk, the BitPacker4x page encoder, the first-occurrence factorize, the
-// one-pass integer page stats and the PATAS float codec.
+// walk, the BitPacker4x page encoder and decoder, the fused DICT-column
+// decode of the host read, the first-occurrence factorize, the one-pass
+// integer page stats and the PATAS float codec.
 // Snappy is compiled in only with -DSB_SNAPPY (where libsnappy exists);
 // sb_has_snappy() says which.
 //
@@ -514,4 +515,113 @@ extern "C" int64_t sb_patas_encode(const uint64_t* bits, int64_t length, int wid
     insert(val, i);
   }
   return p;
+}
+
+// Decode a whole bit-packed page (BitPacker4x: per block [u8 num_bits]
+// [num_bits * 16 bytes], 4 interleaved 32-value lanes, LSB-first) into
+// out[n_blocks * 128] u32, mixed widths in one pass.  Returns the end
+// offset, or -1 on truncated input.
+extern "C" int64_t sb_bp_decode(const uint8_t* buf, int64_t buf_len,
+                                int64_t pos, int64_t n_blocks, uint32_t* out) {
+  int64_t p = pos;
+  for (int64_t blk = 0; blk < n_blocks; ++blk) {
+    if (p >= buf_len) return -1;
+    const uint32_t b = buf[p];
+    p += 1;
+    uint32_t* o = out + blk * 128;
+    if (b == 0) {
+      std::memset(o, 0, 128 * sizeof(uint32_t));
+      continue;
+    }
+    if (b > 32 || p + (int64_t)b * 16 > buf_len) return -1;
+    uint32_t words[32 * 4];
+    std::memcpy(words, buf + p, (size_t)b * 16);
+    p += (int64_t)b * 16;
+    const uint32_t mask = b < 32 ? ((1u << b) - 1u) : 0xFFFFFFFFu;
+    for (uint32_t t = 0; t < 32; ++t) {
+      const uint32_t s = t * b;
+      const uint32_t w0 = s >> 5, sh = s & 31;
+      // word w of lane l sits at u32 index w*4 + l
+      for (uint32_t l = 0; l < 4; ++l) {
+        uint32_t v = words[w0 * 4 + l] >> sh;
+        if (sh + b > 32) v |= words[(w0 + 1) * 4 + l] << (32 - sh);
+        o[t * 4 + l] = v & mask;
+      }
+    }
+  }
+  return p;
+}
+
+// out[k] = dict[codes[k] + base] for one page; false on a code out of range.
+template <typename T>
+static bool gather_page(const uint32_t* codes, int64_t nv, int64_t base,
+                        const void* dict, int64_t dict_len, void* out) {
+  const T* d = (const T*)dict;
+  T* o = (T*)out;
+  for (int64_t k = 0; k < nv; ++k) {
+    const int64_t idx = (int64_t)codes[k] + base;
+    if ((uint64_t)idx >= (uint64_t)dict_len) return false;
+    o[k] = d[idx];
+  }
+  return true;
+}
+
+// Fused DICT-column decode: per page, the u32 index codes (kinds: 0 =
+// bit-packed at bodies[i]; 1 = raw u32 codes, page_bufs[i] points at them;
+// 2 = bit-packed deltas, prefix-summed over the page), then
+// out[row_offsets[i] + k] = dict[code + bases[i]] at the element width,
+// pages spread over a thread pool.  Returns 0, or -1 (raw codes short),
+// -2 (truncated page), -3 (code out of range), -4 (width not 1/2/4/8).
+extern "C" int sb_dict_column_decode(
+    const uint8_t** page_bufs, const int64_t* buf_lens, const int64_t* bodies,
+    const int64_t* n_values, const int64_t* row_offsets, const int64_t* bases,
+    const uint8_t* kinds, int64_t n_pages, const void* dict, int64_t dict_len,
+    int width, void* out, int n_threads) {
+  if (n_pages <= 0) return 0;
+  if (width != 1 && width != 2 && width != 4 && width != 8) return -4;
+  if (n_threads <= 0) n_threads = (int)std::thread::hardware_concurrency();
+  if (n_threads > n_pages) n_threads = (int)n_pages;
+  std::atomic<int64_t> next(0);
+  std::atomic<int> err(0);
+  auto worker = [&]() {
+    std::vector<uint32_t> codes;
+    for (;;) {
+      const int64_t i = next.fetch_add(1);
+      if (i >= n_pages) break;
+      const int64_t nv = n_values[i];
+      const uint32_t* cp;
+      if (kinds[i] == 1) {
+        if (buf_lens[i] < nv * 4) { err.store(-1); continue; }
+        cp = (const uint32_t*)page_bufs[i];
+      } else {
+        const int64_t n_blocks = (nv + 127) / 128;
+        codes.resize((size_t)n_blocks * 128);
+        if (sb_bp_decode(page_bufs[i], buf_lens[i], bodies[i], n_blocks,
+                         codes.data()) < 0) {
+          err.store(-2);
+          continue;
+        }
+        if (kinds[i] == 2) {
+          uint32_t acc = 0;
+          for (int64_t k = 0; k < nv; ++k) { acc += codes[k]; codes[k] = acc; }
+        }
+        cp = codes.data();
+      }
+      void* o = (uint8_t*)out + row_offsets[i] * width;
+      bool ok = width == 8   ? gather_page<uint64_t>(cp, nv, bases[i], dict, dict_len, o)
+                : width == 4 ? gather_page<uint32_t>(cp, nv, bases[i], dict, dict_len, o)
+                : width == 2 ? gather_page<uint16_t>(cp, nv, bases[i], dict, dict_len, o)
+                             : gather_page<uint8_t>(cp, nv, bases[i], dict, dict_len, o);
+      if (!ok) err.store(-3);
+    }
+  };
+  if (n_threads <= 1) {
+    worker();
+  } else {
+    std::vector<std::thread> pool;
+    pool.reserve(n_threads);
+    for (int t = 0; t < n_threads; ++t) pool.emplace_back(worker);
+    for (auto& th : pool) th.join();
+  }
+  return err.load();
 }

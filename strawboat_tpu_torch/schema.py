@@ -48,9 +48,10 @@ STRING_TYPES = ("string", "binary", "large_string", "large_binary")
 # alias → numpy dtype of the flat float types
 FLAT_FLOAT_TYPES = {"float16": "<f2", "float32": "<f4", "float64": "<f8"}
 BOOL_TYPE = "bool"
+NULL_TYPE = "null"  # a column of nulls only: no values, empty pages
 # the exact types writable by name; a decimal is writable at any
 # precision and scale (:func:`decimal_params`)
-WRITABLE_TYPES = (*FLAT_INT_TYPES, *STRING_TYPES, *FLAT_FLOAT_TYPES, BOOL_TYPE)
+WRITABLE_TYPES = (*FLAT_INT_TYPES, *STRING_TYPES, *FLAT_FLOAT_TYPES, BOOL_TYPE, NULL_TYPE)
 
 _DECIMAL = re.compile(r"^decimal(128|256)\((\d+), (-?\d+)\)$")
 NESTED_TYPES = ("list", "large_list", "map", "struct")  # and fixed_size_list[N]
@@ -369,7 +370,7 @@ class _Builder:
 
 
 # alias → Type union id of the types without a type table payload
-_EMPTY_TYPE_IDS = {"binary": 4, "string": 5, "large_binary": 19, "large_string": 20,
+_EMPTY_TYPE_IDS = {"null": 1, "binary": 4, "string": 5, "large_binary": 19, "large_string": 20,
                    "list": _T_LIST, "large_list": _T_LARGE_LIST, "struct": _T_STRUCT}
 
 

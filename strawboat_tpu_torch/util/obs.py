@@ -65,6 +65,8 @@ class DeviceTrace:
     idle_share: float = 1.0
     longest_gap_s: float = 0.0
     lost_kernels: int = 0
+    # seconds from the window's start to the first and the last lost launch
+    lost_span_s: Tuple[float, float] = (0.0, 0.0)
 
 
 def trace_busy(path: str, device_type: str) -> DeviceTrace:
@@ -95,13 +97,14 @@ def trace_busy(path: str, device_type: str) -> DeviceTrace:
     gap = max(gap, hi - end)
     window = hi - lo
     idle = 1.0 - busy / window if window > 0 else 0.0
-    launched = {e["args"]["correlation"] for e in events
+    launched = {e["args"]["correlation"]: float(e["ts"]) for e in events
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and "LaunchKernel" in e.get("name", "") and lo <= float(e["ts"]) <= hi
                 and "correlation" in e.get("args", {})}
     recorded = {e.get("args", {}).get("correlation") for e in events if e.get("cat") == "kernel"}
-    return DeviceTrace(path, window * 1e-6, busy * 1e-6, idle, gap * 1e-6,
-                       len(launched - recorded))
+    lost = sorted(ts for c, ts in launched.items() if c not in recorded)
+    span = ((lost[0] - lo) * 1e-6, (lost[-1] - lo) * 1e-6) if lost else (0.0, 0.0)
+    return DeviceTrace(path, window * 1e-6, busy * 1e-6, idle, gap * 1e-6, len(lost), span)
 
 
 def trace_device_ranges(path: str, prefix: str) -> Dict[str, List[Tuple[str, float]]]:

@@ -1,4 +1,4 @@
-"""Writing strawboat files from numpy columns and the column model
-(``columns.py``), flat and nested."""
+"""Writing strawboat files from numpy columns, the column model
+(``columns.py``) or a ``pa.Table``, flat and nested."""
 
-from .writer import write_file  # noqa: F401
+from .writer import NativeWriter, write_file  # noqa: F401

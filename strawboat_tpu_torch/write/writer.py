@@ -3,9 +3,10 @@
 Counterpart of ``NativeWriter`` / ``write_file`` (``strawboat_tpu/write/
 writer.py``) and ``write_simple`` / ``write_nested_page`` / ``_take_leaf``
 (``strawboat_tpu/write/serialize.py``) for integer, temporal, utf8,
-binary, float, bool and decimal columns and the nested columns over them
-(list, large_list, fixed-size list, map, struct).  The layout is the
-reference's:
+binary, float, bool, decimal and null columns and the nested columns over
+them (list, large_list, fixed-size list, map, struct), from numpy, the
+column model or a ``pa.Table`` (pyarrow imported only for one).  The
+layout is the reference's:
 
     "ARROW2" + 2 zero bytes
     per leaf column, per page of ``max_page_size`` (top-level) rows:
@@ -13,7 +14,8 @@ reference's:
         [u32 rows][u32 rep_len][u32 def_len][rep][def]   (a nested leaf)
         [9-byte header][body]                (``codecs/integer.py``,
                                               ``binary.py``, ``double.py``,
-                                              ``boolean.py``, ``decimal.py``)
+                                              ``boolean.py``, ``decimal.py``;
+                                              a null column's pages are empty)
     zone block (``options.zone_maps``: ``exec/pruning.py``; flat integer,
     temporal and float columns only)
     schema (bare flatbuffer), metas, [u32 schema_size][u32 meta_size],
@@ -43,7 +45,8 @@ from ..errors import NotYetImplementedError, OutOfSpecError
 from ..exec.pruning import ColumnZones, PageZone, compute_zones, zone_trailer
 from ..meta import ColumnMeta, PageMeta, serialize_metas
 from ..schema import (
-    FLAT_FLOAT_TYPES, WRITABLE_TYPES, Field, decimal_params, int_storage, schema_to_bytes,
+    FLAT_FLOAT_TYPES, NULL_TYPE, WRITABLE_TYPES, Field, decimal_params, int_storage,
+    schema_to_bytes,
 )
 from ..util.hybrid_rle import encode_levels, encode_validity_bitpacked, get_bit_width
 from .nested import cum_sums, slice_nested, to_nested, write_levels
@@ -152,6 +155,12 @@ def _prepare(columns: Mapping[str, np.ndarray], schema: Optional[Sequence[Field]
     for f in schema:
         arr = columns[f.name]
         validity = None
+        if f.dtype == NULL_TYPE:  # no values: any column gives its length
+            if rows is not None and len(arr) != rows:
+                raise OutOfSpecError(f"column {f.name!r} has {len(arr)} rows, not {rows}")
+            rows = len(arr)
+            out.append((cm.NullColumn(NULL_TYPE, None, rows), None))
+            continue
         if f.is_nested or isinstance(arr, cm.Column):
             if not isinstance(arr, cm.Column):
                 raise OutOfSpecError(f"column {f.name!r} of type {f.dtype} takes a columns.Column")
@@ -242,7 +251,10 @@ def _codec_binary(col: "cm.BinaryColumn") -> BinaryColumn:
 def write_page(values, validity: Optional[np.ndarray], field: Field,
                options: WriteOptions) -> bytes:
     """One simple page: the validity prelude of a nullable field, then the
-    page of the field's codec family (``write_simple``)."""
+    page of the field's codec family (``write_simple``); a null column's
+    page is empty."""
+    if field.dtype == NULL_TYPE:
+        return b""
     out = b""
     if field.nullable:
         if validity is None:
@@ -303,6 +315,8 @@ def _take_leaf(leaf: "cm.Column", elems: np.ndarray) -> "cm.Column":
 
 
 def _page_slice(values, off: int, ln: int):
+    if isinstance(values, cm.NullColumn):
+        return values.slice(off, ln)
     if isinstance(values, BinaryColumn):
         keys = None if values.keys is None else values.keys[off : off + ln]
         return BinaryColumn(values.offsets[off : off + ln + 1], values.values, keys)
@@ -359,64 +373,163 @@ def _encode_pages(fields, data, spans, options):
     return pages, zones
 
 
-def _write_all(f: BinaryIO, fields, pages, zones) -> List[ColumnMeta]:
-    """Magic, pages, the zone block, then the footer; returns the column
-    metas (one per leaf column)."""
-    f.write(ARROW_MAGIC + b"\x00\x00")
-    offset = len(ARROW_MAGIC) + 2
+def _write_pages(write, offset: int, pages) -> List[ColumnMeta]:
+    """Every leaf column's pages through ``write``, from file offset
+    ``offset``; returns the column metas."""
     metas = []
     for col_pages in pages:
         metas.append(ColumnMeta(offset, [PageMeta(len(p), n) for p, n in col_pages]))
         for p, _n in col_pages:
-            f.write(p)
+            write(p)
             offset += len(p)
-    if zones:
-        f.write(zone_trailer(zones))
+    return metas
+
+
+def _footer(fields, metas, zones) -> bytes:
+    """The zone block (when there are zones), the schema, the metas, their
+    sizes and the EOS marker."""
     schema_bytes = schema_to_bytes(fields)
     meta_bytes = serialize_metas(metas)
-    f.write(schema_bytes)
-    f.write(meta_bytes)
-    f.write(np.uint32(len(schema_bytes)).tobytes())
-    f.write(np.uint32(len(meta_bytes)).tobytes())
-    f.write(CONTINUATION_MARKER + (0).to_bytes(4, "little"))
+    return b"".join([zone_trailer(zones) if zones else b"", schema_bytes, meta_bytes,
+                     np.uint32(len(schema_bytes)).tobytes(),
+                     np.uint32(len(meta_bytes)).tobytes(),
+                     CONTINUATION_MARKER, (0).to_bytes(4, "little")])
+
+
+def _write_all(f: BinaryIO, fields, pages, zones) -> List[ColumnMeta]:
+    """Magic, pages, then the footer; returns the column metas."""
+    f.write(ARROW_MAGIC + b"\x00\x00")
+    metas = _write_pages(f.write, len(ARROW_MAGIC) + 2, pages)
+    f.write(_footer(fields, metas, zones))
     f.flush()
     return metas
 
 
-def write_file(
-    path_or_file,
-    columns: Mapping[str, np.ndarray],
-    schema: Optional[Sequence[Field]] = None,
-    options: Optional[WriteOptions] = None,
-) -> List[ColumnMeta]:
-    """Write ``{name: numpy column}`` as one strawboat file (one row group,
-    pages of ``options.max_page_size`` rows) and return the column metas.
+def _as_columns(data, fields: Optional[List[Field]]):
+    """What ``write`` takes → ({name: column}, fields or None): a
+    ``pa.Table`` or ``pa.RecordBatch`` (each column the one chunk of
+    ``combine_chunks()``, a bitmap without nulls kept, its schema's fields
+    unless ``fields`` are given), a mapping of numpy columns or column
+    models, or a sequence of column models in ``fields``' order."""
+    if isinstance(data, Mapping):
+        return data, fields
+    if isinstance(data, (list, tuple)):
+        if fields is None or len(data) != len(fields):
+            raise OutOfSpecError("a sequence of columns needs a schema of as many fields")
+        return {f.name: c for f, c in zip(fields, data)}, fields
+    import pyarrow as pa
 
+    if isinstance(data, pa.RecordBatch):
+        data = pa.Table.from_batches([data])
+    if not isinstance(data, pa.Table):
+        raise OutOfSpecError(f"unsupported chunk type {type(data).__name__}")
+    data = data.combine_chunks()
+    cols = [cm.from_arrow(c.chunk(0) if c.num_chunks else c.combine_chunks()) for c in data.columns]
+    if fields is None:
+        fields = [cm.field_from_arrow(f) for f in data.schema]
+    if len(cols) != len(fields):
+        raise OutOfSpecError("chunk arity does not match schema")
+    return {f.name: c for f, c in zip(fields, cols)}, fields
+
+
+def _as_fields(schema) -> Optional[List[Field]]:
+    """A list of ``Field``, a ``pa.Schema`` (converted), or None."""
+    if schema is None or isinstance(schema, (list, tuple)):
+        return None if schema is None else list(schema)
+    return [cm.field_from_arrow(f) for f in schema]
+
+
+_NONE, _STARTED, _WRITTEN, _FINISHED = range(4)
+
+
+class NativeWriter:
+    """The file writer's state machine (reference src/write/writer.rs:33-200
+    and common.rs:49-117): ``start`` writes the magic, ``write`` one chunk
+    (the file's one row group) as pages of ``options.max_page_size`` rows,
+    ``finish`` the zone block and the footer.  A step out of that order
+    raises ``OutOfSpecError``.
+
+    ``schema``: a ``pa.Schema`` or a list of ``Field``; ``write`` takes
+    what :func:`write_file` takes."""
+
+    def __init__(self, writer: BinaryIO, schema, options: Optional[WriteOptions] = None):
+        self.writer = writer
+        self.fields = _as_fields(schema)
+        self.options = options or WriteOptions()
+        self.metas: List[ColumnMeta] = []
+        self.zones = {}
+        self._offset = 0
+        self._state = _NONE
+
+    def _write(self, data: bytes) -> None:
+        self.writer.write(data)
+        self._offset += len(data)
+
+    def total_size(self) -> int:
+        return self._offset
+
+    def start(self) -> None:
+        if self._state != _NONE:
+            raise OutOfSpecError("The strawboat file can only be started once")
+        self._write(ARROW_MAGIC + b"\x00\x00")
+        self._state = _STARTED
+
+    def write(self, chunk) -> None:
+        if self._state == _WRITTEN:
+            raise OutOfSpecError("The strawboat file can only accept one RowGroup in a single file")
+        if self._state != _STARTED:
+            raise OutOfSpecError("The strawboat file must be started before it can be written to")
+        columns, fields = _as_columns(chunk, self.fields)
+        fields, data, rows = _prepare(columns, fields)
+        self.fields = fields
+        step = max(min(self.options.max_page_size or rows, rows), 1)
+        spans = [(off, min(step, rows - off)) for off in range(0, rows, step)]
+        pages, self.zones = _encode_pages(fields, data, spans, self.options)
+        self.metas = _write_pages(self._write, self._offset, pages)
+        self._state = _WRITTEN
+
+    def finish(self) -> None:
+        if self._state != _WRITTEN:
+            raise OutOfSpecError("The strawboat file must be written before it can be finished")
+        self._write(_footer(self.fields, self.metas, self.zones))
+        self.writer.flush()
+        self._state = _FINISHED
+
+
+def write_file(path_or_file, columns, schema=None,
+               options: Optional[WriteOptions] = None) -> List[ColumnMeta]:
+    """Write ``columns`` as one strawboat file (one row group, pages of
+    ``options.max_page_size`` rows) through :class:`NativeWriter` and
+    return the column metas.
+
+    ``columns`` is a ``pa.Table`` or ``pa.RecordBatch`` (written as the
+    JAX writer writes it, byte for byte), or ``{name: numpy column}``:
     numpy integer, float and bool columns keep their type,
     ``datetime64[D]`` becomes date32, ``datetime64[unit]`` a timestamp and
     ``timedelta64[unit]`` a duration of that unit, unicode arrays utf8
     (``"string"``) and bytes arrays binary; an object array of ``str`` or
     ``bytes`` takes ``None`` for null.  ``schema`` (a list of
-    :class:`~strawboat_tpu_torch.schema.Field`) overrides the types
-    (``"large_string"``, ``"float32"``, ``"timestamp[ms, tz=UTC]"``,
-    ``"time32[ms]"`` from int storage …) and the nullability; a decimal
-    column is an int64 array of unscaled values (or an ``(n, W)`` uint8
-    matrix of W-byte values, for values beyond int64) under a decimal
-    field, e.g. ``Field("price", "decimal128(15, 2)")``.  A nested column
-    is a ``columns.ListColumn`` / ``FixedSizeListColumn`` / ``MapColumn``
-    / ``StructColumn`` under a nested field (``schema.list_of``,
-    ``schema.map_of``, ``Field(name, "struct", children=...)``); a flat
-    ``columns.Column`` is taken too.  ``options.zone_maps`` writes a zone
-    of every page of the flat integer, temporal and float columns."""
-    options = options or WriteOptions()
-    fields, data, rows = _prepare(columns, schema)
-    step = max(min(options.max_page_size or rows, rows), 1)
-    spans = [(off, min(step, rows - off)) for off in range(0, rows, step)]
-    pages, zones = _encode_pages(fields, data, spans, options)
+    :class:`~strawboat_tpu_torch.schema.Field`, or a ``pa.Schema``)
+    overrides the types (``"large_string"``, ``"float32"``,
+    ``"timestamp[ms, tz=UTC]"``, ``"time32[ms]"`` from int storage …) and
+    the nullability; a decimal column is an int64 array of unscaled values
+    (or an ``(n, W)`` uint8 matrix of W-byte values, for values beyond
+    int64) under a decimal field, e.g. ``Field("price", "decimal128(15,
+    2)")``; a ``"null"`` field takes any column of its length and writes
+    empty pages.  A nested column is a ``columns.ListColumn`` /
+    ``FixedSizeListColumn`` / ``MapColumn`` / ``StructColumn`` under a
+    nested field (``schema.list_of``, ``schema.map_of``, ``Field(name,
+    "struct", children=...)``); a flat ``columns.Column`` is taken too.
+    ``options.zone_maps`` writes a zone of every page of the flat integer,
+    temporal and float columns."""
     own = isinstance(path_or_file, (str, os.PathLike))
     f = open(path_or_file, "wb") if own else path_or_file
     try:
-        return _write_all(f, fields, pages, zones)
+        w = NativeWriter(f, schema, options)
+        w.start()
+        w.write(columns)
+        w.finish()
+        return w.metas
     finally:
         if own:
             f.close()

@@ -498,3 +498,65 @@ def _leaf_types(t):
     if pa.types.is_list(t) or pa.types.is_large_list(t) or pa.types.is_fixed_size_list(t):
         return _leaf_types(t.value_type)
     return [cm.field_from_arrow(pa.field("x", t)).dtype]
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_native_bp_decode_matches_reference(both_native, seed, monkeypatch):
+    """A page of mixed widths decodes to its blocks through the native
+    call of either package, and through the port's numpy route when the
+    library is missing (``codecs.integer.bitpack_decode``)."""
+    from strawboat_tpu_torch.codecs import integer
+
+    rng = np.random.default_rng(seed)
+    blocks, _ = _bp_page(rng, 200)
+    buf = np.frombuffer(b"xyz" + ref_native.bp_encode(blocks, blocks), np.uint8)
+    vals, end = native.bp_decode(buf, 3, len(blocks))
+    ref_vals, ref_end = ref_native.bp_decode(buf, 3, len(blocks))
+    np.testing.assert_array_equal(vals, ref_vals)
+    np.testing.assert_array_equal(vals, blocks.reshape(-1))
+    assert end == ref_end == len(buf)
+    with pytest.raises(OutOfSpecError):
+        native.bp_decode(buf[:-1], 3, len(blocks))
+    n = len(blocks) * 128 - 77
+    got, got_end = integer.bitpack_decode(buf, 3, n, np.dtype(np.int32))
+    monkeypatch.setattr(native, "_load", lambda: None)
+    plain, plain_end = integer.bitpack_decode(buf, 3, n, np.dtype(np.int32))
+    assert got.tobytes() == plain.tobytes() == blocks.reshape(-1)[:n].tobytes()
+    assert got_end == plain_end == len(buf)
+    with pytest.raises(OutOfSpecError):
+        integer.bitpack_decode(buf[:-1], 3, n, np.dtype(np.int32))
+
+
+@pytest.mark.parametrize("width", [1, 2, 4, 8])
+def test_native_dict_column_decode_matches_reference(both_native, width):
+    """Pages of bit-packed, raw and delta codes gather from one
+    concatenated dictionary into their rows, as the reference's call does;
+    a code beyond the dictionary raises."""
+    from strawboat_tpu.codecs.integer import bitpack_encode, delta_bitpack_encode
+
+    rng = np.random.default_rng(width)
+    dtype = np.dtype(f"<u{width}")
+    dicts = [rng.integers(0, 1 << (8 * width - 1), k, dtype=np.uint64).astype(dtype)
+             for k in (5, 100, 1)]
+    sizes = (640, 300, 128)
+    codes = [rng.integers(0, len(d), n).astype(np.uint32) for d, n in zip(dicts, sizes)]
+    codes[2] = np.zeros(128, np.uint32)
+    pad = -len(codes[0]) % 128  # bit-packed pages are whole blocks
+    bp_page = np.frombuffer(b"ab" + bitpack_encode(np.concatenate([codes[0], np.zeros(pad, np.uint32)])),
+                            np.uint8)
+    delta_page = np.frombuffer(delta_bitpack_encode(np.sort(codes[2])), np.uint8)
+    bases = np.concatenate([[0], np.cumsum([len(d) for d in dicts])[:-1]])
+    rows = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    pages = [(bp_page, 2, sizes[0], rows[0], bases[0], 0),
+             (codes[1].view(np.uint8), None, sizes[1], rows[1], bases[1], 1),
+             (delta_page, 0, sizes[2], rows[2], bases[2], 2)]
+    all_dict = np.concatenate(dicts)
+    out = np.zeros(sum(sizes), dtype)
+    ref_out = np.zeros_like(out)
+    native.dict_column_decode(pages, all_dict, out)
+    ref_native.dict_column_decode(pages, all_dict, ref_out)
+    assert out.tobytes() == ref_out.tobytes()
+    want = np.concatenate([d[c] for d, c in zip(dicts, (codes[0], codes[1], np.sort(codes[2])))])
+    np.testing.assert_array_equal(out, want)
+    with pytest.raises(OutOfSpecError):
+        native.dict_column_decode(pages[1:2], all_dict[:50], out)
