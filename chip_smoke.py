@@ -156,13 +156,33 @@ the multi-device path (K1's and K3's launches are counted over 19):
    single-device Q6 each inside ``device_trace``, with their longest
    kernels' device ms;
 
+the mesh across processes (K1's and K3's launches are counted over 20,
+this process's and its ranks'):
+
+20. multiprocess — at multidevice's width (4 shards, SF10): (a) a world
+   of one process under NCCL on the card (``distributed_init`` through a
+   ``file://`` store): the sharded Q6 (one K1 launch) and grouped sums,
+   ``distributed_scan`` of the ``dict`` file, ``distributed_aggregate`` by
+   l_suppkey (from 4096 groups, grown) and ``distributed_join`` with the
+   orders file, each equal to the multidevice phase's answer, the
+   process group's events in a traced Q6, and the group destroyed; (b) a
+   world of two processes on the card under gloo (NCCL refuses two ranks
+   on one card), spawned here, two shards each: each rank loads the
+   resident table from the lineitem_full file and keeps its tiles, and
+   its sharded Q6 (one K1 launch) and grouped sums, ``distributed_scan``
+   of the ``dict`` file, ``distributed_aggregate`` and
+   ``distributed_scan_dataset`` give the multidevice phase's shards (the
+   scans' shards handed over on the card, the aggregate's slots also
+   against numpy); each rank's warm Q6 against the single-process mesh's,
+   the exchanges' bytes crossed between processes and their ms;
+
 and last:
 
-20. k2_k0  — K2 and K0 bit-exact against their plain versions (b = 1..32),
+21. k2_k0  — K2 and K0 bit-exact against their plain versions (b = 1..32),
    then (their launches counted) l_shipdate's bit-packed pages decoded
    through K2's and K0's natural-order entry points == the generated column;
    each width group's lane count, times and bound are printed;
-21. k1_batching — resident Q6, Q1 and the sharded Q6 warm with their
+22. k1_batching — resident Q6, Q1 and the sharded Q6 warm with their
    planes in one K1 call and a launch a plane, in turns.
 
 The launches line also tallies the planes the paths hand K1 by tile
@@ -1945,19 +1965,22 @@ def phase_dataset(cols, tmpdir, device):
 
 
 def _exchanges(records) -> dict:
-    """Recorded collectives summed by kind: calls, bytes read and written,
-    CUDA-event ms and the bound (read + write bytes at HBM_BYTES_PER_S)."""
+    """Recorded collectives summed by kind: calls, bytes read and written
+    by their device copies, bytes crossed to other processes
+    (process-group calls), CUDA-event ms and the copies' bound (read +
+    write bytes at HBM_BYTES_PER_S; None for a process-group call)."""
     from strawboat_tpu_torch.parallel.collectives import exchange_summary
 
     out = {}
     for r in exchange_summary(records):
-        e = out.setdefault(r["op"], {"calls": 0, "read_bytes": 0, "write_bytes": 0, "ms": 0.0})
+        e = out.setdefault(r["op"], {"calls": 0, "read_bytes": 0, "write_bytes": 0,
+                                     "crossed_bytes": 0, "ms": 0.0})
+        for k in ("read_bytes", "write_bytes", "crossed_bytes", "ms"):
+            e[k] += r[k]
         e["calls"] += 1
-        e["read_bytes"] += r["read_bytes"]
-        e["write_bytes"] += r["write_bytes"]
-        e["ms"] += r["ms"]
     for e in out.values():
-        e["bound_ms"] = bound_ms(e["read_bytes"] + e["write_bytes"])
+        copied = e["read_bytes"] + e["write_bytes"]
+        e["bound_ms"] = bound_ms(copied) if copied else None
     return out
 
 
@@ -1981,6 +2004,23 @@ def _group_check(what: str, res, keys: np.ndarray, sums: dict) -> int:
     return len(got_keys)
 
 
+def _suppkey_sums(cols) -> dict:
+    """numpy's totals by l_suppkey of the aggregate below."""
+    sk = cols["l_suppkey"]
+    return {"qty": np.bincount(sk, weights=cols["l_quantity"]).astype(np.int64),
+            "price": np.bincount(sk, weights=cols["l_extendedprice"]).astype(np.int64),
+            "n": np.bincount(sk)}
+
+
+def _suppkey_aggregate(par, mesh, dt):
+    """``distributed_aggregate`` of a scan of the lineitem file by
+    l_suppkey (10 000 groups at SF10: the capacity grows from 4096)."""
+    return par.distributed_aggregate(
+        mesh, "shards", dt["l_suppkey"].values,
+        {"qty": ("sum", dt["l_quantity"].values), "price": ("sum", dt["l_extendedprice"].values),
+         "n": ("count", dt["l_quantity"].values)}, mask=dt["__valid__"].values, num_groups=4096)
+
+
 def phase_multidevice(rt, cols, paths, o_path, dataset_paths, data, tmpdir, device):
     """The multi-device layer on a mesh of MULTI_SHARDS shards on the one
     card, over what the earlier phases built: the SF10 resident table
@@ -1995,7 +2035,9 @@ def phase_multidevice(rt, cols, paths, o_path, dataset_paths, data, tmpdir, devi
     Q6's range, and ``dryrun_multidevice``; every answer against numpy or
     the single-device path.  The exchanges' bytes, CUDA-event times and
     bound, and one aggregate's device idle share, are printed.  Returns
-    the sharded table, whose planes the kernel line times K1 over."""
+    the sharded table, whose planes the kernel line times K1 over, and the
+    phase's answers, which the multiprocess phase's worlds must give
+    (``dict_scan`` and ``dataset_scan`` stay on the card for it)."""
     from strawboat_tpu_torch import parallel as par
     from strawboat_tpu_torch.benchsuite import tpch
     from strawboat_tpu_torch.exec import dataset as ds
@@ -2022,6 +2064,7 @@ def phase_multidevice(rt, cols, paths, o_path, dataset_paths, data, tmpdir, devi
     want_sums, want_cnt = rt.group_sum(*group)
     if not (all(torch.equal(a, b) for a, b in zip(sums, want_sums)) and torch.equal(cnt, want_cnt)):
         raise AssertionError("sharded group_sum differs from group_sum")
+    answers = {"q6": got, "group": ([s.cpu().numpy() for s in sums], cnt.cpu().numpy())}
     with record_exchanges() as recs:
         before = k1_counts()
         par.sharded_filter_sum(srt, *q6)
@@ -2045,6 +2088,7 @@ def phase_multidevice(rt, cols, paths, o_path, dataset_paths, data, tmpdir, devi
         "group_sum_ms": wall_ms(lambda: par.sharded_group_sum(srt, *group)[1].cpu()),
         "group_sum_single_device_ms": wall_ms(lambda: rt.group_sum(*group)[1].cpu()),
         "psum": _exchanges(recs), "equal_to_single_device": True}
+    answers["q6_ms"] = facts["resident"]["q6_ms"]
 
     # the dict file's pages over the shards, each shard's rows against numpy
     t0 = time.perf_counter()
@@ -2066,22 +2110,18 @@ def phase_multidevice(rt, cols, paths, o_path, dataset_paths, data, tmpdir, devi
 
     # grouped by l_suppkey (10 000 groups): the capacity grows from 4096
     valid = dt["__valid__"].values
-    aggs = {"qty": ("sum", dt["l_quantity"].values), "price": ("sum", dt["l_extendedprice"].values),
-            "n": ("count", dt["l_quantity"].values)}
 
     def aggregate():
-        return par.distributed_aggregate(mesh, "shards", dt["l_suppkey"].values, aggs, mask=valid,
-                                         num_groups=4096)
+        return _suppkey_aggregate(par, mesh, dt)
 
     t0 = time.perf_counter()
     res = aggregate()
     torch.cuda.synchronize()
     agg_s = time.perf_counter() - t0
-    sk = cols["l_suppkey"]
-    groups = _group_check("distributed aggregate by l_suppkey", res, sk, {
-        "qty": np.bincount(sk, weights=cols["l_quantity"]).astype(np.int64),
-        "price": np.bincount(sk, weights=cols["l_extendedprice"]).astype(np.int64),
-        "n": np.bincount(sk)})
+    groups = _group_check("distributed aggregate by l_suppkey", res, cols["l_suppkey"],
+                          _suppkey_sums(cols))
+    answers["aggregate"] = {k: [t.cpu().numpy() for t in v.shards] for k, v in res.items()}
+    answers["aggregate_seconds"] = agg_s
     with record_exchanges() as recs:
         aggregate()
     tr, _, first = traced(os.path.join(tmpdir, "multidevice_trace"), device, "traced aggregate",
@@ -2119,6 +2159,7 @@ def phase_multidevice(rt, cols, paths, o_path, dataset_paths, data, tmpdir, devi
     _check_equal("distributed join: revenue", revenue,
                  int(cols["l_extendedprice"][hit][late].sum()))
     del _k, price, odate, jvalid
+    answers["join"] = {"matched": matched, "revenue": revenue, "seconds": join_s}
     with record_exchanges() as recs:
         out = join()
     del out
@@ -2126,7 +2167,8 @@ def phase_multidevice(rt, cols, paths, o_path, dataset_paths, data, tmpdir, devi
                      "build_rows_per_shard": _shard_rows(ot["__valid__"].values),
                      "matched": matched, "revenue": revenue,
                      "exchange": _exchanges(recs), "equal_to_numpy": True}
-    del dt, ot, valid, aggs
+    answers["dict_scan"] = dt
+    del ot, valid
     torch.cuda.empty_cache()
 
     # the dataset's 60 parts over the shards, one global dictionary a string
@@ -2175,7 +2217,8 @@ def phase_multidevice(rt, cols, paths, o_path, dataset_paths, data, tmpdir, devi
         facts["shuffle"][f"salt_{salt}"] = {"seconds": seconds, "rows_per_shard": _shard_rows(v2),
                                             "capacity": len(v2.shards[0]) // MULTI_SHARDS}
         del k2, r2, v2, ok, got_rows
-    del dd, key, row_id, flat_key
+    answers["dataset_scan"] = dd
+    del key, row_id, flat_key
     torch.cuda.empty_cache()
 
     # streamed by l_suppkey, parts and pages pruned by Q6's range
@@ -2210,7 +2253,311 @@ def phase_multidevice(rt, cols, paths, o_path, dataset_paths, data, tmpdir, devi
          nvidia_smi=nvidia_smi(),
          exchange_note="all_to_all and psum are copies within one card (every shard on "
                        "cuda:0); the bound is their read + write bytes at 3.35 TB/s")
-    return srt
+    return srt, answers
+
+
+def _nccl_events(path: str) -> dict:
+    """Events of a ``device_trace`` whose names hold "nccl", counted by
+    category and name: the process group's host ranges (``cpu_op``) and
+    any NCCL kernel the card ran."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    out = {}
+    for e in events:
+        if e.get("ph") == "X" and "nccl" in e.get("name", "").lower():
+            key = f"{e.get('cat')}: {e['name'][:80]}"
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def _same_shards(what: str, got, want, first: int = 0) -> None:
+    """``got``'s shards equal ``want``'s (a list of every shard of the
+    mesh) from global shard ``first`` on, on the card."""
+    for s, t in enumerate(got.shards):
+        if not torch.equal(t, want[first + s]):
+            raise AssertionError(f"{what}: shard {first + s} differs")
+
+
+def _scan_shards(table) -> dict:
+    """A distributed scan's columns as ``{name: (value shards, validity
+    shards or None, dictionary or None)}``."""
+    return {k: (list(c.values.shards), None if c.validity is None else list(c.validity.shards),
+                None if c.dictionary is None else [bytes(v) for v in c.dictionary])
+            for k, c in table.columns.items()}
+
+
+def _same_scan(what: str, table, want: dict, first: int = 0) -> None:
+    """A distributed scan's local shards against ``_scan_shards`` of the
+    single-process one: values, validity and dictionaries."""
+    if set(table.columns) != set(want):
+        raise AssertionError(f"{what}: columns {sorted(table.columns)}")
+    for k, c in table.columns.items():
+        vals, valid, dictionary = want[k]
+        _same_shards(f"{what}: {k}", c.values, vals, first)
+        if (c.validity is None) != (valid is None):
+            raise AssertionError(f"{what}: {k}'s validity")
+        if valid is not None:
+            _same_shards(f"{what}: {k}'s validity", c.validity, valid, first)
+        if (None if c.dictionary is None else [bytes(v) for v in c.dictionary]) != dictionary:
+            raise AssertionError(f"{what}: {k}'s dictionary")
+
+
+def _same_aggregate(what: str, res, want: dict, sums: dict, first: int = 0) -> int:
+    """A distributed aggregate's local shards against the single-process
+    one's (``want``: name → every shard as numpy), and its valid slots
+    against numpy (``sums``: name → per-key totals); → the groups held."""
+    groups = 0
+    for s in range(len(res["keys"].shards)):
+        for k, v in res.items():
+            if not np.array_equal(v.shards[s].cpu().numpy(), want[k][first + s]):
+                raise AssertionError(f"{what}: shard {first + s}'s {k}")
+        ok = res["valid"].shards[s].cpu().numpy()
+        keys = res["keys"].shards[s].cpu().numpy()[ok]
+        for name, total in sums.items():
+            if not np.array_equal(res[name].shards[s].cpu().numpy()[ok], total[keys]):
+                raise AssertionError(f"{what}: shard {first + s}'s {name} against numpy")
+        groups += len(keys)
+    return groups
+
+
+def _same_group(what: str, got, want) -> None:
+    """Grouped sums and counts against the single-process mesh's (numpy)."""
+    (sums, cnt), (want_sums, want_cnt) = got, want
+    if not (all(np.array_equal(a.cpu().numpy(), b) for a, b in zip(sums, want_sums))
+            and np.array_equal(cnt.cpu().numpy(), want_cnt)):
+        raise AssertionError(f"{what}: grouped sums differ from the single-process mesh's")
+
+
+def _timed(fn, device):
+    """``fn()`` and its seconds, the device's work inside."""
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+# the resident columns the multiprocess ranks load: Q6's and the group key
+RANK_COLUMNS = ("l_shipdate", "l_discount", "l_quantity", "l_extendedprice", "l_returnflag")
+WORLD_TIMEOUT_S = 120  # one collective's limit inside the multiprocess phase's worlds
+WORLD_LIMIT_S = 300  # the two-rank world's, spawn to exit
+
+
+def multiprocess_rank(rank: int, spec: dict) -> None:
+    """One rank of the multiprocess phase's gloo world on the one card:
+    its share of the SF10 resident table loaded from the lineitem_full file
+    (sharded Q6, one K1 launch, and the grouped sums), of the ``dict``
+    file's ``distributed_scan`` and of the dataset's
+    ``distributed_scan_dataset`` (each local shard equal to the
+    multidevice phase's same shard, handed over on the card), and of the
+    ``distributed_aggregate`` by l_suppkey (each local shard equal to the
+    multidevice phase's, its slots to numpy's sums); its facts go to
+    ``rank<r>.json`` in ``spec["out"]``."""
+    from strawboat_tpu_torch import parallel as par
+    from strawboat_tpu_torch.exec import load_resident
+    from strawboat_tpu_torch.kernels import bitunpack as bu
+    from strawboat_tpu_torch.parallel.collectives import record_exchanges
+
+    device = torch.device(spec["device"])
+    started = time.perf_counter()
+    par.distributed_init(spec["store"], 2, rank, device, backend="gloo",
+                         timeout=WORLD_TIMEOUT_S)
+    mesh = par.make_mesh(MULTI_SHARDS, device)
+    first = mesh.first_shard
+    facts = {"rank": rank, "first_shard": first, "shards": len(mesh.axis_devices("shards"))}
+    rt, facts["load_s"] = _timed(lambda: load_resident(spec["full_path"], device,
+                                                       columns=list(RANK_COLUMNS)), device)
+    k3_load = bu.bitunpack_natural.launches
+    srt = par.shard_resident(rt, mesh, "shards")
+    del rt
+    before = k1_counts()
+    q6 = int(par.sharded_filter_sum(srt, *Q6_FILTER_SUM))
+    facts["q6_k1"] = k1_counts(before)
+    if facts["q6_k1"][0] != 1:
+        raise AssertionError(f"rank {rank}: sharded Q6 launched K1 {facts['q6_k1'][0]} times")
+    if q6 != spec["q6"]:
+        raise AssertionError(f"rank {rank}: sharded Q6 {q6} != the single-process {spec['q6']}")
+    _check_equal(f"rank {rank}: sharded Q6", q6, spec["q6_numpy"])
+    _same_group(f"rank {rank}", par.sharded_group_sum(
+        srt, "l_returnflag", ["l_quantity", "l_extendedprice"],
+        len(srt["l_returnflag"].dictionary_host)), spec["group"])
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    times = []
+    for _ in range(REPS + 1):
+        t0 = time.perf_counter()
+        par.sharded_filter_sum(srt, *Q6_FILTER_SUM).item()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    facts["q6_ms"] = statistics.median(times[1:])
+    del srt
+
+    k3 = bu.bitunpack_natural.launches
+    dt, facts["scan_s"] = _timed(lambda: par.distributed_scan(spec["dict_path"], mesh), device)
+    facts["scan_k3"] = bu.bitunpack_natural.launches - k3
+    _same_scan(f"rank {rank}: distributed scan", dt, spec["dict_scan"], first)
+    res, facts["aggregate_s"] = _timed(lambda: _suppkey_aggregate(par, mesh, dt), device)
+    facts["aggregate_groups"] = _same_aggregate(f"rank {rank}: distributed aggregate", res,
+                                                spec["aggregate"], spec["aggregate_sums"], first)
+    facts["aggregate_slots_per_shard"] = len(res["keys"].shards[0])
+    with record_exchanges() as recs:
+        _suppkey_aggregate(par, mesh, dt)
+        sync()
+    facts["aggregate_exchange"] = _exchanges(recs)
+    del dt, res
+
+    k3 = bu.bitunpack_natural.launches
+    dd, facts["dataset_scan_s"] = _timed(
+        lambda: par.distributed_scan_dataset(spec["dataset_paths"], mesh), device)
+    facts["dataset_scan_k3"] = bu.bitunpack_natural.launches - k3
+    _same_scan(f"rank {rank}: distributed dataset scan", dd, spec["dataset_scan"], first)
+    facts["rows_per_shard"] = [int(v.sum()) for v in dd["__valid__"].values.shards]
+    del dd
+    facts["k1_launches"] = bu.bitunpack_tiled.launches
+    facts["k3_launches"] = bu.bitunpack_natural.launches
+    facts["k3_load_launches"] = k3_load
+    torch.distributed.destroy_process_group()
+    facts["seconds"] = time.perf_counter() - started
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(facts, f)
+
+
+def phase_multiprocess(rt, cols, paths, o_path, full_path, dataset_paths, answers, tmpdir,
+                       device) -> dict:
+    """The mesh across processes, over what the earlier phases built, at the
+    multidevice phase's width (MULTI_SHARDS shards over SF10):
+
+    (a) a world of one process under NCCL (gloo on the CPU) on ``device``:
+    the sharded resident Q6 and grouped sums, ``distributed_scan`` of the
+    ``dict`` file, ``distributed_aggregate`` by l_suppkey (from 4096
+    groups, grown) and ``distributed_join`` with the orders file, each
+    equal to the multidevice phase's answer, with the process group's
+    events in a traced Q6; the group is destroyed afterwards;
+
+    (b) a world of two processes on the one card under gloo (NCCL refuses
+    two ranks on one card), two shards each, spawned here
+    (:func:`multiprocess_rank`): each rank's shards equal the same shards
+    of the multidevice phase's results, which this process hands over
+    (the scans' shards on the card).  A rank that fails, or a world that
+    outlives WORLD_LIMIT_S, fails the phase.
+
+    → the launches of K1 and K3 on the path (this process's and the
+    ranks')."""
+    from strawboat_tpu_torch import parallel as par
+    from strawboat_tpu_torch.benchsuite import tpch
+    from strawboat_tpu_torch.kernels import bitunpack as bu
+    from strawboat_tpu_torch.parallel.collectives import record_exchanges
+
+    started = time.perf_counter()
+    smi = nvidia_smi() if device.type == "cuda" else None
+    facts = {"shards": MULTI_SHARDS}
+    suppkey_sums = _suppkey_sums(cols)
+
+    # (a) a world of one process
+    launches = (bu.bitunpack_tiled.launches, bu.bitunpack_natural.launches)
+    par.distributed_init(f"file://{os.path.join(tmpdir, 'world_of_one')}", 1, 0, device,
+                         timeout=WORLD_TIMEOUT_S)
+    try:
+        one = {"backend": torch.distributed.get_backend()}
+        mesh = par.make_mesh(MULTI_SHARDS, device)
+        srt = par.shard_resident(rt, mesh, "shards")
+        before = k1_counts()
+        q6 = int(par.sharded_filter_sum(srt, *Q6_FILTER_SUM))
+        one["q6_k1"] = k1_counts(before)
+        if (q6, one["q6_k1"][0]) != (answers["q6"], 1):
+            raise AssertionError(f"world of one: sharded Q6 {q6} in {one['q6_k1'][0]} K1 "
+                                 f"launches, not the single-process {answers['q6']} in one")
+        _same_group("world of one", par.sharded_group_sum(
+            srt, "l_returnflag", ["l_quantity", "l_extendedprice"],
+            len(rt["l_returnflag"].dictionary_host)), answers["group"])
+        one["q6_ms"] = wall_ms(lambda: par.sharded_filter_sum(srt, *Q6_FILTER_SUM).item())
+        with record_exchanges() as recs:
+            par.sharded_filter_sum(srt, *Q6_FILTER_SUM).item()
+        one["q6_exchange"] = _exchanges(recs)
+        tr, _, first = traced(os.path.join(tmpdir, "traces"), device, "traced world-of-one Q6",
+                              lambda: par.sharded_filter_sum(srt, *Q6_FILTER_SUM).item())
+        one["q6_traced"] = {"nccl_events": _nccl_events(tr.path), "busy_ms": tr.busy_s * 1e3,
+                            "window_ms": tr.window_s * 1e3, "first_try_short": first}
+        os.remove(tr.path)
+        del srt
+        dt, one["scan_s"] = _timed(lambda: par.distributed_scan(paths["dict"], mesh), device)
+        _same_scan("world of one: distributed scan", dt, _scan_shards(answers["dict_scan"]))
+        res, one["aggregate_s"] = _timed(lambda: _suppkey_aggregate(par, mesh, dt), device)
+        one["aggregate_groups"] = _same_aggregate("world of one: distributed aggregate", res,
+                                                  answers["aggregate"], suppkey_sums)
+        with record_exchanges() as recs:
+            _suppkey_aggregate(par, mesh, dt)
+        one["aggregate_exchange"] = _exchanges(recs)
+        del res
+        ot = par.distributed_scan(o_path, mesh, columns=["o_orderkey", "o_orderdate"])
+
+        def join():
+            return par.distributed_join(
+                mesh, "shards", dt["l_orderkey"].values, (dt["l_extendedprice"].values,),
+                ot["o_orderkey"].values, (ot["o_orderdate"].values,),
+                probe_valid=dt["__valid__"].values, build_valid=ot["__valid__"].values)
+
+        (_k, (price,), (odate,), jvalid), one["join_s"] = _timed(join, device)
+        matched = sum(int(v.sum()) for v in jvalid.shards)
+        revenue = sum(int(torch.where(v & (d < Q3_DATE), p, 0).sum())
+                      for p, d, v in zip(price.shards, odate.shards, jvalid.shards))
+        if (matched, revenue) != (answers["join"]["matched"], answers["join"]["revenue"]):
+            raise AssertionError(f"world of one: join matched {matched} rows, revenue {revenue}, "
+                                 f"not the single-process mesh's {answers['join']}")
+        del _k, price, odate, jvalid
+        with record_exchanges() as recs:
+            out = join()
+        del out
+        one["join_exchange"] = _exchanges(recs)
+        del dt, ot
+    finally:
+        torch.distributed.destroy_process_group()
+    one["launches"] = {"K1": bu.bitunpack_tiled.launches - launches[0],
+                       "K3": bu.bitunpack_natural.launches - launches[1]}
+    facts["world_of_one"] = one
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b) two processes on the one card
+    out = os.path.join(tmpdir, "ranks")
+    os.makedirs(out, exist_ok=True)
+    spec = {"device": str(device), "store": f"file://{os.path.join(tmpdir, 'world_of_two')}",
+            "out": out, "full_path": full_path, "dict_path": paths["dict"],
+            "dataset_paths": list(dataset_paths), "q6": answers["q6"],
+            "q6_numpy": tpch.q6_numpy_reference(cols), "group": answers["group"],
+            "aggregate": answers["aggregate"], "aggregate_sums": suppkey_sums,
+            "dict_scan": _scan_shards(answers["dict_scan"]),
+            "dataset_scan": _scan_shards(answers["dataset_scan"])}
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.start_processes(multiprocess_rank, args=(spec,), nprocs=2,
+                                                join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.perf_counter() - t0 > WORLD_LIMIT_S:
+                raise AssertionError(f"the two-rank world outlived {WORLD_LIMIT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    del spec  # the scans' shards the ranks mapped, released
+    if device.type == "cuda":
+        torch.cuda.ipc_collect()
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    facts["world_of_two"] = {"backend": "gloo", "seconds": time.perf_counter() - t0,
+                             "ranks": ranks, "q6_ms_single_process": answers["q6_ms"],
+                             "aggregate_s_single_process": answers["aggregate_seconds"]}
+    launches = {"K1": one["launches"]["K1"] + sum(r["k1_launches"] for r in ranks),
+                "K3": one["launches"]["K3"] + sum(r["k3_launches"] for r in ranks)}
+    emit("multiprocess", **facts, launches=launches, phase_s=time.perf_counter() - started,
+         nvidia_smi=smi,
+         exchange_note="crossed_bytes: what a rank sent the others (all_to_all_single) or "
+                       "reduced with them (all_reduce), 0 in the world of one; under gloo "
+                       "they pass through host memory on one card, so neither world's ms "
+                       "is a scale-out number")
+    return launches
 
 
 def k3_summary(paths, device) -> dict:
@@ -2511,8 +2858,8 @@ def main() -> int:
         # the multi-device path: count only its launches
         bu.bitunpack_tiled.launches = 0
         bu.bitunpack_natural.launches = 0
-        srt = phase_multidevice(rt, cols, paths, o_path, dataset_paths, sorted_cols, tmpdir,
-                                device)
+        srt, answers = phase_multidevice(rt, cols, paths, o_path, dataset_paths, sorted_cols,
+                                         tmpdir, device)
         multi = {"K1": bu.bitunpack_tiled.launches, "K3": bu.bitunpack_natural.launches}
         if min(multi.values()) <= 0:
             raise AssertionError(f"the multidevice path did not launch K1 and K3: {multi}")
@@ -2521,6 +2868,18 @@ def main() -> int:
         del sorted_cols
         torch.cuda.empty_cache()
         phase_s["multidevice"] = time.perf_counter() - started
+        # the mesh across processes: this process's launches and its ranks'
+        bu.bitunpack_tiled.launches = 0
+        bu.bitunpack_natural.launches = 0
+        multiprocess = phase_multiprocess(rt, cols, paths, o_path, full_path, dataset_paths,
+                                          answers, tmpdir, device)
+        if min(multiprocess.values()) <= 0:
+            raise AssertionError(f"the multiprocess path did not launch K1 and K3: {multiprocess}")
+        k1_launches += multiprocess["K1"]
+        k3_launches += multiprocess["K3"]
+        del answers
+        torch.cuda.empty_cache()
+        phase_s["multiprocess"] = time.perf_counter() - started
         tiles.close()
         # a lone 1-tile plane's device time (the kernel phase's (1, b)
         # shapes) times the path's calls of such planes alone
@@ -2552,6 +2911,7 @@ def main() -> int:
     emit("launches", general_path=general, lineitem_full_path=full, file_api_path=file_api,
          lineitem_typed_path=typed,
          nested_path=nested, adaptive_path=adaptive, dataset_path=dataset, multidevice_path=multi,
+         multiprocess_path=multiprocess,
          k1_plane_tiles=k1_tiles, script_s=time.perf_counter() - started, phase_end_s=phase_s)
     print(json.dumps({"kernels": [
         line("bitunpack_tiled", "bitunpack.cu", "222", k1_launches, k1),

@@ -1,15 +1,22 @@
 #!/usr/bin/env python
-"""Distributed hash aggregate over a single-process mesh, by shard count.
+"""Distributed hash aggregate over the port's mesh, by shard count.
 
 The port's ``examples/dist_bench.py``: ``distributed_aggregate`` (local
 partials → keyed all_to_all → final combine) over 1, 2, 4 and 8 shards,
-every shard on ONE device, the same rows per shard at each count; prints
-rows/s and the scaling efficiency against one shard.  The shards share
-the device, so this measures what the layer costs per shard (the loop
-over shards, the exchange's copies, the capacity reads), not scale-out.
+the same rows per shard at each count; prints rows/s and the scaling
+efficiency against the first count.
+
+In one process every shard is on ONE device, so this measures what the
+layer costs per shard (the loop over shards, the exchange's copies, the
+capacity reads), not scale-out.  Under ``torchrun`` (``WORLD_SIZE`` set)
+the mesh spans the processes: each joins the world through
+``distributed_init("env://", ...)`` (nccl on cards, gloo on the CPU),
+holds its shards on its own card (``cuda:LOCAL_RANK``), runs the shard
+counts the world size divides, and prints its own rows/s.
 
     python examples/torch_dist_bench.py --device cuda
     python examples/torch_dist_bench.py --device cpu --rows-per-shard 65536
+    torchrun --nproc_per_node=4 examples/torch_dist_bench.py --device cuda
 """
 
 import argparse
@@ -23,7 +30,13 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from strawboat_tpu_torch.parallel import distributed_aggregate, make_mesh  # noqa: E402
+from strawboat_tpu_torch.parallel import (  # noqa: E402
+    distributed_aggregate,
+    distributed_init,
+    make_mesh,
+    shard,
+)
+from strawboat_tpu_torch.parallel.collectives import sum_to_host  # noqa: E402
 
 
 def main() -> int:
@@ -35,14 +48,21 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
     device = torch.device(args.device)
+    world, rank = int(os.environ.get("WORLD_SIZE", "1")), 0
+    if "WORLD_SIZE" in os.environ:
+        rank = int(os.environ["RANK"])
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        distributed_init("env://", world, rank, device)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     rng = np.random.default_rng(0)
     base = None
-    for n_shards in (s for s in (1, 2, 4, 8, 16) if s <= args.max_shards):
+    for n_shards in (s for s in (1, 2, 4, 8, 16) if s <= args.max_shards and s % world == 0):
         mesh = make_mesh(n_shards, device)
         n = args.rows_per_shard * n_shards
-        key = torch.from_numpy(rng.integers(0, args.groups, n)).to(device)
-        val = torch.from_numpy(rng.integers(0, 10**6, n)).to(device)
+        key_np, val_np = rng.integers(0, args.groups, n), rng.integers(0, 10**6, n)
+        key = shard(mesh, "shards", torch.from_numpy(key_np))  # this process's shards
+        val = shard(mesh, "shards", torch.from_numpy(val_np))
 
         def run():
             return distributed_aggregate(mesh, "shards", key, {"total": ("sum", val)},
@@ -57,15 +77,17 @@ def main() -> int:
             sync()
             times.append(time.perf_counter() - t0)
         total = sum(int(t.sum()) for t in res["total"].shards)
-        assert total == int(val.sum()), "distributed aggregate lost rows"
+        assert sum_to_host(total, device) == int(val_np.sum()), "distributed aggregate lost rows"
         seconds = float(np.median(times))
-        rps = n / seconds
-        base = base or rps
-        print(json.dumps({"device": str(device), "shards": n_shards, "rows": n,
-                          "ms": seconds * 1e3, "rows_per_s": rps,
-                          "scaling_efficiency": rps / (n_shards * base)}), flush=True)
+        rps = len(key) / seconds  # the rows this process aggregated
+        base = base or rps * world / n_shards  # rows/s a shard at the first count
+        print(json.dumps({"device": str(device), "rank": rank, "world": world,
+                          "shards": n_shards, "rows": n, "ms": seconds * 1e3, "rows_per_s": rps,
+                          "scaling_efficiency": rps * world / (n_shards * base)}), flush=True)
     if device.type == "cuda":
         print(json.dumps({"card": torch.cuda.get_device_name(device)}))
+    if world > 1:
+        torch.distributed.destroy_process_group()
     return 0
 
 

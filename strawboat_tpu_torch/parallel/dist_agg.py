@@ -48,10 +48,10 @@ def combine(keys, partials, valid, num_groups: int, fns: Tuple[str, ...]):
     return _slot_keys(keys, rep), tuple(outs), fvalid, n2
 
 
-def exchange_partials(devs, staged, num_groups: int):
-    """Stage 2: every shard's partial slots to their owners; per shard
-    ``(keys, partials, valid)`` of ``P · num_groups`` slots."""
-    n_parts = len(devs)
+def exchange_partials(devs, staged, num_groups: int, n_parts: int):
+    """Stage 2: every shard's partial slots to their owners among the
+    ``n_parts`` shards; per local shard ``(keys, partials, valid)`` of
+    ``P · num_groups`` slots."""
     per_shard, recv_valid = exchange(devs, [s[0] for s in staged], [s[1] for s in staged],
                                      n_parts, num_groups)
     out = []
@@ -77,8 +77,10 @@ def distributed_aggregate(
     max}.  More groups than ``num_groups`` on any shard, before or after
     the exchange, never pass silently: ``"grow"`` (default) re-runs at the
     next power of two at or above the need, ``"raise"`` raises
-    :class:`CapacityError`."""
+    :class:`CapacityError`; in a world every process grows or raises
+    alike."""
     devs = mesh.axis_devices(axis)
+    n_parts = mesh.axis_size(axis)
     names = tuple(values)
     fns = tuple(values[n][0] for n in names)
     keys = shard(mesh, axis, key).shards
@@ -87,10 +89,10 @@ def distributed_aggregate(
     cap = num_groups
     while True:
         staged = [local_partials(k, tuple(c[s] for c in cols), None if masks is None else masks[s],
-                                 cap, fns, len(devs))
+                                 cap, fns, n_parts)
                   for s, k in enumerate(keys)]
         final = [combine(k2, parts, valid, cap, fns)
-                 for k2, parts, valid in exchange_partials(devs, staged, cap)]
+                 for k2, parts, valid in exchange_partials(devs, staged, cap, n_parts)]
         need = max_to_host([s[2] for s in staged] + [f[3] for f in final], devs[0])
         if need <= cap:
             break

@@ -21,7 +21,7 @@ import torch
 
 from ..errors import CapacityError
 from ..exec.join import _join_indices
-from .collectives import ShardedTensor, max_to_host, shard
+from .collectives import ShardedTensor, max_to_host, shard, sum_to_host
 from .shuffle import exchange, grown, hash_partition_ids, largest_bin
 
 
@@ -66,20 +66,25 @@ def distributed_join(
     at or above the need and runs again (``"grow"``, the default; the
     reference's retries end at the same bin capacities), or raises
     :class:`CapacityError` (``"raise"``: probe bins, then build bins, then
-    the fan-out, in the reference's order).  No row is lost silently."""
+    the fan-out, in the reference's order).  No row is lost silently; in a
+    world every process grows or raises alike."""
     devs = mesh.axis_devices(axis)
-    n_parts = len(devs)
+    n_parts = mesh.axis_size(axis)
     pk = shard(mesh, axis, probe_key)
     bk = shard(mesh, axis, build_key)
-    pcap = capacity_per_shard or max((len(pk) // n_parts // n_parts) * 2, 64)
-    bcap = capacity_per_shard or max((len(bk) // n_parts // n_parts) * 2, 64)
+
+    def default_cap(keys):  # the side's global rows / P² · 2
+        return max((sum_to_host(len(keys), devs[0]) // n_parts // n_parts) * 2, 64)
+
+    pcap = capacity_per_shard or default_cap(pk)
+    bcap = capacity_per_shard or default_cap(bk)
     pv = _all_valid(pk) if probe_valid is None else shard(mesh, axis, probe_valid)
     bv = _all_valid(bk) if build_valid is None else shard(mesh, axis, build_valid)
     p_pays = [shard(mesh, axis, p).shards for p in probe_payloads]
     b_pays = [shard(mesh, axis, p).shards for p in build_payloads]
     p_parts = [hash_partition_ids(k, n_parts) for k in pk.shards]
     b_parts = [hash_partition_ids(k, n_parts) for k in bk.shards]
-    pneed, bneed = largest_bin(devs, p_parts), largest_bin(devs, b_parts)
+    pneed, bneed = largest_bin(devs, p_parts, n_parts), largest_bin(devs, b_parts, n_parts)
     if on_overflow == "raise":
         if pneed > pcap:
             raise CapacityError("join probe shuffle bin", pcap, pneed)

@@ -8,7 +8,9 @@ columns and validity planes.  A query decodes every shard's planes through
 kernel K1 at local shapes, one launch for all the shards on a device
 (``ResidentTable._combine``: K1's output is already in slot order, so the
 reference's ``_rows_to_t_major`` has no counterpart), reduces locally and
-combines with one ``psum``.
+combines with one ``psum``.  In a world of processes each process keeps
+only its own shards' tile blocks and decodes them in one K1 call; the
+``psum`` crosses the processes.
 """
 
 from __future__ import annotations
@@ -29,9 +31,9 @@ Bounds = Dict[str, Tuple[Optional[float], Optional[float]]]
 
 @dataclass
 class ShardedResidentColumn:
-    """A resident column cut into shards: ``local[s]`` is shard ``s``'s
-    ``ResidentColumn`` (its block of every plane and of the validity
-    plane, and the dictionary on its device)."""
+    """A resident column cut into shards: ``local[s]`` is this process's
+    ``s``-th shard's ``ResidentColumn`` (its block of every plane and of
+    the validity plane, and the dictionary on its device)."""
 
     name: str
     local: Tuple[ResidentColumn, ...]
@@ -58,16 +60,18 @@ def shard_resident(rt: ResidentTable, mesh, axis: str) -> ShardedResidentTable:
     """Distribute a resident table's planes over ``mesh[axis]``: each plane
     pads with zero tiles to a multiple of the shard count (the padding
     rows fall past the row count) and shard ``s`` takes the ``s``-th block
-    of tiles, on its device; dictionaries are copied to every shard's
-    device.  A list column raises (its leaves lie on their own grid)."""
+    of tiles, on its device (in a world, this process's shards' blocks
+    only); dictionaries are copied to every shard's device.  A list column
+    raises (its leaves lie on their own grid)."""
     devs = mesh.axis_devices(axis)
-    n = len(devs)
+    n, first = mesh.axis_size(axis), mesh.first_shard
 
     def blocks(wt3: torch.Tensor):
         pad = (-wt3.shape[0]) % n
         if pad:
             wt3 = torch.cat([wt3, wt3.new_zeros((pad,) + tuple(wt3.shape[1:]))])
-        return [b.to(d) for b, d in zip(torch.chunk(wt3, n), devs)], wt3.shape[0]
+        mine = torch.chunk(wt3, n)[first : first + len(devs)]
+        return [b.to(d) for b, d in zip(mine, devs)], wt3.shape[0]
 
     cols: Dict[str, ShardedResidentColumn] = {}
     total_tiles = 0
@@ -80,7 +84,7 @@ def shard_resident(rt: ResidentTable, mesh, axis: str) -> ShardedResidentTable:
         for wt3, bits in c.planes:
             shards, total_tiles = blocks(wt3)
             planes.append([(w, bits) for w in shards])
-        vp = [None] * n if c.validity_plane is None else blocks(c.validity_plane)[0]
+        vp = [None] * len(devs) if c.validity_plane is None else blocks(c.validity_plane)[0]
         local = []
         for s, d in enumerate(devs):
             local.append(replace(
@@ -95,10 +99,11 @@ def shard_resident(rt: ResidentTable, mesh, axis: str) -> ShardedResidentTable:
 
 
 def _decode_shards(srt: ShardedResidentTable, names):
-    """Every shard's planes and validity planes of ``names`` through K1 at
-    local shapes, one call a device (the reference's per-shard Pallas
-    calls): per shard, (each column's unpacked planes, each column's
-    validity or None), as ``_unpack_columns`` gives them."""
+    """This process's shards' planes and validity planes of ``names``
+    through K1 at local shapes, one call a device (the reference's
+    per-shard Pallas calls): per local shard, (each column's unpacked
+    planes, each column's validity or None), as ``_unpack_columns`` gives
+    them."""
     n_shards = len(srt.mesh.axis_devices(srt.axis))
     vals, valid = _unpack_columns(
         [srt.columns[n].local[s] for s in range(n_shards) for n in names])
@@ -121,12 +126,13 @@ def _code_bounds(srt: ShardedResidentTable, predicates: Bounds, pcols):
 
 
 def _local_inputs(srt, s: int, names, value_cols, code_cols, bounds, decoded):
-    """Shard ``s``'s values (``value_cols``), codes (``code_cols``) and
-    row mask from its ``decoded`` planes (``_decode_shards``): real rows
-    (global slot below the row count), non-null in every read column,
+    """Local shard ``s``'s values (``value_cols``), codes (``code_cols``)
+    and row mask from its ``decoded`` planes (``_decode_shards``): real
+    rows (global slot below the row count), non-null in every read column,
     inside every bound."""
     dev = srt.mesh.axis_devices(srt.axis)[s]
-    rows = s * srt.rows_per_shard + torch.arange(srt.rows_per_shard, dtype=torch.int64, device=dev)
+    rows = (srt.mesh.first_shard + s) * srt.rows_per_shard + torch.arange(
+        srt.rows_per_shard, dtype=torch.int64, device=dev)
     m = rows < srt.num_rows
     cols, codes = {}, {}
     for n, vals, valid in zip(names, *decoded):
@@ -152,9 +158,9 @@ def sharded_filter_sum(
     product_with: Optional[str] = None,
 ) -> torch.Tensor:
     """The Q6 shape over a sharded resident table: per shard, decode +
-    code-space predicates + local sum, then one ``psum``.  Returns a 0-d
-    int64 (float64 for float values) tensor on the first shard's
-    device."""
+    code-space predicates + local sum, then one ``psum`` (across the
+    world's processes in a world).  Returns a 0-d int64 (float64 for float
+    values) tensor on the first shard's device."""
     predicates = predicates or {}
     pcols = tuple(sorted(predicates))
     extra = (product_with,) if product_with else ()

@@ -13,6 +13,12 @@ order of first appearance (``exec/dataset.py`` ``_merge_dictionaries``, the
 counterpart of the reference's ``pyarrow.compute`` merge), and each
 shard's codes remap through one gather on its device.  Rows never move
 to the host.  Nested columns raise, as in the reference.
+
+In a world of processes (``mesh.py``) each process decodes only its own
+shards' pages, and one ``all_gather_object`` a scan brings every shard's
+row count and dictionaries to every process (the reference's "host-level
+allgather of dictionaries at plan time"), so each process pads to the
+same length and holds the same global dictionaries.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from ..device import as_device
 from ..errors import NotYetImplementedError, OutOfSpecError
 from ..exec.dataset import _merge_dictionaries, _remap_codes
 from ..exec.scan import DeviceColumn, DeviceTable, _open, decode_column_pages_device
-from .collectives import ShardedTensor
+from .collectives import ShardedTensor, gather_objects
 
 
 def shard_page_ranges(n_pages: int, n_shards: int) -> List[range]:
@@ -65,21 +71,26 @@ def _keep(n_pages: int, rng: range) -> np.ndarray:
     return keep
 
 
-def _global_codes(pieces: List[DeviceColumn]):
-    """The pieces' dictionaries merged into one, and each piece's codes
-    remapped into it on its device."""
-    gdict, tables = _merge_dictionaries(
-        [np.array([], dtype=object) if c.dictionary is None else c.dictionary for c in pieces])
-    return gdict, [_remap_codes(c.values, t) for c, t in zip(pieces, tables)]
+def _sharded_table(decoded: Dict[str, Tuple], mesh, devs) -> DeviceTable:
+    """Decoded pieces → a DeviceTable of ShardedTensor columns.
 
-
-def _padded_table(per_shard: Dict[str, Tuple], rows_per_shard: List[int], devs) -> DeviceTable:
-    """Per-shard column values → a DeviceTable of ShardedTensor columns,
-    every shard padded to the largest, plus ``__valid__``.
-
-    ``per_shard``: name → (field, values per shard, validity per shard or
-    None, dictionary or None)."""
-    max_rows = max(rows_per_shard) if rows_per_shard else 0
+    ``decoded``: name → (field, per local shard the list of its decoded
+    ``DeviceColumn`` pieces).  Each shard's pieces concatenate; string
+    pieces' codes remap into the global dictionary of every piece of every
+    shard in shard order; every shard pads to the largest, and
+    ``__valid__`` marks the real rows.  One :func:`gather_objects` brings
+    the other processes' row counts, dictionaries and dtypes."""
+    first = next(iter(decoded.values()), (None, [[] for _ in devs]))[1]
+    rows = [sum(len(c) for c in cols) for cols in first]
+    meta = {name: (next((c.values.dtype for cols in pieces for c in cols), None),
+                   any(c.validity is not None for cols in pieces for c in cols),
+                   [np.array([], dtype=object) if c.dictionary is None else c.dictionary
+                    for cols in pieces for c in cols] if field.is_flat_string else None)
+            for name, (field, pieces) in decoded.items()}
+    everyone = gather_objects((rows, meta))
+    rank = mesh.first_shard // len(devs)
+    all_rows = [r for e in everyone for r in e[0]]
+    max_rows = max(all_rows) if all_rows else 0
 
     def pad(t: torch.Tensor, fill) -> torch.Tensor:
         if t.shape[0] == max_rows:
@@ -88,17 +99,33 @@ def _padded_table(per_shard: Dict[str, Tuple], rows_per_shard: List[int], devs) 
                                          device=t.device)])
 
     out: Dict[str, DeviceColumn] = {}
-    for name, (field, vals, valid, dictionary) in per_shard.items():
-        validity = None
-        if any(v is not None for v in valid):
-            validity = ShardedTensor(
-                pad(torch.ones(len(x), dtype=torch.bool, device=x.device) if v is None else v,
-                    False) for x, v in zip(vals, valid))
-        out[name] = DeviceColumn(name, field.dtype, ShardedTensor(pad(v, 0) for v in vals),
-                                 validity, dictionary=dictionary)
+    for name, (field, pieces) in decoded.items():
+        flat = [c for cols in pieces for c in cols]
+        dictionary, flat_vals = None, [c.values for c in flat]
+        dtype = next((e[1][name][0] for e in everyone if e[1][name][0] is not None), torch.int64)
+        if field.is_flat_string:
+            dicts = [e[1][name][2] for e in everyone]
+            dictionary, tables = _merge_dictionaries([d for ds in dicts for d in ds])
+            base = sum(len(ds) for ds in dicts[:rank])
+            flat_vals = [_remap_codes(c.values, t)
+                         for c, t in zip(flat, tables[base : base + len(flat)])]
+            dtype = torch.int32  # the translation tables' type
+        vals, valid, k = [], [], 0
+        for d, cols in zip(devs, pieces):
+            mine = flat_vals[k : k + len(cols)]
+            k += len(cols)
+            v = torch.cat(mine) if mine else torch.zeros(0, dtype=dtype, device=d)
+            vals.append(pad(v, 0))
+            if any(e[1][name][1] for e in everyone):  # some shard of the mesh has nulls
+                valid.append(pad(torch.cat([
+                    torch.ones(len(c), dtype=torch.bool, device=d) if c.validity is None
+                    else c.validity for c in cols]) if cols
+                    else torch.zeros(0, dtype=torch.bool, device=d), False))
+        out[name] = DeviceColumn(name, field.dtype, ShardedTensor(vals),
+                                 ShardedTensor(valid) if valid else None, dictionary=dictionary)
     out["__valid__"] = DeviceColumn("__valid__", "bool", ShardedTensor(
-        torch.arange(max_rows, device=d) < r for d, r in zip(devs, rows_per_shard)))
-    return DeviceTable(out, len(devs) * max_rows)
+        torch.arange(max_rows, device=d) < r for d, r in zip(devs, rows)))
+    return DeviceTable(out, len(all_rows) * max_rows)
 
 
 def distributed_scan(
@@ -108,25 +135,23 @@ def distributed_scan(
     columns: Optional[Sequence[str]] = None,
 ) -> DeviceTable:
     """Scan a file with its pages partitioned across the mesh axis: shard
-    ``s`` decodes its page range onto its device.  Columns are
-    ``ShardedTensor``s padded to the largest shard; ``__valid__`` marks the
-    real rows, nullable columns carry their validity alike."""
+    ``s`` decodes its page range onto its device (in a world, only this
+    process's shards).  Columns are ``ShardedTensor``s padded to the
+    largest shard; ``__valid__`` marks the real rows, nullable columns
+    carry their validity alike.  ``num_rows`` counts every shard's padded
+    rows."""
     devs = mesh.axis_devices(axis)
     schema, metas, file_bytes = _open(path)
     n_pages = max(len(m.pages) for m in metas)
-    ranges = shard_page_ranges(n_pages, len(devs))
-    per_shard: Dict[str, Tuple] = {}
-    rows: List[int] = []
+    first = mesh.first_shard
+    ranges = shard_page_ranges(n_pages, mesh.axis_size(axis))[first : first + len(devs)]
+    decoded: Dict[str, Tuple] = {}
     for leaf, field in _flat_fields(schema, columns):
         meta = metas[leaf]
-        pieces = [decode_column_pages_device(file_bytes, meta, field, d, _keep(len(meta.pages), r))
-                  for d, r in zip(devs, ranges)]
-        rows = rows or [len(c) for c in pieces]
-        dictionary, vals = None, [c.values for c in pieces]
-        if field.is_flat_string:
-            dictionary, vals = _global_codes(pieces)
-        per_shard[field.name] = (field, vals, [c.validity for c in pieces], dictionary)
-    return _padded_table(per_shard, rows, devs)
+        decoded[field.name] = (field, [
+            [decode_column_pages_device(file_bytes, meta, field, d, _keep(len(meta.pages), r))]
+            for d, r in zip(devs, ranges)])
+    return _sharded_table(decoded, mesh, devs)
 
 
 def local_shard_table(
@@ -206,17 +231,19 @@ def distributed_scan_dataset(
 ) -> DeviceTable:
     """A multi-file dataset scanned with (path, page range) units
     partitioned over the mesh: units pack greedily onto shards by row
-    count, each shard decodes and concatenates its units on its device,
-    and string dictionaries merge over every unit, so codes compare across
-    the whole dataset.  The output is :func:`distributed_scan`'s."""
+    count, each shard decodes and concatenates its units on its device
+    (in a world, only this process's shards), and string dictionaries
+    merge over every unit, so codes compare across the whole dataset.  The
+    output is :func:`distributed_scan`'s."""
     paths = list(paths)
     devs = mesh.axis_devices(axis)
-    units, opened, schema = _dataset_units(paths, len(devs))
-    assign = _assign_units(units, opened, len(devs))
-    per_shard: Dict[str, Tuple] = {}
-    rows: List[int] = []
+    n_shards = mesh.axis_size(axis)
+    units, opened, schema = _dataset_units(paths, n_shards)
+    assign = _assign_units(units, opened, n_shards)[mesh.first_shard : mesh.first_shard
+                                                     + len(devs)]
+    decoded: Dict[str, Tuple] = {}
     for leaf, field in _flat_fields(schema, columns):
-        pieces = []  # per shard: its units' columns
+        pieces = []  # per local shard: its units' columns
         for d, unit_ids in zip(devs, assign):
             cols = []
             for ui in unit_ids:
@@ -226,20 +253,5 @@ def distributed_scan_dataset(
                 cols.append(decode_column_pages_device(file_bytes, meta, field, d,
                                                        _keep(len(meta.pages), r)))
             pieces.append(cols)
-        flat = [c for cols in pieces for c in cols]
-        dictionary, flat_vals = None, [c.values for c in flat]
-        if field.is_flat_string:
-            dictionary, flat_vals = _global_codes(flat)
-        empty_dtype = flat_vals[0].dtype if flat_vals else torch.int64
-        vals, valid, k = [], [], 0
-        for d, cols in zip(devs, pieces):
-            mine = flat_vals[k : k + len(cols)]
-            k += len(cols)
-            vals.append(torch.cat(mine) if mine else torch.zeros(0, dtype=empty_dtype, device=d))
-            valid.append(torch.cat([
-                torch.ones(len(c), dtype=torch.bool, device=d) if c.validity is None
-                else c.validity for c in cols])
-                if any(c.validity is not None for c in cols) else None)
-        rows = rows or [len(v) for v in vals]
-        per_shard[field.name] = (field, vals, valid, dictionary)
-    return _padded_table(per_shard, rows, devs)
+        decoded[field.name] = (field, pieces)
+    return _sharded_table(decoded, mesh, devs)

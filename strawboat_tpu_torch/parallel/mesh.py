@@ -1,47 +1,70 @@
 """Mesh construction and the multi-process bootstrap.
 
-Counterpart of ``strawboat_tpu/parallel/mesh.py``.  The port's mesh is a
-single-process one, the torch counterpart of JAX's single-controller
-``shard_map``: one process holds an ordered grid of ``torch.device``s, one
-per shard (a device may repeat), runs each shard's work in a loop and
-moves data between shards with device copies (``collectives.py``).  Four
-shards on one card run the whole algorithm on that card; with several
-cards, ``"cuda:all"`` puts shard ``i`` on card ``i % device_count``.
+Counterpart of ``strawboat_tpu/parallel/mesh.py``.  A mesh is an ordered
+row of shards, one ``torch.device`` each (a device may repeat).  Without
+a ``torch.distributed`` world it is a single-process one, the torch
+counterpart of JAX's single-controller ``shard_map``: the process holds
+every shard, runs each shard's work in a loop and moves data between
+shards with device copies (``collectives.py``).  Four shards on one card
+run the whole algorithm on that card; with several cards, ``"cuda:all"``
+puts shard ``i`` on card ``i % device_count``.
+
+Inside a world of ``W`` processes (:func:`distributed_init`, or
+``torchrun``) the mesh spans the processes, as the JAX mesh spans
+``jax.devices()`` after ``jax.distributed.initialize``: process ``r``
+holds shards ``r·k … r·k+k−1`` (``k = n_shards / W``), all on its own
+device, and the collectives cross processes through the process group.
 """
 
 from __future__ import annotations
 
+import datetime
 from dataclasses import dataclass
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..device import as_device, require_cuda
-from ..errors import NotYetImplementedError
 
-_ACROSS_PROCESSES = (
-    "a mesh across processes (ROADMAP.md queue 1, 'Multi-device': the "
-    "process-group backend of the collectives)"
-)
+
+def world() -> Optional[Tuple[int, int]]:
+    """``(rank, world size)`` of the ``torch.distributed`` world this
+    process belongs to, or None outside one."""
+    dist = torch.distributed
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    return dist.get_rank(), dist.get_world_size()
 
 
 @dataclass(frozen=True, eq=False)
 class Mesh:
-    """``devices``: a numpy object array of ``torch.device``, one per shard,
-    shaped like the JAX mesh; ``axis_names`` names its axes."""
+    """``devices``: a numpy object array of ``torch.device``, one per shard
+    this process holds, shaped like the JAX mesh; ``axis_names`` names its
+    axes.  A mesh over a world of ``processes`` processes has one axis, and
+    this process's shards start at global shard ``first_shard``."""
 
     devices: np.ndarray
     axis_names: Tuple[str, ...]
+    first_shard: int = 0
+    processes: int = 1
 
     @property
     def shape(self) -> Dict[str, int]:
-        return dict(zip(self.axis_names, self.devices.shape))
+        """The global shape: every process's shards."""
+        dims = list(self.devices.shape)
+        dims[0] *= self.processes
+        return dict(zip(self.axis_names, dims))
+
+    def axis_size(self, axis: str) -> int:
+        """The global number of shards along ``axis``."""
+        return self.shape[axis]
 
     def axis_devices(self, axis: str) -> Tuple[torch.device, ...]:
-        """The devices of the shards along ``axis``, in order (the first
-        index of every other axis: data split over ``axis`` is the same
-        along the others, as ``PartitionSpec(axis)`` replicates it)."""
+        """The devices of this process's shards along ``axis``, in order
+        (the first index of every other axis: data split over ``axis`` is
+        the same along the others, as ``PartitionSpec(axis)`` replicates
+        it)."""
         i = self.axis_names.index(axis)
         index = [0] * self.devices.ndim
         out = []
@@ -71,14 +94,27 @@ def make_mesh(n_shards: int, device, axis_names: Sequence[str] = ("shards",)) ->
     (``"cuda"``, ``"cuda:1"``, a ``torch.device``), where every shard
     lives, or ``"cuda:all"``: shard ``i`` on card ``i % device_count``.
     With several ``axis_names`` the shards are reshaped as the JAX
-    ``make_mesh`` reshapes its devices.  Inside a ``torch.distributed``
-    world of more than one process it raises: each process would hold only
-    its own shards."""
+    ``make_mesh`` reshapes its devices.
+
+    Inside a ``torch.distributed`` world of ``W`` processes, ``W`` must
+    divide ``n_shards``: this process holds its ``n_shards / W`` shards,
+    all on ``device`` (each process names its own card, so ``"cuda:all"``
+    raises), on one axis."""
     if n_shards < 1:
         raise ValueError(f"n_shards must be at least 1, got {n_shards}")
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotYetImplementedError(_ACROSS_PROCESSES)
+    w = world()
+    if w is not None:
+        rank, size = w
+        if n_shards % size:
+            raise ValueError(f"{n_shards} shards do not split over a world of {size} processes")
+        if device == "cuda:all":
+            raise ValueError("inside a torch.distributed world each process names its own card")
+        if len(axis_names) > 1:
+            raise ValueError("a mesh across processes has one axis")
+        k = n_shards // size
+        arr = np.empty(k, dtype=object)
+        arr[:] = [as_device(device)] * k
+        return Mesh(arr, tuple(axis_names), first_shard=rank * k, processes=size)
     if device == "cuda:all":
         require_cuda()
         count = torch.cuda.device_count()
@@ -97,16 +133,26 @@ def distributed_init(
     num_processes: int,
     process_id: int,
     device,
+    backend: Optional[str] = None,
+    timeout: Optional[float] = None,
 ) -> None:
     """Join a ``torch.distributed`` world, the bootstrap of a deployment
-    over processes (the reference's ``jax.distributed.initialize``): nccl
-    for a CUDA ``device``, gloo for the CPU; ``coordinator_address`` is
-    ``host:port`` (taken as ``tcp://host:port``) or a full init URL such
-    as ``file:///path``.  The mesh functions run inside one process: a
-    world of more than one makes ``make_mesh`` raise."""
-    dev = as_device(device)
-    backend = "nccl" if dev.type == "cuda" else "gloo"
-    init = coordinator_address if "://" in coordinator_address else f"tcp://{coordinator_address}"
-    torch.distributed.init_process_group(backend, init_method=init, world_size=num_processes,
-                                         rank=process_id)
+    over processes (the reference's ``jax.distributed.initialize``).
 
+    ``backend`` None takes nccl for a CUDA ``device`` and gloo for the
+    CPU; ``"gloo"`` with a CUDA device is allowed (its collectives stage
+    CUDA tensors through host memory; NCCL refuses two ranks on one card).
+    ``coordinator_address`` is ``host:port`` (taken as ``tcp://host:port``)
+    or a full init URL such as ``file:///path`` or ``env://`` (torchrun's
+    environment).  ``timeout`` (seconds) bounds each collective, so that a
+    rank whose peers are gone fails instead of waiting for ever.  The CUDA
+    ``device`` becomes the process's current device."""
+    dev = as_device(device)
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    init = coordinator_address if "://" in coordinator_address else f"tcp://{coordinator_address}"
+    kwargs = {} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}
+    torch.distributed.init_process_group(backend, init_method=init, world_size=num_processes,
+                                         rank=process_id, **kwargs)

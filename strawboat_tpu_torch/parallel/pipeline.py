@@ -33,8 +33,10 @@ def pipelined_distributed_aggregate(
 
     Chunks stream through once, so a capacity overflow cannot be retried:
     it raises :class:`CapacityError` (re-run with a larger
-    ``num_groups``).  An empty stream returns None."""
+    ``num_groups``), in a world on every process alike.  An empty stream
+    returns None."""
     devs = mesh.axis_devices(axis)
+    n_parts = mesh.axis_size(axis)
     names = fns = None
     exchanged, needs = [], []
     for key, values, mask in chunks:
@@ -46,10 +48,10 @@ def pipelined_distributed_aggregate(
         masks = [torch.ones(k.shape, dtype=torch.bool, device=k.device) for k in keys] \
             if mask is None else shard(mesh, axis, mask).shards
         staged = [local_partials(k, tuple(c[s] for c in cols), masks[s], num_groups, fns,
-                                 len(devs))
+                                 n_parts)
                   for s, k in enumerate(keys)]
         needs += [s[2] for s in staged]
-        exchanged.append(exchange_partials(devs, staged, num_groups))
+        exchanged.append(exchange_partials(devs, staged, num_groups, n_parts))
     if names is None:
         return None
     final = []
@@ -83,7 +85,8 @@ def streamed_dataset_aggregate(
     (fn, column)} over numeric columns, ``key`` a numeric column; parts
     and pages that ``predicates`` rule out by their zones are skipped
     (the predicates prune; they filter no row).  Chunks decode on the
-    mesh's first device."""
+    mesh's first device; in a world every process decodes every chunk and
+    keeps its shards of it."""
     return pipelined_distributed_aggregate(
         mesh, axis,
         prepared_dataset_chunks(mesh, axis, paths, key, aggs, chunk_pages, predicates),
@@ -109,7 +112,7 @@ def prepared_dataset_chunks(
     from ..exec.dataset import iter_dataset_chunks
 
     devs = mesh.axis_devices(axis)
-    n_shards = len(devs)
+    n_shards = mesh.axis_size(axis)
     cols = sorted({key} | {c for (_fn, c) in aggs.values()})
     for chunk in iter_dataset_chunks(paths, chunk_pages, devs[0], columns=cols,
                                      predicates=predicates):

@@ -57,10 +57,9 @@ def hash_partition_ids(
     return _umod(h, n_parts).to(torch.int32)
 
 
-def largest_bin(devices, part_by_shard) -> int:
-    """The most rows any shard sends any destination, read before a bin
-    is built."""
-    n_parts = len(devices)
+def largest_bin(devices, part_by_shard, n_parts: int) -> int:
+    """The most rows any shard sends any of the ``n_parts`` destinations,
+    read before a bin is built (agreed over the world's processes)."""
     counts = []
     for part in part_by_shard:
         c = torch.zeros(n_parts, dtype=torch.int64, device=part.device)
@@ -104,9 +103,9 @@ def grown(required: int, capacity: int) -> int:
 
 
 def exchange(devices, payloads_by_shard, part_by_shard, n_parts: int, capacity: int):
-    """Bin every shard's payloads by destination and run one all_to_all a
-    payload: ``(received payloads per shard, received bin validity per
-    shard)``, each flat ``(n_parts * capacity,)``."""
+    """Bin every local shard's payloads by destination and run one
+    all_to_all a payload: ``(received payloads per local shard, received
+    bin validity per local shard)``, each flat ``(n_parts * capacity,)``."""
     sent = [build_send_bins(part, pays, n_parts, capacity)
             for part, pays in zip(part_by_shard, payloads_by_shard)]
     n_pay = len(payloads_by_shard[0])
@@ -138,11 +137,11 @@ def shuffle_by_key(
     default; the reference's retry ends at the same capacity) or raises
     :class:`CapacityError` with the required capacity (``"raise"``)."""
     devs = mesh.axis_devices(axis)
-    n_parts = len(devs)
+    n_parts = mesh.axis_size(axis)
     keys = shard(mesh, axis, key).shards
     pays = [shard(mesh, axis, p).shards for p in payloads]
     parts = [hash_partition_ids(k, n_parts, salt=salt) for k in keys]
-    required = largest_bin(devs, parts)
+    required = largest_bin(devs, parts, n_parts)
     if required > capacity and on_overflow == "raise":
         raise CapacityError("shuffle bin", capacity, required)
     cap = grown(required, capacity)

@@ -497,3 +497,91 @@ def test_all_to_all_and_psum_on_card(cuda):
         assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
     sums = psum([b.to(cuda) for b in bins], card)
     assert all(torch.equal(s.cpu(), psum(bins, cpu)[0]) for s in sums)
+
+
+def test_gloo_world_of_two_on_card_sharded_q6(cuda, tmp_path):
+    """Two ranks on the one card under gloo (NCCL refuses two ranks on one
+    card), an 8-shard mesh of 4 shards a rank: the sharded Q6 and grouped
+    sums equal the single-process mesh's on the card, each rank's Q6 one
+    K1 launch over its 16 planes."""
+    from _torch_world import N, run_case, run_world
+    from strawboat_tpu_torch.codecs import WriteOptions
+    from strawboat_tpu_torch.constants import Compression
+    from strawboat_tpu_torch.parallel import make_mesh
+    from strawboat_tpu_torch.write import write_file
+
+    rng = np.random.default_rng(17)
+    cols = {nm: rng.integers(0, hi, 40960).astype(np.int32)
+            for nm, hi in (("sd", 2557), ("qty", 51), ("disc", 11), ("ep", 60000), ("grp", 6))}
+    path = str(tmp_path / "res.str")
+    write_file(path, cols, options=WriteOptions(default_compression=Compression.LZ4,
+                                                max_page_size=4096))
+    inp = {"resident_path": path,
+           "q6_preds": {"sd": (731, 1096), "disc": (5, 8), "qty": (None, 24)}}
+    got = run_world(2, inp, ["resident"], str(tmp_path / "world"), device="cuda:0",
+                    backend="gloo")["resident"]
+    want = run_case("resident", make_mesh(N, "cuda:0"), inp)
+    m = ((cols["sd"] >= 731) & (cols["sd"] < 1096) & (cols["disc"] >= 5) & (cols["disc"] < 8)
+         & (cols["qty"] < 24))
+    assert int(got["q6"]) == int(want["q6"]) == int(
+        (cols["ep"][m].astype(np.int64) * cols["disc"][m]).sum())
+    for g, w in zip(got["group"][0] + (got["group"][1],), want["group"][0] + (want["group"][1],)):
+        assert torch.equal(g, w)
+    assert got["q6_k1_launches"] == [1, 1]
+    assert got["k1_calls"] == [([16], [12])] * 2
+
+
+def test_nccl_world_of_one_collectives_on_card(cuda, tmp_path):
+    """A world of one process under NCCL: ``all_to_all`` and ``psum`` on a
+    4-shard mesh equal the device-copy versions of the same mesh without a
+    world, and the psum's ``all_reduce`` is a process-group call."""
+    import torch.distributed as dist
+
+    from strawboat_tpu_torch.parallel import all_to_all, distributed_init, make_mesh, psum
+    from strawboat_tpu_torch.parallel.collectives import exchange_summary, record_exchanges
+
+    rng = np.random.default_rng(6)
+    bins = [torch.from_numpy(rng.integers(-(2**62), 2**62, (4, 1000))).to(cuda) for _ in range(4)]
+    devs = make_mesh(4, cuda).axis_devices("shards")
+    want_a2a, want_sum = all_to_all(bins, devs), psum(bins, devs)
+    distributed_init(f"file://{tmp_path / 'store'}", 1, 0, cuda, timeout=120)
+    try:
+        assert dist.get_backend() == "nccl"
+        world_devs = make_mesh(4, cuda).axis_devices("shards")
+        with record_exchanges() as recs:
+            got_a2a, got_sum = all_to_all(bins, world_devs), psum(bins, world_devs)
+        ops = [r["op"] for r in exchange_summary(recs)]
+    finally:
+        dist.destroy_process_group()
+    assert all(torch.equal(g, w) for g, w in zip(got_a2a, want_a2a))
+    assert all(torch.equal(g, w) for g, w in zip(got_sum, want_sum))
+    assert ops == ["all_to_all", "all_reduce", "psum"]
+
+
+def test_nccl_world_of_four_cards(cuda, tmp_path):
+    """Four ranks under NCCL, one card each, an 8-shard mesh of 2 shards a
+    rank: every case of ``tests/_torch_world.py`` gives the single-process
+    mesh's shards on one card, each rank's sharded Q6 one K1 launch.
+    Needs four cards on one host; skips with fewer."""
+    from _torch_world import CASES, N, assert_same, make_inputs, run_case, run_world
+    from strawboat_tpu_torch.codecs import WriteOptions
+    from strawboat_tpu_torch.constants import Compression
+    from strawboat_tpu_torch.parallel import make_mesh
+    from strawboat_tpu_torch.write import write_file
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+
+    def write(path, table, page, **opts):
+        write_file(str(path), table, options=WriteOptions(
+            default_compression=Compression.LZ4, max_page_size=page, **opts))
+        return str(path)
+
+    inp = make_inputs(tmp_path, write)
+    names = [n for n in CASES if n != "refusals"]
+    got = run_world(4, inp, names + ["refusals"], str(tmp_path / "world"), device="cuda")
+    single = make_mesh(N, cuda)
+    for name in names:
+        assert_same(got[name], run_case(name, single, inp))
+    assert got["resident"]["q6_k1_launches"] == [1] * 4
+    assert got["refusals"]["first_shard"] == [0, 2, 4, 6]
