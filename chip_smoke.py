@@ -140,7 +140,7 @@ the multi-device path (K1's and K3's launches are counted over 19):
    (``strawboat_tpu_torch/parallel``): the SF10 resident table sharded by
    tile blocks, Q6 (``sharded_filter_sum``, one K1 launch over every
    shard's planes) and the sums by l_returnflag (``sharded_group_sum``) ==
-   the single-device ``filter_sum`` / ``group_sum``, median of 20 warm
+   the single-device ``filter_sum`` / ``group_sum``, median of 10 warm
    calls each; ``distributed_scan`` of the
    ``dict`` file (each shard's columns == numpy over its page range,
    padding rows not ``__valid__``); ``distributed_aggregate`` of it by
@@ -176,13 +176,35 @@ this process's and its ranks'):
    against numpy); each rank's warm Q6 against the single-process mesh's,
    the exchanges' bytes crossed between processes and their ms;
 
+the port's last slice (K1's and K3's launches are counted over 21, this
+process's and its config scripts'):
+
+21. port_close — fixed-size binaries: 20 M rows (of SF10's 60 M, a cut
+   the phase's budget forces) of ``flag`` fixed_size_binary[1],
+   ``country`` [2], ``ipv4`` [4] and ``hash64`` [8] written under the
+   ``dict`` flags with zone maps, and 2 M rows of a
+   list<fixed_size_binary[2]> column, and the four again under the
+   ``bitpack`` flags; ``scan_file`` of both on the card (each column the
+   generated integers of its width; K3 decodes flag's DICT index pages
+   and every whole page of the bit-packed ipv4, a launch a planned
+   group), a ``Query`` filter on ipv4's range == numpy, ``read_table`` ==
+   the generated table, ``load_resident`` refused as in the reference;
+   ``q1_dense`` over a scan of the lineitem_full file == ``q1`` == numpy,
+   each warm; then the scripts of BASELINE configs 4 and 5
+   (``examples/torch_tpch_bench.py`` at SF0.1,
+   ``examples/torch_resident_query.py``, ``examples/torch_bench_write.py``
+   up to 2^16 rows, ``scripts/torch_dist_sf1_stream.py`` at 1 M rows over
+   4 shards, ``scripts/torch_scaling_proxy.py`` at 1 and 4 shards) as
+   subprocesses on the card, run together: each must exit 0 with its
+   checks passed; their seconds and summaries are printed;
+
 and last:
 
-21. k2_k0  — K2 and K0 bit-exact against their plain versions (b = 1..32),
+22. k2_k0  — K2 and K0 bit-exact against their plain versions (b = 1..32),
    then (their launches counted) l_shipdate's bit-packed pages decoded
    through K2's and K0's natural-order entry points == the generated column;
    each width group's lane count, times and bound are printed;
-22. k1_batching — resident Q6, Q1 and the sharded Q6 warm with their
+23. k1_batching — resident Q6, Q1 and the sharded Q6 warm with their
    planes in one K1 call and a launch a plane, in turns.
 
 The launches line also tallies the planes the paths hand K1 by tile
@@ -229,7 +251,9 @@ Q6_COLUMNS = ("l_shipdate", "l_discount", "l_quantity", "l_extendedprice")
 SCAN_WIDTHS = (4, 6, 7, 8, 9, 10, 11, 12)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, at its 700 W limit
 SEEDS = (0, 0xA5A500FF)
-REPS = 20
+# timed calls a warm median takes: kernels, resident queries, the K1 and
+# K3 rows' traces (a whole scan's median takes SCAN_REPS)
+REPS = 10
 SCAN_REPS = 3
 PAGE_ROWS = 65536
 # SF2.5 orders (TPC-H spec 1.2: SF x 1.5 M); the SF10 and SF5 numbers
@@ -258,6 +282,20 @@ K1_TILES = (SF10_TILES, -(-SF10_TILES // MULTI_SHARDS), 1)
 Q6_FILTER_SUM = ({"l_shipdate": (731, 1096), "l_discount": (5, 8), "l_quantity": (None, 24)},
                  "l_extendedprice", "l_discount")
 Q3_DATE = 1169
+# the port_close phase: fixed-size binaries at 20 M rows (of SF10's 60 M;
+# the phase's budget forces the cut), a list<fixed_size_binary[2]> file of
+# 2 M rows, and the scripts of BASELINE configs 4 and 5 as subprocesses
+# (run together; each ends in its JSON summary)
+FIXED_ROWS = 20_000_000
+FIXED_LIST_ROWS = 2_000_000
+SCRIPT_LIMIT_S = 300
+CONFIG_SCRIPTS = (
+    ("examples/torch_tpch_bench.py", ["--scale", "0.1"], {}),
+    ("examples/torch_resident_query.py", [], {}),
+    ("examples/torch_bench_write.py", ["--max-log2", "16"], {}),
+    ("scripts/torch_dist_sf1_stream.py", ["--rows", "1000000", "--shards", "4"], {}),
+    ("scripts/torch_scaling_proxy.py", ["--shards", "4"], {}),
+)
 FILES = {
     "dict": {"STRAWBOAT_DICT_COMPRESSION": "1", "STRAWBOAT_BITPACK_COMPRESSION": "1"},
     "bitpack": {"STRAWBOAT_BITPACK_COMPRESSION": "1"},
@@ -2560,6 +2598,227 @@ def phase_multiprocess(rt, cols, paths, o_path, full_path, dataset_paths, answer
     return launches
 
 
+def _fixed_columns(rng, n: int) -> dict:
+    """The fixed-size binaries of the port_close phase as the integers of
+    their widths: a one-letter flag, a two-letter country code of 200, an
+    IPv4 address in 10.0.0.0/8 and a 64-bit hash."""
+    letters = np.frombuffer(b"ANR", np.int8)
+    countries = rng.integers(65, 91, (200, 2), dtype=np.uint8).view("<i2").reshape(-1)
+    return {"flag": rng.choice(letters, n), "country": rng.choice(countries, n),
+            "ipv4": (rng.integers(0, 1 << 24, n, dtype=np.int64) + (10 << 24)).astype("<i4"),
+            "hash64": rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)}
+
+
+def _fixed_arrow_ints(arr, w: int) -> np.ndarray:
+    """A ``fixed_size_binary[w]`` arrow array's values as ints of width w."""
+    if hasattr(arr, "combine_chunks"):
+        arr = arr.combine_chunks()
+    raw = np.frombuffer(arr.buffers()[1], np.uint8)[arr.offset * w : (arr.offset + len(arr)) * w]
+    return raw.view(f"<i{w}")
+
+
+def run_config_scripts(env_base) -> dict:
+    """The scripts of BASELINE configs 4 and 5 on the card, together, each
+    in its own process; each must exit 0 with its checks passed (a last
+    line of JSON with ``"ok": true``) → {script: its wall seconds and
+    summary}."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for script, args, env in CONFIG_SCRIPTS:
+        out = tempfile.TemporaryFile(mode="w+")
+        err = tempfile.TemporaryFile(mode="w+")
+        cmd = [sys.executable, os.path.join(root, script), "--device", "cuda", *args]
+        procs.append((script, subprocess.Popen(cmd, cwd=root, env={**env_base, **env}, stdout=out,
+                                               stderr=err), out, err, time.perf_counter()))
+    ended = {}
+    while len(ended) < len(procs):
+        time.sleep(0.05)
+        for script, proc, _out, _err, t0 in procs:
+            if script in ended:
+                continue
+            if proc.poll() is None and time.perf_counter() - t0 > SCRIPT_LIMIT_S:
+                proc.kill()
+                proc.wait()
+            if proc.poll() is not None:
+                ended[script] = time.perf_counter() - t0
+    done, failed = {}, []
+    for script, proc, out, err, _t0 in procs:
+        out.seek(0)
+        err.seek(0)
+        lines = out.read().strip().splitlines()
+        try:
+            summary = json.loads(lines[-1]) if lines else None
+        except json.JSONDecodeError:
+            summary = None
+        if proc.returncode != 0 or not summary or summary.get("ok") is not True:
+            failed.append(f"{script}: exit {proc.returncode}; {err.read()[-2000:]}")
+        done[script] = {"seconds": ended[script], "summary": summary}
+    if failed:
+        raise AssertionError("config scripts failed: " + " | ".join(failed))
+    return done
+
+
+def phase_port_close(full_path, cols, tmpdir, device) -> dict:
+    """The port's last slice on the card.  Fixed-size binaries:
+    ``FIXED_ROWS`` rows of ``flag`` [1], ``country`` [2], ``ipv4`` [4] and
+    ``hash64`` [8] written under the ``dict`` flags with zone maps (and a
+    file of ``FIXED_LIST_ROWS`` rows of a list<fixed_size_binary[2]>
+    column), and again under the ``bitpack`` flags; ``scan_file`` of
+    both on the card (each column the generated integers, its width's
+    dtype; K3 decodes flag's DICT index pages and, under ``bitpack``,
+    every page of ipv4, once a group its plan holds), a
+    ``Query`` filter on ipv4's range against numpy, ``read_table`` equal to
+    the generated table, ``load_resident`` refused as in the reference.
+    ``q1_dense`` over a scan of the lineitem_full file equal to ``q1`` and
+    to numpy, each warm (median of 5).  Then the scripts of configs 4 and
+    5 as subprocesses on the card (``run_config_scripts``).  Returns the
+    three files' paths (the kernel line times K3 over them) and the facts."""
+    import pyarrow as pa
+
+    from strawboat_tpu_torch import api, columns as cm
+    from strawboat_tpu_torch.benchsuite import tpch
+    from strawboat_tpu_torch.codecs import WriteOptions
+    from strawboat_tpu_torch.errors import NotYetImplementedError
+    from strawboat_tpu_torch.exec import Query, col, load_resident, scan_file
+    from strawboat_tpu_torch.exec.scan import k3_launch_groups
+    from strawboat_tpu_torch.kernels import bitunpack as bu
+    from strawboat_tpu_torch.schema import Field, list_of
+    from strawboat_tpu_torch.write import write_file
+
+    widths = {"flag": 1, "country": 2, "ipv4": 4, "hash64": 8}
+    rng = np.random.default_rng(SEED)
+    fixed = _fixed_columns(rng, FIXED_ROWS)
+    path = os.path.join(tmpdir, "fixed.str")
+    schema = [Field(k, f"fixed_size_binary[{w}]") for k, w in widths.items()]
+    opts = WriteOptions(max_page_size=PAGE_ROWS, zone_maps=True)
+    with forcing(FILES["dict"]):
+        t0 = time.perf_counter()
+        write_file(path, fixed, schema=schema, options=opts)
+        write_s = time.perf_counter() - t0
+        lens = rng.integers(0, 4, FIXED_LIST_ROWS)
+        offsets = np.zeros(FIXED_LIST_ROWS + 1, np.int64)
+        np.cumsum(lens, out=offsets[1:])
+        leaf = rng.choice(fixed["country"][:200_000], int(offsets[-1]))
+        list_path = os.path.join(tmpdir, "fixed_list.str")
+        write_file(list_path, {"codes": cm.ListColumn("list", None, offsets, cm.PrimitiveColumn(
+            "fixed_size_binary[2]", None, leaf))},
+            schema=[list_of("codes", Field("item", "fixed_size_binary[2]"))], options=opts)
+    facts = {"rows": FIXED_ROWS, "reduced": f"{FIXED_ROWS} of SF10's {SF10_ROWS} rows",
+             "decoded_bytes": FIXED_ROWS * sum(widths.values()),
+             "write": {"seconds": write_s, "bytes": os.path.getsize(path)}}
+
+    # the same columns under the bitpack flags: ipv4's 4-byte pages are
+    # bit-packed, so K3 decodes them on the card at the phase's rows
+    bitpack_path = os.path.join(tmpdir, "fixed_bitpack.str")
+    with forcing(FILES["bitpack"]):
+        t0 = time.perf_counter()
+        write_file(bitpack_path, fixed, schema=schema, options=opts)
+        facts["write"]["bitpack_seconds"] = time.perf_counter() - t0
+        facts["write"]["bitpack_bytes"] = os.path.getsize(bitpack_path)
+
+    def scan_checked(p):
+        """(seconds, K3 launches, K3 groups by column) of a cold scan of
+        ``p``, each column held against the generated integers; K3 must
+        launch once a group ``k3_launch_groups`` plans, and at least once."""
+        groups = {}
+        for name, key, pages, _words in k3_launch_groups(p):
+            groups.setdefault(name, []).append([int(key[1]), len(pages)])
+        before = bu.bitunpack_natural.launches
+        t0 = time.perf_counter()
+        table = scan_file(p, device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = bu.bitunpack_natural.launches - before
+        for k, w in widths.items():
+            c = table[k]
+            if c.values.device.type != device.type or c.values.element_size() != w \
+                    or c.dtype != f"fixed_size_binary[{w}]":
+                raise AssertionError(f"fixed-binary scan of {p}: {k} is {c.dtype} "
+                                     f"{c.values.dtype} on {c.values.device}")
+            if not np.array_equal(_host(c.values), fixed[k]):
+                raise AssertionError(f"fixed-binary scan of {p}: {k} != the generated integers")
+        del table
+        planned = sum(len(g) for g in groups.values())
+        if launches <= 0 or launches != planned:
+            raise AssertionError(f"the fixed-binary scan of {p} launched K3 {launches} times, "
+                                 f"its plan {planned}")
+        return seconds, launches, groups
+
+    scan_s, launches, groups = scan_checked(path)
+    facts["scan"] = {"seconds": scan_s, "k3_launches": launches, "k3_groups": groups,
+                     "equal_to_generated": True,
+                     "warm_ms": wall_ms(lambda: scan_file(path, device), reps=1)}
+    scan_s, launches, groups = scan_checked(bitpack_path)
+    ipv4_pages = sum(n for _b, n in groups.get("ipv4", ()))
+    if ipv4_pages < FIXED_ROWS // PAGE_ROWS:  # every whole page is bit-packed
+        raise AssertionError(f"K3 decoded {ipv4_pages} of ipv4's pages under the bitpack flags")
+    facts["scan_bitpack"] = {"seconds": scan_s, "k3_launches": launches, "k3_groups": groups,
+                             "equal_to_generated": True}
+    lt = scan_file(list_path, device)
+    if not (np.array_equal(_host(lt["codes"].values), leaf)
+            and np.array_equal(_host(lt["codes"].offsets), offsets)):
+        raise AssertionError("the list<fixed_size_binary[2]> scan != the generated column")
+    del lt
+
+    lo, hi = (10 << 24) + (1 << 20), (10 << 24) + (3 << 20)
+    want = {"c": int(((fixed["ipv4"] >= lo) & (fixed["ipv4"] < hi)).sum())}
+    m = (fixed["ipv4"] >= lo) & (fixed["ipv4"] < hi)
+    want["s"] = int(fixed["country"][m].astype(np.int64).sum())
+    q = Query(path, device=device).filter((col("ipv4") >= lo) & (col("ipv4") < hi)).agg(
+        c=("count", "hash64"), s=("sum", "country"))
+    got = q.run()
+    _check_equal("Query over ipv4's range", {"c": int(got["c"]), "s": int(got["s"])}, want)
+    facts["query"] = {**want, "equal_to_numpy": True, "warm_ms": wall_ms(
+        lambda: int(q.run()["c"]), reps=1)}
+
+    t0 = time.perf_counter()
+    back = api.read_table(path)
+    read_s = time.perf_counter() - t0
+    for k, w in widths.items():
+        if back.schema.field(k).type != pa.binary(w) or back[k].null_count \
+                or not np.array_equal(_fixed_arrow_ints(back[k], w), fixed[k]):
+            raise AssertionError(f"read_table of the fixed-binary file: {k}")
+    del back
+    lb = api.read_table(list_path)["codes"].combine_chunks()
+    if lb.type != pa.list_(pa.binary(2)) or not np.array_equal(
+            _fixed_arrow_ints(lb.values, 2), leaf):
+        raise AssertionError("read_table of the list<fixed_size_binary[2]> file")
+    facts["read_table"] = {"seconds": read_s, "equal_to_generated": True}
+    try:
+        load_resident(path, device, columns=["flag"])
+    except NotYetImplementedError as e:
+        if "resident load of column 'flag' type fixed_size_binary[1]" not in str(e):
+            raise
+        facts["load_resident"] = {"raises": str(e)}
+    else:
+        raise AssertionError("load_resident of a fixed-size binary did not raise")
+    del fixed, leaf
+
+    dt = scan_file(full_path, device, columns=list(tpch.Q1_Q6_COLUMNS))
+    want_q1 = tpch.q1_numpy_reference(cols)
+    dense = tpch.q1_table_rows(tpch.q1_dense(dt))
+    _q1_check("q1_dense over the lineitem_full scan", dense, want_q1)
+    _q1_check("q1 over the lineitem_full scan", tpch.q1_rows(tpch.q1(dt)), dense)
+    facts["q1_dense"] = {
+        "groups": len(dense), "equal_to_q1_and_numpy": True,
+        "warm_median_ms": wall_ms(lambda: tpch.q1_dense(dt), reps=5),
+        "q1_warm_median_ms": wall_ms(lambda: tpch.q1_rows(tpch.q1(dt)), reps=5)}
+    del dt
+    torch.cuda.empty_cache()
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("STRAWBOAT_")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__)), env.get("PYTHONPATH", "")])
+    t0 = time.perf_counter()
+    facts["scripts"] = run_config_scripts(env)
+    facts["scripts_seconds"] = time.perf_counter() - t0
+    # the scripts' own processes count their kernels' launches
+    facts["script_launches"] = {k: sum(d["summary"].get(f"{k.lower()}_launches", 0)
+                                       for d in facts["scripts"].values()) for k in ("K1", "K3")}
+    emit("port_close", **facts, nvidia_smi=nvidia_smi())
+    return {"fixed": path, "fixed_bitpack": bitpack_path, "fixed_list": list_path}, facts
+
+
 def k3_summary(paths, device) -> dict:
     """K3 held exactly against its plain version, then K3 and plain times
     and the bound, over every launch one scan of each file in ``paths``
@@ -2880,6 +3139,19 @@ def main() -> int:
         del answers
         torch.cuda.empty_cache()
         phase_s["multiprocess"] = time.perf_counter() - started
+        # the port's last slice (fixed-size binaries, q1_dense, the config
+        # 4 and 5 scripts): this process's launches and its scripts'
+        bu.bitunpack_tiled.launches = 0
+        bu.bitunpack_natural.launches = 0
+        fixed_paths, closing = phase_port_close(full_path, cols, tmpdir, device)
+        port_close = {"K1": bu.bitunpack_tiled.launches + closing["script_launches"]["K1"],
+                      "K3": bu.bitunpack_natural.launches + closing["script_launches"]["K3"]}
+        if min(port_close.values()) <= 0:
+            raise AssertionError(f"the port_close path did not launch K1 and K3: {port_close}")
+        k1_launches += port_close["K1"]
+        k3_launches += port_close["K3"]
+        torch.cuda.empty_cache()
+        phase_s["port_close"] = time.perf_counter() - started
         tiles.close()
         # a lone 1-tile plane's device time (the kernel phase's (1, b)
         # shapes) times the path's calls of such planes alone
@@ -2888,10 +3160,11 @@ def main() -> int:
         k1_tiles["lone_one_tile_device_ms"] = one_tile_ms * k1_tiles["lone_one_tile_calls"]
         # K3 over one scan of each file the paths scan: the two integer
         # lineitem files, the orders file, the whole lineitem file, the
-        # typed ones, the nested orders file and the two adaptive files
+        # typed ones, the nested orders file, the two adaptive files, the
+        # dataset and the fixed-size binary files
         k3.update(k3_summary({**paths, "orders": o_path, "lineitem_full": full_path,
                               **typed_paths, "orders_nested": nested_path, **adaptive_paths,
-                              "dataset": dataset_paths}, device))
+                              "dataset": dataset_paths, **fixed_paths}, device))
         phase_s["k3_summary"] = time.perf_counter() - started
         k2_k0 = phase_k2_k0(paths["bitpack"], cols["l_shipdate"], device, SEED)
     phase_k1_batching(rt, srt)
@@ -2911,7 +3184,7 @@ def main() -> int:
     emit("launches", general_path=general, lineitem_full_path=full, file_api_path=file_api,
          lineitem_typed_path=typed,
          nested_path=nested, adaptive_path=adaptive, dataset_path=dataset, multidevice_path=multi,
-         multiprocess_path=multiprocess,
+         multiprocess_path=multiprocess, port_close_path=port_close,
          k1_plane_tiles=k1_tiles, script_s=time.perf_counter() - started, phase_end_s=phase_s)
     print(json.dumps({"kernels": [
         line("bitunpack_tiled", "bitunpack.cu", "222", k1_launches, k1),

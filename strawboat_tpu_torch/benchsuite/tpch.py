@@ -275,6 +275,55 @@ def q1_query(path: str, device, delta_days: int = Q1_DEFAULT_DELTA, money: str =
     return _q1(path, delta_days, device, money)
 
 
+def q1_dense(table, delta_days: int = Q1_DEFAULT_DELTA):
+    """TPC-H Q1 over a scanned lineitem ``DeviceTable`` on the dense-code
+    path (reference ``q1_dense``): the composite code ``rf · n_ls + ls`` of
+    the two flags' dictionary codes indexes ``n_rf · n_ls`` groups, the
+    five sums and the count come from ``dense_group_sum`` (the count once)
+    and come back to the host in one fetch.  Returns the reference's arrow
+    table: the two keys (utf8) and the 8 aggregates, ordered by the keys.
+    Money columns are integers (cents)."""
+    import pyarrow as pa
+
+    from ..exec.aggregate import dense_group_sum, segment_reduce
+
+    mask = (col("l_shipdate") <= EPOCH_DAYS - delta_days).mask(table)
+    rf, ls = table["l_returnflag"], table["l_linestatus"]
+    n_ls = len(ls.dictionary)
+    ng = len(rf.dictionary) * n_ls
+    code = torch.where(mask, rf.values.long() * n_ls + ls.values.long(), -1)
+    qty, ep, disc, tax = (table[n].values.long() for n in MONEY_COLUMNS)
+    disc_price = ep * (100 - disc)
+    charge = disc_price * (100 + tax)
+    sum_qty, cnt = dense_group_sum(code, qty, ng)
+    sums = [segment_reduce(v, code, ng) for v in (ep, disc_price, charge, disc)]
+    stacked = torch.stack([sum_qty, *sums, cnt]).cpu().numpy()
+    sum_qty, sum_base, sum_dp, sum_ch, sum_disc, cnt = stacked
+    live = np.flatnonzero(cnt > 0)
+    n = cnt[live].astype(np.float64)
+    cols = {
+        "sum_qty": sum_qty[live], "sum_base_price": sum_base[live],
+        "sum_disc_price": sum_dp[live], "sum_charge": sum_ch[live],
+        "avg_qty": sum_qty[live] / n, "avg_price": sum_base[live] / n,
+        "avg_disc": sum_disc[live] / n, "count_order": cnt[live],
+    }
+    flags = [_key_str(rf.dictionary, c) for c in live // n_ls]
+    statuses = [_key_str(ls.dictionary, c) for c in live % n_ls]
+    order = sorted(range(len(flags)), key=lambda i: (flags[i], statuses[i]))
+    data = {"l_returnflag": pa.array([flags[i] for i in order], pa.string()),
+            "l_linestatus": pa.array([statuses[i] for i in order], pa.string())}
+    for name in Q1_AGG_NAMES:
+        data[name] = pa.array(np.asarray(cols[name])[order])
+    return pa.table(data)
+
+
+def q1_table_rows(table) -> Dict[Tuple[str, str], Dict[str, float]]:
+    """A Q1 arrow table (:func:`q1_dense`) → :func:`q1_rows`' form."""
+    rows = table.to_pylist()
+    return {(r["l_returnflag"], r["l_linestatus"]): {n: r[n] for n in Q1_AGG_NAMES}
+            for r in rows}
+
+
 def _key_str(dictionary, code) -> str:
     v = dictionary[int(code)]
     return v.decode() if isinstance(v, bytes) else str(v)

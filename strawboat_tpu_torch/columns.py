@@ -1,8 +1,9 @@
 """The host column model: numpy buffers with arrow's semantics.
 
 Counterpart of ``strawboat_tpu/columns.py``.  A column is one of
-:class:`PrimitiveColumn` (integers, temporal types as their int storage,
-floats, decimals as unscaled int64 or an ``(n, W)`` uint8 matrix),
+:class:`PrimitiveColumn` (integers, temporal types and fixed-size binaries
+of 1, 2, 4 or 8 bytes as their int storage, floats, decimals as unscaled
+int64 or an ``(n, W)`` uint8 matrix),
 :class:`BooleanColumn`, :class:`BinaryColumn` (int64 offsets into a uint8
 buffer), :class:`NullColumn`, :class:`ListColumn` (int32 or int64 offsets),
 :class:`FixedSizeListColumn`, :class:`MapColumn` and :class:`StructColumn`.
@@ -24,7 +25,7 @@ from typing import List, Optional
 import numpy as np
 
 from .errors import NotYetImplementedError
-from .schema import Field, decimal_params, fixed_size, int_storage
+from .schema import Field, decimal_params, fixed_binary_width, fixed_size, int_storage
 
 __all__ = [
     "Column", "NullColumn", "PrimitiveColumn", "BooleanColumn", "BinaryColumn",
@@ -225,6 +226,8 @@ def arrow_type(t):
     if t.startswith("timestamp[") and ", tz=" in t:
         unit, tz = t[len("timestamp[") : -1].split(", tz=")
         return pa.timestamp(unit, tz=tz)
+    if fixed_binary_width(t) is not None:
+        return pa.binary(fixed_binary_width(t))
     return pa.type_for_alias(t)
 
 
@@ -352,6 +355,8 @@ def from_arrow(arr) -> Column:
         width = t.bit_width // 8
         return PrimitiveColumn(dtype, validity, _values_from(arr, width).reshape(len(arr), width))
     storage = int_storage(dtype)
+    if storage is None and pa.types.is_fixed_size_binary(t):  # as the reference's columns.py:426
+        raise NotImplementedError(f"unsupported type {t}")
     npdt = np.dtype(storage if storage is not None else t.to_pandas_dtype())
     return PrimitiveColumn(dtype, validity, _values_from(arr, npdt.itemsize).view(npdt))
 

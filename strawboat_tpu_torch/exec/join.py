@@ -32,8 +32,16 @@ def _join_indices(
     count of any probe key; above ``max_fanout`` matches were cut and the
     caller re-runs (``hash_join`` does).  Both key columns are cast to
     their promoted dtype first, as the reference's ``searchsorted``
-    promotes int32 against int64.  ``build_valid`` masks null build rows
-    out of the match set directly (no in-band sentinel)."""
+    promotes int32 against int64.  With ``build_valid`` only the valid
+    build rows enter the sort (no in-band sentinel), so ``max_run`` counts
+    valid rows only: the reference sorts null and padding rows with the
+    rest, and a probe key equal to theirs grows its fan-out to their count.
+    The valid rows keep their order, so each probe row's matches come in
+    the reference's order."""
+    if build_valid is not None:
+        rows = torch.nonzero(build_valid).squeeze(1)
+        pi, bi, valid, run = _join_indices(build_keys[rows], probe_keys, max_fanout)
+        return pi, (rows[bi] if rows.numel() else bi), valid, run
     dt = torch.promote_types(build_keys.dtype, probe_keys.dtype)
     build_keys, probe_keys = build_keys.to(dt), probe_keys.to(dt)
     order = torch.sort(build_keys, stable=True).indices
@@ -46,8 +54,6 @@ def _join_indices(
     valid = idx < hi[:, None]
     idx = idx.clamp(0, max(sk.shape[0] - 1, 0))
     build_idx = order[idx] if sk.shape[0] else idx.long()
-    if build_valid is not None and sk.shape[0]:
-        valid = valid & build_valid[build_idx]
     probe_idx = torch.arange(n_probe, dtype=lo.dtype, device=lo.device)[:, None].expand(idx.shape)
     max_run = (hi - lo).max() if n_probe else torch.zeros((), dtype=lo.dtype)
     return probe_idx.reshape(-1), build_idx.reshape(-1), valid.reshape(-1), max_run

@@ -51,7 +51,7 @@ from ..kernels.bitunpack import (
 from ..kernels.decode import dict_gather_device
 from ..util.bits import pack_blocks
 from .aggregate import segment_reduce
-from ..schema import NULL_TYPE, Field, decimal_params, fixed_size, int_storage
+from ..schema import NULL_TYPE, Field, decimal_params, fixed_binary_width, fixed_size, int_storage
 from .aggregate import list_segment_sum
 from .scan import DeviceColumn, DeviceListColumn, DeviceTable, to_pa_array, unsigned_view
 
@@ -1074,7 +1074,7 @@ def _encode_model(name: str, col, f: Field, tile: int, device) -> ResidentColumn
     if validity is not None and validity.all():
         validity = None
     t = f.dtype
-    if t == NULL_TYPE:  # as the reference's loader (resident.py:1175)
+    if t == NULL_TYPE or fixed_binary_width(t) is not None:  # as the reference's loader (:1175)
         raise NotYetImplementedError(f"resident load of column {name!r} type {t}")
     if isinstance(col, (_Codes, cm.BinaryColumn)):
         if isinstance(col, cm.BinaryColumn):

@@ -394,3 +394,9 @@ def bitunpack_natural(words: torch.Tensor, seed: int, bits: int) -> torch.Tensor
 
 
 bitunpack_natural.launches = 0  # K3 launches since the last reset
+
+
+def launch_counts() -> dict:
+    """K1's and K3's launches in this process since their counters' last
+    reset (the config scripts' summaries carry them)."""
+    return {"k1_launches": bitunpack_tiled.launches, "k3_launches": bitunpack_natural.launches}

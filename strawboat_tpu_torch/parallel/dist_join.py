@@ -7,10 +7,12 @@ searchsorted join (``exec/join.py`` ``_join_indices``) on what it holds.
 The output stays sharded for downstream aggregation.
 
 One departure from the reference: the local join leaves the invalid build
-rows (empty bin slots, padding) out of the sort, where the reference sorts
-them with the real rows and grows the fan-out to their count whenever a
-probe key equals theirs (0).  The joined rows are the same; their slots
-within a probe row's fan-out, and the fan-out itself, can differ.
+rows (empty bin slots, key 0, and padding) out of the sort
+(``_join_indices`` with ``build_valid``), where the reference sorts them
+with the real rows and grows the fan-out to their count (``P · capacity``
+a shard) whenever a probe key equals theirs.  The joined rows are the
+same; their slots within a probe row's fan-out, and the fan-out itself,
+can differ.
 """
 
 from __future__ import annotations
@@ -23,19 +25,6 @@ from ..errors import CapacityError
 from ..exec.join import _join_indices
 from .collectives import ShardedTensor, max_to_host, shard, sum_to_host
 from .shuffle import exchange, grown, hash_partition_ids, largest_bin
-
-
-def _local_join(build_key, probe_key, fanout: int, build_valid):
-    """``_join_indices`` over the valid build rows only.  A shard's
-    received build rows include every empty bin slot (key 0, invalid) and
-    any padding row; the reference sorts them with the real rows, so a
-    probe key equal to theirs grows the fan-out to their count (``P ·
-    capacity`` a shard).  Here they never enter the sort; the valid rows
-    keep their order, so each probe row's matches come in the reference's
-    order."""
-    rows = torch.nonzero(build_valid).squeeze(1)
-    pi, bi, valid, run = _join_indices(build_key[rows], probe_key, fanout)
-    return pi, (rows[bi] if rows.numel() else bi), valid, run
 
 
 def _all_valid(keys: ShardedTensor) -> ShardedTensor:
@@ -102,7 +91,7 @@ def distributed_join(
     build = side(bk, b_pays, bv, b_parts, bcap)
     fanout = max_fanout
     while True:
-        joined = [_local_join(b[0], p[0], fanout, b[2]) for p, b in zip(probe, build)]
+        joined = [_join_indices(b[0], p[0], fanout, b[2]) for p, b in zip(probe, build)]
         frun = max_to_host([j[3] for j in joined], devs[0])
         if frun <= fanout:
             break

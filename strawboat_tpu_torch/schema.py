@@ -10,7 +10,8 @@ A field is ``Field(name, dtype, nullable, children)``, with ``dtype`` the
 arrow alias string ``DeviceColumn.dtype`` uses (``"int64"``, ``"date32"``,
 ``"string"``, ``"float64"``, ``"bool"``, ``"decimal128(15, 2)"``, the
 temporal aliases ``"timestamp[us]"``, ``"timestamp[ms, tz=UTC]"``,
-``"date64"``, ``"time32[ms]"``, ``"time64[ns]"``, ``"duration[s]"``).  A
+``"date64"``, ``"time32[ms]"``, ``"time64[ns]"``, ``"duration[s]"``,
+``"fixed_size_binary[4]"``).  A
 nested field is ``"list"``, ``"large_list"``, ``"fixed_size_list[N]"``,
 ``"map"`` (``"map[keys_sorted]"``) or ``"struct"`` over its children,
 named as pyarrow names them: a list's child ``item``, a map's child the
@@ -54,18 +55,32 @@ NULL_TYPE = "null"  # a column of nulls only: no values, empty pages
 WRITABLE_TYPES = (*FLAT_INT_TYPES, *STRING_TYPES, *FLAT_FLOAT_TYPES, BOOL_TYPE, NULL_TYPE)
 
 _DECIMAL = re.compile(r"^decimal(128|256)\((\d+), (-?\d+)\)$")
+# fixed_size_binary[w] is stored as the little-endian integer of its
+# width, as in the reference (columns.py ``_np_storage_dtype``): widths 1,
+# 2, 4 and 8 only, the rest are refused where a column is made
+_FIXED_BINARY = re.compile(r"^fixed_size_binary\[(\d+)\]$")
+FIXED_BINARY_WIDTHS = (1, 2, 4, 8)
 NESTED_TYPES = ("list", "large_list", "map", "struct")  # and fixed_size_list[N]
 _FIXED_SIZE_LIST = re.compile(r"^fixed_size_list\[(\d+)\]$")
 
 
 def int_storage(dtype) -> Optional[str]:
     """The numpy storage dtype of a flat integer or temporal alias
-    (a timestamp with any time zone included), else None."""
+    (a timestamp with any time zone included) or of a fixed-size binary
+    of a storable width, else None."""
     dtype = str(dtype)
     got = FLAT_INT_TYPES.get(dtype)
     if got is None and _TIMESTAMP.match(dtype):
         return "<i8"
+    if got is None and fixed_binary_width(dtype) in FIXED_BINARY_WIDTHS:
+        return f"<i{fixed_binary_width(dtype)}"
     return got
+
+
+def fixed_binary_width(dtype) -> Optional[int]:
+    """The byte width of a ``"fixed_size_binary[w]"`` alias, else None."""
+    m = _FIXED_BINARY.match(str(dtype))
+    return None if m is None else int(m.group(1))
 
 
 def fixed_size(dtype) -> Optional[int]:
@@ -93,8 +108,8 @@ _HEADER_SCHEMA = 1  # MessageHeader.Schema
 # Type union ids (Schema.fbs) of the types read in detail; the rest by name
 # (enough to refuse them and to count their leaves)
 _T_INT, _T_FLOAT, _T_BOOL, _T_DECIMAL, _T_DATE = 2, 3, 6, 7, 8
-_T_TIME, _T_TIMESTAMP, _T_LIST, _T_STRUCT, _T_FSL, _T_MAP, _T_DURATION, _T_LARGE_LIST = (
-    9, 10, 12, 13, 16, 17, 18, 21)
+_T_TIME, _T_TIMESTAMP, _T_LIST, _T_STRUCT, _T_FSB, _T_FSL, _T_MAP, _T_DURATION, _T_LARGE_LIST = (
+    9, 10, 12, 13, 15, 16, 17, 18, 21)
 _PRECISIONS = ("float16", "float32", "float64")  # FloatingPoint.precision
 _TYPE_NAMES = {
     1: "null", 4: "binary", 5: "string", 6: "bool",
@@ -246,6 +261,8 @@ def _type_alias(r: _Reader, type_id: int, t: Optional[int]) -> str:
         return f"time{width}[{_UNITS[unit]}]"
     if type_id == _T_FSL:
         return f"fixed_size_list[{r.scalar(t, 0, '<i', 0) if t is not None else 0}]"
+    if type_id == _T_FSB:  # byteWidth
+        return f"fixed_size_binary[{r.scalar(t, 0, '<i', 0) if t is not None else 0}]"
     if type_id == _T_MAP and t is not None and r.scalar(t, 0, "<B", 0):
         return "map[keys_sorted]"
     return _TYPE_NAMES.get(type_id, f"type{type_id}")
@@ -400,7 +417,8 @@ def _writable(f: Field) -> bool:
                     and len(e.children) == 2 and not e.children[0].nullable)
         return n >= 1 if f.dtype == "struct" else n == 1
     return not f.children and (f.dtype in WRITABLE_TYPES or int_storage(f.dtype) is not None
-                               or decimal_params(f.dtype) is not None)
+                               or decimal_params(f.dtype) is not None
+                               or fixed_binary_width(f.dtype) is not None)
 
 
 def _type_table(b: _Builder, f: Field) -> Tuple[int, int]:
@@ -425,6 +443,9 @@ def _type_table(b: _Builder, f: Field) -> Tuple[int, int]:
     size = fixed_size(f.dtype)
     if size is not None:  # listSize
         return _T_FSL, b.table([(0, "<i", size, 0)])
+    width = fixed_binary_width(f.dtype)
+    if width is not None:  # byteWidth
+        return _T_FSB, b.table([(0, "<i", width, 0)])
     if f.dtype.startswith("map"):  # keysSorted (default false)
         return _T_MAP, b.table([(0, "<B", int(f.dtype == "map[keys_sorted]"), 0)])
     if f.dtype in FLAT_FLOAT_TYPES:  # precision (default HALF)
@@ -459,8 +480,8 @@ def _field(b: _Builder, f: Field, depth: int = 0) -> int:
 def schema_to_bytes(fields: Sequence[Field]) -> bytes:
     """Fields → the bare flatbuffers ``Message`` (MetadataVersion V5),
     zero-padded to a multiple of 8 bytes: pyarrow's bytes for the same
-    schema.  Writes :data:`WRITABLE_TYPES`, decimals, the temporal types
-    and the nested types over them."""
+    schema.  Writes :data:`WRITABLE_TYPES`, decimals, the temporal types,
+    fixed-size binaries and the nested types over them."""
     b = _Builder()
     offsets = [_field(b, f) for f in fields]
     schema = b.table([(1, None, b.vector(offsets), None)])

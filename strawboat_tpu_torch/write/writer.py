@@ -45,8 +45,8 @@ from ..errors import NotYetImplementedError, OutOfSpecError
 from ..exec.pruning import ColumnZones, PageZone, compute_zones, zone_trailer
 from ..meta import ColumnMeta, PageMeta, serialize_metas
 from ..schema import (
-    FLAT_FLOAT_TYPES, NULL_TYPE, WRITABLE_TYPES, Field, decimal_params, int_storage,
-    schema_to_bytes,
+    FLAT_FLOAT_TYPES, NULL_TYPE, WRITABLE_TYPES, Field, decimal_params, fixed_binary_width,
+    int_storage, schema_to_bytes,
 )
 from ..util.hybrid_rle import encode_levels, encode_validity_bitpacked, get_bit_width
 from .nested import cum_sums, slice_nested, to_nested, write_levels
@@ -233,6 +233,8 @@ def _prepare(columns: Mapping[str, np.ndarray], schema: Optional[Sequence[Field]
             unit = "ms" if f.dtype == "date64" else re.match(r"\w+\[(\w+)", f.dtype).group(1)
             arr = arr.astype(f"<{kind}8[{unit}]").view(np.int64)
         storage = np.dtype(int_storage(f.dtype))
+        if arr.dtype.kind == "S" and fixed_binary_width(f.dtype) == arr.dtype.itemsize:
+            arr = arr.view(storage)  # fixed-size binaries as their little-endian integers
         if arr.dtype != storage:
             if not np.can_cast(arr.dtype, storage):
                 raise OutOfSpecError(f"column {f.name!r}: {arr.dtype} does not fit {f.dtype}")

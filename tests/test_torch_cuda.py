@@ -585,3 +585,50 @@ def test_nccl_world_of_four_cards(cuda, tmp_path):
         assert_same(got[name], run_case(name, single, inp))
     assert got["resident"]["q6_k1_launches"] == [1] * 4
     assert got["refusals"]["first_shard"] == [0, 2, 4, 6]
+
+
+@pytest.mark.parametrize("flags", [("STRAWBOAT_DICT_COMPRESSION", "STRAWBOAT_BITPACK_COMPRESSION"),
+                                   ("STRAWBOAT_BITPACK_COMPRESSION",)])
+def test_fixed_binary_scan_on_card_equals_plain_scan(cuda, tmp_path, monkeypatch, flags):
+    """fixed_size_binary[1|2|4|8] columns scan on the card (the 4-byte
+    column's pages through K3) to the integers the CPU scan gives, which
+    are the generated ones."""
+    import pyarrow as pa
+
+    from strawboat_tpu_torch.api import write_file
+    from strawboat_tpu_torch.codecs import WriteOptions
+    from strawboat_tpu_torch.exec import Query, col, scan_file
+
+    for f in flags:
+        monkeypatch.setenv(f, "1")
+    rng = np.random.default_rng(4)
+    n = 4 * 65536  # whole pages of 65536 rows: the writer bit-packs multiples of 128
+    ints = {w: rng.integers(0, 1 << min(8 * w - 1, 20), n).astype(f"<i{w}") for w in (1, 2, 4, 8)}
+    table = pa.table({f"w{w}": pa.Array.from_buffers(pa.binary(w), n, [None, pa.py_buffer(v)])
+                      for w, v in ints.items()})
+    path = str(tmp_path / "fixed.str")
+    write_file(path, table, options=WriteOptions(max_page_size=65536))
+    before = bu.bitunpack_natural.launches
+    got = scan_file(path, cuda)
+    torch.cuda.synchronize()
+    assert bu.bitunpack_natural.launches > before
+    plain = scan_file(path, "cpu")
+    for w, v in ints.items():
+        c = got[f"w{w}"]
+        assert c.values.device.type == "cuda" and c.values.element_size() == w
+        assert torch.equal(c.values.cpu(), plain[f"w{w}"].values)
+        np.testing.assert_array_equal(c.values.cpu().numpy(), v)
+    res = Query(path, device=cuda).filter(col("w4") < 1000).agg(c=("count", "w8")).run()
+    assert int(res["c"]) == int((ints[4] < 1000).sum())
+
+
+def test_q1_dense_on_card_equals_cpu(cuda, tmp_path):
+    from strawboat_tpu_torch.benchsuite import tpch
+    from strawboat_tpu_torch.exec import scan_file
+
+    cols = tpch.generate_lineitem(1.0, rows=300_000)
+    path = str(tmp_path / "lineitem.str")
+    tpch.write_lineitem(path, cols)
+    got = tpch.q1_dense(scan_file(path, cuda))
+    assert got.equals(tpch.q1_dense(scan_file(path, "cpu")))
+    assert tpch.q1_table_rows(got) == tpch.q1_numpy_reference(cols)

@@ -535,6 +535,30 @@ def _join_same(got, want):
         _assert_arr(g, w, name)
 
 
+def _valid_pairs(sel) -> list:
+    pi, bi, valid = (np.asarray(x) for x in sel)
+    return list(zip(pi[valid].tolist(), bi[valid].tolist()))
+
+
+def _join_pairs_same(got, want):
+    """The same valid (probe, build) pairs in the same order.  Where the
+    build side has invalid rows the port leaves them out of the sort (the
+    reference sorts them in), so the slots and the fan-out may differ;
+    each probe row's matches keep the reference's order."""
+    assert _valid_pairs(got) == _valid_pairs(want)
+
+
+def _assert_same_groups(got: dict, want: dict):
+    """A grouped result equals the reference's in its ``n_groups`` valid
+    slots; the unused slots hold what the join's invalid slots carried."""
+    assert set(got) == set(want)
+    n = int(want["n_groups"])
+    assert int(got["n_groups"]) == n
+    for k, w in want.items():
+        if k != "n_groups":
+            _assert_arr(got[k][:n], np.asarray(w)[:n], k)
+
+
 def test_hash_join_matches_jax(tmp_path):
     rng = np.random.default_rng(9)
     n, m = 4000, 64
@@ -587,8 +611,9 @@ def test_int32_probe_against_int64_build_and_null_build_keys():
     pm = rng.random(len(probe)) < 0.9
     got = hash_join(pt, bt, on=("k", "id"), probe_mask=torch.from_numpy(pm))
     want = ref_join.hash_join(rpt, rbt, on=("k", "id"), probe_mask=jnp.asarray(pm))
-    _join_same(got, want)
+    _join_pairs_same(got, want)
     pi, bi, valid = (x.numpy() for x in got)
+    assert len(valid) == len(probe)  # the null keys no longer widen the fan-out
     exp = pm & np.isin(probe, bkeys[~null])
     np.testing.assert_array_equal(valid, exp)
     assert (probe[pi[valid]] == bkeys[bi[valid]]).all()
@@ -630,6 +655,44 @@ def test_resident_build_side_padding_never_matches():
     w = build["w"][pos[probe["pk"][hit]]]
     assert int(got["c"].sum()) == int(hit.sum())
     assert int(got["rev"].sum()) == int((probe["v"][hit] * w).sum())
+
+
+def test_small_resident_build_side_joins_at_fan_out_one():
+    """A 300-row resident build side in one tile (``tile=16384``: 32 rows
+    of 16384 lanes), probed with keys that include the value its padding
+    slots decode to: only
+    the valid build rows enter the join's sort, so ``hash_join`` runs at
+    fan-out 1 (the reference grows it to the padding count), and the
+    joined aggregates equal numpy's."""
+    from strawboat_tpu_torch.exec.query import _with_key_validity
+
+    rng = np.random.default_rng(31)
+    m, n = 300, 2000
+    build = {"bk": rng.permutation(m).astype(np.int64) + 5,
+             "w": rng.integers(1, 9, m).astype(np.int64)}
+    brt = make_resident(build, "cpu", tile=16384)
+    assert brt.tiled_slots == 32 * 16384  # one tile
+    bq = Query(brt)
+    bt = bq.scan(device="cpu")
+    pad = np.unique(bt["bk"].values.numpy()[~bq._base_mask.numpy()])
+    assert len(pad) == 1
+    probe = {"pk": np.concatenate([np.full(n // 4, pad[0]),
+                                   rng.integers(0, m + 50, n - n // 4)]).astype(np.int64),
+             "v": rng.integers(0, 100, n).astype(np.int64)}
+    pt = Query(make_resident(probe, "cpu", tile=TILE)).scan(device="cpu")
+    keyed = _with_key_validity(bt, "bk", bq._base_mask)
+    pi, bi, valid = hash_join(pt, keyed, on=("pk", "bk"), max_fanout=1, on_overflow="raise")
+    assert len(valid) == pt.num_rows  # fan-out 1
+    pos = np.full(m + 60, -1)
+    pos[build["bk"]] = np.arange(m)
+    hit = pos[probe["pk"]] >= 0
+    pairs = sorted((int(a), int(b)) for a, b in zip(
+        pt["pk"].values.numpy()[pi[valid].numpy()], bt["bk"].values.numpy()[bi[valid].numpy()]))
+    assert pairs == sorted((int(k), int(k)) for k in probe["pk"][hit])
+    got = Query(make_resident(probe, "cpu", tile=TILE)).join(Query(brt), on=("pk", "bk")).agg(
+        rev=("sum", col("v") * col("w")), c=("count", "v")).run()
+    assert int(got["c"]) == int(hit.sum())
+    assert int(got["rev"]) == int((probe["v"][hit] * build["w"][pos[probe["pk"][hit]]]).sum())
 
 
 # ---------------------------------------------------------------------------
@@ -717,7 +780,7 @@ def test_query_join_group_by_matches_jax(tmp_path):
         .agg(revenue=("sum", ref_expr.col("l_extendedprice") * (100 - ref_expr.col("l_discount"))))
         .run()
     )
-    _assert_same(got, want)
+    _assert_same_groups(got, want)
     ref = tpch.q3_numpy_reference(li, orders)
     assert tpch.q3_rows(got["key_o_orderpriority"], got["n_groups"], got["revenue"]) == ref
     from strawboat_tpu.benchsuite import tpch as ref_tpch

@@ -35,6 +35,9 @@ MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
     for p in PORT.rglob("*.py")
 )
+# the port's examples and scripts (``torch_*.py``)
+CONFIG_SCRIPTS = sorted(str(p.relative_to(ROOT)) for d in ("examples", "scripts")
+                 for p in (ROOT / d).glob("torch_*.py"))
 
 CHILD = """
 import importlib, json, os, sys, tempfile
@@ -194,9 +197,17 @@ def test_port_runs_without_jax_or_pyarrow():
 _REF_IMPORT = re.compile(r"^\s*(from|import)\s+strawboat_tpu(\.|\s|$)")
 
 
+def test_config_scripts_listed():
+    for name in ("examples/torch_tpch_bench.py", "examples/torch_resident_query.py",
+                 "examples/torch_bench_write.py", "scripts/torch_tpch_sf10.py",
+                 "scripts/torch_resident_q1.py", "scripts/torch_dist_sf1_stream.py",
+                 "scripts/torch_scaling_proxy.py", "examples/torch_dist_bench.py"):
+        assert name in CONFIG_SCRIPTS, name
+
+
 @pytest.mark.parametrize(
     "path",
-    sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"],
+    sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"] + CONFIG_SCRIPTS,
 )
 def test_no_import_of_the_jax_package(path):
     for n, line in enumerate((ROOT / path).read_text().splitlines(), 1):
@@ -212,6 +223,12 @@ def test_native_library_path_lies_under_the_port():
         path = pathlib.Path(native.library_path(snappy)).resolve()
         assert path.parent == (PORT / "native" / "build").resolve()
     assert pathlib.Path(native.BUILD).resolve() == (PORT / "native" / "build").resolve()
+
+
+@pytest.mark.parametrize("path", CONFIG_SCRIPTS)
+def test_no_jax_import_in_config_scripts(path):
+    for line in (ROOT / path).read_text().splitlines():
+        assert not re.match(r"^\s*(import|from)\s+jax(\.|\s|$)", line), f"{path}: {line}"
 
 
 @pytest.mark.parametrize("needle", ["import jax", "from jax", "import pyarrow"])
