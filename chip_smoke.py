@@ -235,6 +235,8 @@ import time
 import numpy as np
 import torch
 
+from strawboat_tpu_torch.util import obs
+
 CSRC = "strawboat_tpu_torch/kernels/csrc/"
 PALLAS = "strawboat_tpu/kernels/bitunpack_pallas.py:"
 SF10_ROWS = 60_000_000
@@ -366,10 +368,13 @@ def traced(logdir: str, device, what: str, fn):
 def kernel_launches() -> int:
     """Launches the hand-written kernels' wrappers have counted (K1, K2,
     K0 and K3)."""
-    from strawboat_tpu_torch.kernels import bitunpack as bu
+    return sum(obs.counter(f"k{i}.launches") for i in range(4))
 
-    return (bu.bitunpack_tiled.launches + bu.bitunpack_tiled_unseeded.launches
-            + bu.bitunpack_tmajor.launches + bu.bitunpack_natural.launches)
+
+def kernel_counts(base=None) -> dict:
+    """K1's and K3's launch counters (``util/obs.py``), less ``base``."""
+    now = {"K1": obs.counter("k1.launches"), "K3": obs.counter("k3.launches")}
+    return now if base is None else {k: n - base[k] for k, n in now.items()}
 
 
 def device_ms(calls, reps: int = REPS, warmup: int = 1):
@@ -556,10 +561,10 @@ def _k1_many_checks(rng, device) -> dict:
     from strawboat_tpu_torch.kernels import bitunpack as bu
 
     def check(what, planes, seed, launches):
-        before = (bu.bitunpack_tiled.launches, bu.bitunpack_tiled.planes)
+        before = (obs.counter("k1.launches"), obs.counter("k1.planes"))
         got = bu.bitunpack_tiled_many(planes, seed)
         torch.cuda.synchronize()
-        moved = (bu.bitunpack_tiled.launches - before[0], bu.bitunpack_tiled.planes - before[1])
+        moved = (obs.counter("k1.launches") - before[0], obs.counter("k1.planes") - before[1])
         if moved != (launches, len(planes)):
             raise AssertionError(f"K1 many {what}: launches, planes {moved} != {launches, len(planes)}")
         for i, ((w, b), g) in enumerate(zip(planes, got)):
@@ -687,9 +692,7 @@ def phase_load(cols, device) -> object:
 
 def k1_counts(before=(0, 0)) -> tuple:
     """K1's (launches, planes) counts, less ``before``."""
-    from strawboat_tpu_torch.kernels import bitunpack as bu
-
-    return (bu.bitunpack_tiled.launches - before[0], bu.bitunpack_tiled.planes - before[1])
+    return (obs.counter("k1.launches") - before[0], obs.counter("k1.planes") - before[1])
 
 
 def phase_q6(rt, cols) -> None:
@@ -820,18 +823,17 @@ def phase_scan(paths, cols, device) -> dict:
     from strawboat_tpu_torch.benchsuite import tpch
     from strawboat_tpu_torch.exec import scan_file
     from strawboat_tpu_torch.exec.scan import host_values
-    from strawboat_tpu_torch.kernels import bitunpack as bu
 
     tables = {}
     facts = {}
     for name, path in paths.items():
-        before = bu.bitunpack_natural.launches
+        before = obs.counter("k3.launches")
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         table = scan_file(path, device=device)
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
-        launched = bu.bitunpack_natural.launches - before
+        launched = obs.counter("k3.launches") - before
         if launched <= 0:
             raise AssertionError(f"scan of the {name} file did not launch K3")
         for k in tpch.INT_COLUMNS:
@@ -1144,7 +1146,6 @@ def phase_lineitem_full(cols, tmpdir, device) -> str:
     from strawboat_tpu_torch.benchsuite import tpch
     from strawboat_tpu_torch.exec import load_resident, scan_file
     from strawboat_tpu_torch.exec.scan import _open, page_keep_mask
-    from strawboat_tpu_torch.kernels import bitunpack as bu
 
     torch.cuda.reset_peak_memory_stats()
     path = os.path.join(tmpdir, "lineitem_full.str")
@@ -1155,18 +1156,18 @@ def phase_lineitem_full(cols, tmpdir, device) -> str:
                        "columns": len(metas), "pages_per_column": len(metas[0].pages)}}
 
     strings = ("l_returnflag", "l_linestatus", "l_shipmode")
-    before = bu.bitunpack_natural.launches
+    before = obs.counter("k3.launches")
     table = scan_file(path, device)
-    facts["scan"] = {"k3_launches": bu.bitunpack_natural.launches - before}
+    facts["scan"] = {"k3_launches": obs.counter("k3.launches") - before}
     for k in tpch.LINEITEM_COLUMNS:
         if not np.array_equal(_host_column(table[k]), cols[k]):
             raise AssertionError(f"scanned column {k} of the full file != the generated column")
     facts["scan"]["dictionaries"] = {k: [v.decode() for v in table[k].dictionary] for k in strings}
     del table
-    before = bu.bitunpack_natural.launches
+    before = obs.counter("k3.launches")
     strings_only = scan_file(path, device, columns=strings)
     torch.cuda.synchronize()
-    facts["scan"]["k3_launches_string_index_pages"] = bu.bitunpack_natural.launches - before
+    facts["scan"]["k3_launches_string_index_pages"] = obs.counter("k3.launches") - before
     del strings_only
     facts["scan"].update(equal_to_numpy=True, warm_median_ms=wall_ms(
         lambda: scan_file(path, device), reps=SCAN_REPS))
@@ -1375,13 +1376,12 @@ def _write_typed(path, cols, flags, money) -> dict:
 
 def _timed_scan(path, device, **scan):
     from strawboat_tpu_torch.exec import scan_file
-    from strawboat_tpu_torch.kernels import bitunpack as bu
 
-    before = bu.bitunpack_natural.launches
+    before = obs.counter("k3.launches")
     t0 = time.perf_counter()
     table = scan_file(path, device, **scan)
     torch.cuda.synchronize()
-    return table, time.perf_counter() - t0, bu.bitunpack_natural.launches - before
+    return table, time.perf_counter() - t0, obs.counter("k3.launches") - before
 
 
 def phase_lineitem_typed(cols, tmpdir, device):
@@ -1543,7 +1543,6 @@ def phase_nested(tmpdir, device, seed: int = SEED) -> tuple:
     from strawboat_tpu_torch.exec.aggregate import list_segment_sum
     from strawboat_tpu_torch.exec.pruning import Comparison
     from strawboat_tpu_torch.exec.scan import DeviceTable, _open, page_keep_mask, scan_chunks
-    from strawboat_tpu_torch.kernels import bitunpack as bu
     from strawboat_tpu_torch.write import write_file
 
     torch.cuda.reset_peak_memory_stats()
@@ -1569,14 +1568,14 @@ def phase_nested(tmpdir, device, seed: int = SEED) -> tuple:
 
     scans = []
     for i in range(2):  # cold, then warm; the warm table stays for the queries
-        before = bu.bitunpack_natural.launches
+        before = obs.counter("k3.launches")
         with _timed_levels() as levels:
             t0 = time.perf_counter()
             table = scan_file(path, device)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
         scans.append({"seconds": seconds, "level_host_s": levels["seconds"],
-                      "k3_launches": bu.bitunpack_natural.launches - before})
+                      "k3_launches": obs.counter("k3.launches") - before})
         if i == 0:
             _check_nested_scan(table, orders, li, offsets, device)
             del table
@@ -1627,10 +1626,10 @@ def phase_nested(tmpdir, device, seed: int = SEED) -> tuple:
     rt = load_resident(path, device, columns=["o_orderkey", "o_lineprices", "o_lineitems"])
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    before = bu.bitunpack_tiled.launches
+    before = obs.counter("k1.launches")
     if not np.array_equal(rt.list_sum("o_lineprices").cpu().numpy(), want_sums):
         raise AssertionError("list_sum(o_lineprices) over load_resident != numpy")
-    if bu.bitunpack_tiled.launches == before:
+    if obs.counter("k1.launches") == before:
         raise AssertionError("list_sum did not launch K1")
     item = rt["o_lineitems"].child.children
     for k in tpch.NESTED_LINEITEM:
@@ -1741,7 +1740,6 @@ def phase_adaptive(cols, tmpdir, device) -> dict:
     from strawboat_tpu_torch.exec import scan_file
     from strawboat_tpu_torch.exec.pruning import Comparison
     from strawboat_tpu_torch.exec.scan import DeviceColumn, DeviceTable, _open, page_keep_mask
-    from strawboat_tpu_torch.kernels import bitunpack as bu
     from strawboat_tpu_torch.write.device import write_device_table
 
     torch.cuda.reset_peak_memory_stats()
@@ -1760,12 +1758,12 @@ def phase_adaptive(cols, tmpdir, device) -> dict:
 
     runs = []
     for i in range(2):  # cold, then warm; the warm table stays for the re-encode
-        before = bu.bitunpack_natural.launches
+        before = obs.counter("k3.launches")
         t0 = time.perf_counter()
         table = scan_file(path, device)
         torch.cuda.synchronize()
         runs.append({"seconds": time.perf_counter() - t0,
-                     "k3_launches": bu.bitunpack_natural.launches - before})
+                     "k3_launches": obs.counter("k3.launches") - before})
         if i == 0:
             _check_columns("adaptive file", table, {k: cols[k] for k in tpch.LINEITEM_COLUMNS})
             del table
@@ -1807,11 +1805,11 @@ def phase_adaptive(cols, tmpdir, device) -> dict:
 
     perm = np.argsort(cols["l_suppkey"], kind="stable")
     want = {k: cols[k][perm] for k in tpch.LINEITEM_COLUMNS}
-    before = bu.bitunpack_natural.launches
+    before = obs.counter("k3.launches")
     t0 = time.perf_counter()
     table = scan_file(path2, device)
     torch.cuda.synchronize()
-    launched = bu.bitunpack_natural.launches - before
+    launched = obs.counter("k3.launches") - before
     if launched <= 0:
         raise AssertionError("the scan of the device-written file did not launch K3")
     _check_columns("device-written file", table, want)
@@ -1870,7 +1868,6 @@ def phase_dataset(cols, tmpdir, device):
     from strawboat_tpu_torch.exec import Query, col, load_resident, make_resident
     from strawboat_tpu_torch.exec import dataset as ds
     from strawboat_tpu_torch.exec.scan import _open, page_keep_mask
-    from strawboat_tpu_torch.kernels import bitunpack as bu
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1892,12 +1889,12 @@ def phase_dataset(cols, tmpdir, device):
 
     runs = []
     for i in range(2):  # cold, then warm
-        before = bu.bitunpack_natural.launches
+        before = obs.counter("k3.launches")
         t0 = time.perf_counter()
         table = ds.scan_dataset(glob, device)
         torch.cuda.synchronize()
         runs.append({"seconds": time.perf_counter() - t0,
-                     "k3_launches": bu.bitunpack_natural.launches - before})
+                     "k3_launches": obs.counter("k3.launches") - before})
         if i == 0:
             _check_columns("dataset scan", table, data)
         del table
@@ -2393,7 +2390,6 @@ def multiprocess_rank(rank: int, spec: dict) -> None:
     ``rank<r>.json`` in ``spec["out"]``."""
     from strawboat_tpu_torch import parallel as par
     from strawboat_tpu_torch.exec import load_resident
-    from strawboat_tpu_torch.kernels import bitunpack as bu
     from strawboat_tpu_torch.parallel.collectives import record_exchanges
 
     device = torch.device(spec["device"])
@@ -2405,7 +2401,7 @@ def multiprocess_rank(rank: int, spec: dict) -> None:
     facts = {"rank": rank, "first_shard": first, "shards": len(mesh.axis_devices("shards"))}
     rt, facts["load_s"] = _timed(lambda: load_resident(spec["full_path"], device,
                                                        columns=list(RANK_COLUMNS)), device)
-    k3_load = bu.bitunpack_natural.launches
+    k3_load = obs.counter("k3.launches")
     srt = par.shard_resident(rt, mesh, "shards")
     del rt
     before = k1_counts()
@@ -2429,9 +2425,9 @@ def multiprocess_rank(rank: int, spec: dict) -> None:
     facts["q6_ms"] = statistics.median(times[1:])
     del srt
 
-    k3 = bu.bitunpack_natural.launches
+    k3 = obs.counter("k3.launches")
     dt, facts["scan_s"] = _timed(lambda: par.distributed_scan(spec["dict_path"], mesh), device)
-    facts["scan_k3"] = bu.bitunpack_natural.launches - k3
+    facts["scan_k3"] = obs.counter("k3.launches") - k3
     _same_scan(f"rank {rank}: distributed scan", dt, spec["dict_scan"], first)
     res, facts["aggregate_s"] = _timed(lambda: _suppkey_aggregate(par, mesh, dt), device)
     facts["aggregate_groups"] = _same_aggregate(f"rank {rank}: distributed aggregate", res,
@@ -2443,15 +2439,15 @@ def multiprocess_rank(rank: int, spec: dict) -> None:
     facts["aggregate_exchange"] = _exchanges(recs)
     del dt, res
 
-    k3 = bu.bitunpack_natural.launches
+    k3 = obs.counter("k3.launches")
     dd, facts["dataset_scan_s"] = _timed(
         lambda: par.distributed_scan_dataset(spec["dataset_paths"], mesh), device)
-    facts["dataset_scan_k3"] = bu.bitunpack_natural.launches - k3
+    facts["dataset_scan_k3"] = obs.counter("k3.launches") - k3
     _same_scan(f"rank {rank}: distributed dataset scan", dd, spec["dataset_scan"], first)
     facts["rows_per_shard"] = [int(v.sum()) for v in dd["__valid__"].values.shards]
     del dd
-    facts["k1_launches"] = bu.bitunpack_tiled.launches
-    facts["k3_launches"] = bu.bitunpack_natural.launches
+    facts["k1_launches"] = obs.counter("k1.launches")
+    facts["k3_launches"] = obs.counter("k3.launches")
     facts["k3_load_launches"] = k3_load
     torch.distributed.destroy_process_group()
     facts["seconds"] = time.perf_counter() - started
@@ -2482,7 +2478,6 @@ def phase_multiprocess(rt, cols, paths, o_path, full_path, dataset_paths, answer
     ranks')."""
     from strawboat_tpu_torch import parallel as par
     from strawboat_tpu_torch.benchsuite import tpch
-    from strawboat_tpu_torch.kernels import bitunpack as bu
     from strawboat_tpu_torch.parallel.collectives import record_exchanges
 
     started = time.perf_counter()
@@ -2491,7 +2486,7 @@ def phase_multiprocess(rt, cols, paths, o_path, full_path, dataset_paths, answer
     suppkey_sums = _suppkey_sums(cols)
 
     # (a) a world of one process
-    launches = (bu.bitunpack_tiled.launches, bu.bitunpack_natural.launches)
+    launches = (obs.counter("k1.launches"), obs.counter("k3.launches"))
     par.distributed_init(f"file://{os.path.join(tmpdir, 'world_of_one')}", 1, 0, device,
                          timeout=WORLD_TIMEOUT_S)
     try:
@@ -2549,8 +2544,8 @@ def phase_multiprocess(rt, cols, paths, o_path, full_path, dataset_paths, answer
         del dt, ot
     finally:
         torch.distributed.destroy_process_group()
-    one["launches"] = {"K1": bu.bitunpack_tiled.launches - launches[0],
-                       "K3": bu.bitunpack_natural.launches - launches[1]}
+    one["launches"] = {"K1": obs.counter("k1.launches") - launches[0],
+                       "K3": obs.counter("k3.launches") - launches[1]}
     facts["world_of_one"] = one
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -2681,7 +2676,6 @@ def phase_port_close(full_path, cols, tmpdir, device) -> dict:
     from strawboat_tpu_torch.errors import NotYetImplementedError
     from strawboat_tpu_torch.exec import Query, col, load_resident, scan_file
     from strawboat_tpu_torch.exec.scan import k3_launch_groups
-    from strawboat_tpu_torch.kernels import bitunpack as bu
     from strawboat_tpu_torch.schema import Field, list_of
     from strawboat_tpu_torch.write import write_file
 
@@ -2723,12 +2717,12 @@ def phase_port_close(full_path, cols, tmpdir, device) -> dict:
         groups = {}
         for name, key, pages, _words in k3_launch_groups(p):
             groups.setdefault(name, []).append([int(key[1]), len(pages)])
-        before = bu.bitunpack_natural.launches
+        before = obs.counter("k3.launches")
         t0 = time.perf_counter()
         table = scan_file(p, device)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = bu.bitunpack_natural.launches - before
+        launches = obs.counter("k3.launches") - before
         for k, w in widths.items():
             c = table[k]
             if c.values.device.type != device.type or c.values.element_size() != w \
@@ -2903,9 +2897,8 @@ def phase_k2_k0(path: str, shipdate: np.ndarray, device, seed: int) -> dict:
         w3 = torch.from_numpy(bu.transpose_words_host_tiled(flat, b).view(np.int32)).to(device)
         wt = torch.from_numpy(bu.transpose_words_host(flat, b).view(np.int32)).to(device)
         inputs.append((b, want, w3, wt))
-    # the K2 / K0 path: counts from 0
-    bu.bitunpack_tiled_unseeded.launches = 0
-    bu.bitunpack_tmajor.launches = 0
+    # the K2 / K0 path: its own launches
+    base = {k: obs.counter(k) for k in ("k2.launches", "k0.launches")}
     for b, want, w3, wt in inputs:
         n = len(want)
         k2 = bu.bitunpack_tiled_to_flat(bu.bitunpack_tiled_unseeded(w3, b))[:n]
@@ -2913,7 +2906,8 @@ def phase_k2_k0(path: str, shipdate: np.ndarray, device, seed: int) -> dict:
         for name, got in (("K2", k2), ("K0", k0)):
             if not np.array_equal(got.cpu().numpy(), want):
                 raise AssertionError(f"{name} path over l_shipdate b={b} != the generated column")
-    launches = {"K2": bu.bitunpack_tiled_unseeded.launches, "K0": bu.bitunpack_tmajor.launches}
+    launches = {"K2": obs.counter("k2.launches") - base["k2.launches"],
+                "K0": obs.counter("k0.launches") - base["k0.launches"]}
     if min(launches.values()) <= 0:
         raise AssertionError(f"the K2/K0 path did not launch both kernels: {launches}")
     times = {k: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
@@ -3000,9 +2994,12 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    _build.load_all(["bitunpack", "bitunpack_natural"])
+    with obs.recording() as built:
+        _build.load_all(["bitunpack", "bitunpack_natural"])
     emit("build", kernels=["bitunpack", "bitunpack_natural"], seconds=time.perf_counter() - t0,
-         compile_seconds=dict(_build.build_seconds), nvcc=_build.nvcc_path())
+         compile_seconds={s.attrs["kernel"]: s.seconds
+                          for s in built.spans("strawboat.kernel.build")},
+         nvcc=_build.nvcc_path())
 
     k1 = phase_kernel(device, SEED, bu.TILE3D)
     k3 = phase_kernel_natural(device, SEED)
@@ -3018,32 +3015,31 @@ def main() -> int:
     k1_tiles = tiles.enter_context(k1_plane_tiles())
 
     # the resident path: count only its launches
-    bu.bitunpack_tiled.launches = 0
+    base = kernel_counts()
     rt = phase_load(cols, device)
     phase_q6(rt, cols)
     phase_q1(rt, cols)
-    k1_launches = bu.bitunpack_tiled.launches
+    k1_launches = kernel_counts(base)["K1"]
     if k1_launches <= 0:
         raise AssertionError("the resident path never launched K1")
     phase_s["resident"] = time.perf_counter() - started
 
     with tempfile.TemporaryDirectory() as tmpdir:
         # the scan path: count only its launches
-        bu.bitunpack_natural.launches = 0
+        base = kernel_counts()
         paths = phase_write(cols, tmpdir)
         tables = phase_scan(paths, cols, device)
         phase_q6_scan(tables, cols)
-        k3_launches = bu.bitunpack_natural.launches
+        k3_launches = kernel_counts(base)["K3"]
         if k3_launches <= 0:
             raise AssertionError("the scan path never launched K3")
         del tables
         torch.cuda.empty_cache()
         phase_s["scan"] = time.perf_counter() - started
         # the general path: count only its launches
-        bu.bitunpack_tiled.launches = 0
-        bu.bitunpack_natural.launches = 0
+        base = kernel_counts()
         o_path, scan_rt = phase_general(paths, cols, rt, tmpdir, device)
-        general = {"K1": bu.bitunpack_tiled.launches, "K3": bu.bitunpack_natural.launches}
+        general = kernel_counts(base)
         if min(general.values()) <= 0:
             raise AssertionError(f"the general path did not launch K1 and K3: {general}")
         k1_launches += general["K1"]
@@ -3051,10 +3047,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_s["general"] = time.perf_counter() - started
         # the whole lineitem file: count only its launches
-        bu.bitunpack_tiled.launches = 0
-        bu.bitunpack_natural.launches = 0
+        base = kernel_counts()
         full_path = phase_lineitem_full(cols, tmpdir, device)
-        full = {"K1": bu.bitunpack_tiled.launches, "K3": bu.bitunpack_natural.launches}
+        full = kernel_counts(base)
         if min(full.values()) <= 0:
             raise AssertionError(f"the lineitem_full path did not launch K1 and K3: {full}")
         k1_launches += full["K1"]
@@ -3062,20 +3057,19 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_s["lineitem_full"] = time.perf_counter() - started
         # the file-format API over the same file: count only its launches
-        bu.bitunpack_natural.launches = 0
+        base = kernel_counts()
         phase_file_api(full_path, cols, tmpdir, device)
-        file_api = {"K3": bu.bitunpack_natural.launches}
+        file_api = {"K3": kernel_counts(base)["K3"]}
         if file_api["K3"] <= 0:
             raise AssertionError("the file_api path never launched K3")
         k3_launches += file_api["K3"]
         torch.cuda.empty_cache()
         phase_s["file_api"] = time.perf_counter() - started
         # the typed lineitem files: count only their launches
-        bu.bitunpack_tiled.launches = 0
-        bu.bitunpack_natural.launches = 0
+        base = kernel_counts()
         typed_paths, float_rt = phase_lineitem_typed(
             {k: np.ascontiguousarray(v[::TYPED_STRIDE]) for k, v in cols.items()}, tmpdir, device)
-        typed = {"K1": bu.bitunpack_tiled.launches, "K3": bu.bitunpack_natural.launches}
+        typed = kernel_counts(base)
         if min(typed.values()) <= 0:
             raise AssertionError(f"the lineitem_typed path did not launch K1 and K3: {typed}")
         k1_launches += typed["K1"]
@@ -3083,10 +3077,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_s["lineitem_typed"] = time.perf_counter() - started
         # the nested orders file: count only its launches
-        bu.bitunpack_tiled.launches = 0
-        bu.bitunpack_natural.launches = 0
+        base = kernel_counts()
         nested_path, nested_rt = phase_nested(tmpdir, device)
-        nested = {"K1": bu.bitunpack_tiled.launches, "K3": bu.bitunpack_natural.launches}
+        nested = kernel_counts(base)
         if min(nested.values()) <= 0:
             raise AssertionError(f"the nested path did not launch K1 and K3: {nested}")
         k1_launches += nested["K1"]
@@ -3094,20 +3087,19 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_s["nested"] = time.perf_counter() - started
         # the adaptive write path: count only its launches
-        bu.bitunpack_natural.launches = 0
+        base = kernel_counts()
         adaptive_paths = phase_adaptive({k: v[:ADAPTIVE_ROWS] for k, v in cols.items()}, tmpdir,
                                         device)
-        adaptive = {"K3": bu.bitunpack_natural.launches}
+        adaptive = {"K3": kernel_counts(base)["K3"]}
         if adaptive["K3"] <= 0:
             raise AssertionError("the adaptive path never launched K3")
         k3_launches += adaptive["K3"]
         torch.cuda.empty_cache()
         phase_s["adaptive"] = time.perf_counter() - started
         # the dataset path: count only its launches
-        bu.bitunpack_tiled.launches = 0
-        bu.bitunpack_natural.launches = 0
+        base = kernel_counts()
         dataset_paths, dataset_rt, sorted_cols = phase_dataset(cols, tmpdir, device)
-        dataset = {"K1": bu.bitunpack_tiled.launches, "K3": bu.bitunpack_natural.launches}
+        dataset = kernel_counts(base)
         if min(dataset.values()) <= 0:
             raise AssertionError(f"the dataset path did not launch K1 and K3: {dataset}")
         k1_launches += dataset["K1"]
@@ -3115,11 +3107,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_s["dataset"] = time.perf_counter() - started
         # the multi-device path: count only its launches
-        bu.bitunpack_tiled.launches = 0
-        bu.bitunpack_natural.launches = 0
+        base = kernel_counts()
         srt, answers = phase_multidevice(rt, cols, paths, o_path, dataset_paths, sorted_cols,
                                          tmpdir, device)
-        multi = {"K1": bu.bitunpack_tiled.launches, "K3": bu.bitunpack_natural.launches}
+        multi = kernel_counts(base)
         if min(multi.values()) <= 0:
             raise AssertionError(f"the multidevice path did not launch K1 and K3: {multi}")
         k1_launches += multi["K1"]
@@ -3128,8 +3119,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_s["multidevice"] = time.perf_counter() - started
         # the mesh across processes: this process's launches and its ranks'
-        bu.bitunpack_tiled.launches = 0
-        bu.bitunpack_natural.launches = 0
+        base = kernel_counts()
         multiprocess = phase_multiprocess(rt, cols, paths, o_path, full_path, dataset_paths,
                                           answers, tmpdir, device)
         if min(multiprocess.values()) <= 0:
@@ -3141,11 +3131,9 @@ def main() -> int:
         phase_s["multiprocess"] = time.perf_counter() - started
         # the port's last slice (fixed-size binaries, q1_dense, the config
         # 4 and 5 scripts): this process's launches and its scripts'
-        bu.bitunpack_tiled.launches = 0
-        bu.bitunpack_natural.launches = 0
+        base = kernel_counts()
         fixed_paths, closing = phase_port_close(full_path, cols, tmpdir, device)
-        port_close = {"K1": bu.bitunpack_tiled.launches + closing["script_launches"]["K1"],
-                      "K3": bu.bitunpack_natural.launches + closing["script_launches"]["K3"]}
+        port_close = {k: n + closing["script_launches"][k] for k, n in kernel_counts(base).items()}
         if min(port_close.values()) <= 0:
             raise AssertionError(f"the port_close path did not launch K1 and K3: {port_close}")
         k1_launches += port_close["K1"]

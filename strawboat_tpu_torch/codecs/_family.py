@@ -32,7 +32,7 @@ import numpy as np
 from .. import native
 from ..constants import SAMPLE_COUNT, SAMPLE_SIZE, Compression, get_bits_needed
 from ..errors import OutOfSpecError
-from ..util import roaring
+from ..util import obs, roaring
 
 MIN_DICT_RATIO = 3
 
@@ -472,7 +472,9 @@ def sample_stats(stats: FamilyStats, rng: np.random.Generator) -> FamilyStats:
 def compress_sample_ratio(codec_compress: Callable, stats: FamilyStats,
                           rng: np.random.Generator) -> float:
     """The trial ratio of a codec: the sample's bytes over its encoded
-    size (the sample's own size when the codec refuses it)."""
+    size (the sample's own size when the codec refuses it); counts in
+    ``write.trials``."""
+    obs.count("write.trials")
     s = sample_stats(stats, rng)
     try:
         size = len(codec_compress(s.values, s.validity))

@@ -35,6 +35,7 @@ import numpy as np
 from ..constants import Compression, get_bits_needed
 from ..errors import OutOfSpecError
 from ..util import env, roaring
+from ..util import obs
 from ..util.obs import log_codec_choice
 from . import WriteOptions, compress, decompress_raw, read_header, write_header
 from ._family import MIN_DICT_RATIO, _top_is_null, factorize_first_occurrence
@@ -281,9 +282,18 @@ def compress_binary(
     if options.default_compress_ratio is None and not (env.check_freq_env() or env.check_dict_env()):
         codec = options.default_compression
     else:
-        stats = gen_stats(col, validity, large)
-        codec = choose_compressor(stats, options)
+        with obs.span("strawboat.write.stats"):
+            stats = gen_stats(col, validity, large)
+        with obs.span("strawboat.write.choose"):
+            codec = choose_compressor(stats, options)
     log_codec_choice("binary", codec)
+    with obs.span("strawboat.write.encode"):
+        return _encode(codec, col, validity, options, stats, large)
+
+
+def _encode(codec: Compression, col: BinaryColumn, validity: Optional[np.ndarray],
+            options: WriteOptions, stats, large: bool) -> bytes:
+    """Header(s) + body of a page under ``codec``."""
     if codec.raw_mode:
         # two blocks: the zero-based offsets, then the page's bytes
         offs = (col.offsets - col.offsets[0]).astype("<i8" if large else "<i4").tobytes()

@@ -21,6 +21,7 @@ import numpy as np
 from ..constants import SAMPLE_COUNT, SAMPLE_SIZE, Compression
 from ..errors import OutOfSpecError
 from ..util import env
+from ..util import obs
 from ..util.obs import log_codec_choice
 from . import WriteOptions, compress, decompress_raw, read_header, write_header
 from ._family import one_value_encode as _one_value_encode, rle_encode
@@ -86,6 +87,7 @@ def _rle_ratio(stats: BooleanStats, rng: np.random.Generator) -> float:
         total = len(values) // 8
     else:
         total = stats.total_bytes
+    obs.count("write.trials")
     size = len(rle_bool_encode(values, validity))
     return total / size if size else float(total)
 
@@ -114,17 +116,21 @@ def compress_boolean(values: np.ndarray, validity: Optional[np.ndarray], options
     if options.default_compress_ratio is None and not env.check_rle_env():
         codec = options.default_compression
     else:
-        codec = choose_compressor(gen_stats(values, validity), options)
+        with obs.span("strawboat.write.stats"):
+            stats = gen_stats(values, validity)
+        with obs.span("strawboat.write.choose"):
+            codec = choose_compressor(stats, options)
     log_codec_choice("boolean", codec)
-    if codec.raw_mode:
-        body = compress(codec, np.packbits(values.astype(np.uint8), bitorder="little").tobytes())
-    elif codec == Compression.RLE:
-        body = rle_bool_encode(values, validity)
-    elif codec == Compression.ONE_VALUE:
-        body = one_value_encode(values, validity)
-    else:
-        raise OutOfSpecError(f"unknown boolean codec {codec}")
-    return write_header(codec, len(body), len(values)) + body
+    with obs.span("strawboat.write.encode"):
+        if codec.raw_mode:
+            body = compress(codec, np.packbits(values.astype(np.uint8), bitorder="little").tobytes())
+        elif codec == Compression.RLE:
+            body = rle_bool_encode(values, validity)
+        elif codec == Compression.ONE_VALUE:
+            body = one_value_encode(values, validity)
+        else:
+            raise OutOfSpecError(f"unknown boolean codec {codec}")
+        return write_header(codec, len(body), len(values)) + body
 
 
 def rle_decode(buf, body: int, length: int) -> np.ndarray:

@@ -28,7 +28,7 @@ import numpy as np
 
 from ..constants import Compression, get_bits_needed
 from ..errors import OutOfSpecError
-from ..util import env, roaring
+from ..util import env, obs, roaring
 from . import WriteOptions, compress, decompress_raw, read_header, write_header
 from ._family import MIN_DICT_RATIO, factorize_first_occurrence
 from .integer import compress_integer, decompress_integer, parse_rle
@@ -191,6 +191,7 @@ def choose_compressor(values: np.ndarray, validity: Optional[np.ndarray],
         if r > max_ratio:
             max_ratio, result = r, Compression.DICT
     if Compression.RLE not in forbidden and n:
+        obs.count("write.trials")
         size = len(rle_encode(values, validity))
         r = n * width / size if size else float(n)
         if r > max_ratio:
@@ -199,21 +200,25 @@ def choose_compressor(values: np.ndarray, validity: Optional[np.ndarray],
 
 
 def compress_decimal(values: np.ndarray, validity: Optional[np.ndarray], options: WriteOptions) -> bytes:
-    """Header + body of one page of an ``(n, W)`` byte matrix."""
-    codec = choose_compressor(values, validity, options)
-    if codec.raw_mode:
-        body = compress(codec, np.ascontiguousarray(values).tobytes())
-    elif codec == Compression.RLE:
-        body = rle_encode(values, validity)
-    elif codec == Compression.DICT:
-        body = dict_encode(values, validity, options)
-    elif codec == Compression.ONE_VALUE:
-        body = one_value_encode(values, validity)
-    elif codec == Compression.FREQ:
-        body = freq_encode(values, validity, options)
-    else:
-        raise OutOfSpecError(f"unknown decimal codec {codec}")
-    return write_header(codec, len(body), values.shape[0] * values.shape[1]) + body
+    """Header + body of one page of an ``(n, W)`` byte matrix (its stats
+    are taken inside the chooser: spans ``strawboat.write.choose`` and
+    ``.encode``)."""
+    with obs.span("strawboat.write.choose"):
+        codec = choose_compressor(values, validity, options)
+    with obs.span("strawboat.write.encode"):
+        if codec.raw_mode:
+            body = compress(codec, np.ascontiguousarray(values).tobytes())
+        elif codec == Compression.RLE:
+            body = rle_encode(values, validity)
+        elif codec == Compression.DICT:
+            body = dict_encode(values, validity, options)
+        elif codec == Compression.ONE_VALUE:
+            body = one_value_encode(values, validity)
+        elif codec == Compression.FREQ:
+            body = freq_encode(values, validity, options)
+        else:
+            raise OutOfSpecError(f"unknown decimal codec {codec}")
+        return write_header(codec, len(body), values.shape[0] * values.shape[1]) + body
 
 
 # ---------------------------------------------------------------------------

@@ -36,6 +36,7 @@ from .. import native
 from ..constants import Compression
 from ..errors import OutOfSpecError
 from ..util import env
+from ..util import obs
 from ..util.obs import log_codec_choice
 from . import WriteOptions, decompress_raw, read_header, write_header
 from ._family import (
@@ -198,13 +199,16 @@ def compress_double(
     if options.default_compress_ratio is None and not _any_flag():
         stats, codec = None, options.default_compression
     else:
-        stats = gen_stats(values, validity)
-        codec = choose_compressor(stats, options)
+        with obs.span("strawboat.write.stats"):
+            stats = gen_stats(values, validity)
+        with obs.span("strawboat.write.choose"):
+            codec = choose_compressor(stats, options)
     log_codec_choice("double", codec)
-    if codec.raw_mode:
-        return frame_raw(codec, values)
-    body = _codec_compress(codec, values, validity, stats, options)
-    return write_header(codec, len(body), len(values) * values.dtype.itemsize) + body
+    with obs.span("strawboat.write.encode"):
+        if codec.raw_mode:
+            return frame_raw(codec, values)
+        body = _codec_compress(codec, values, validity, stats, options)
+        return write_header(codec, len(body), len(values) * values.dtype.itemsize) + body
 
 
 

@@ -26,6 +26,7 @@ from ..constants import Compression
 from ..errors import OutOfSpecError
 from ..util import env, roaring
 from ..util.bits import BLOCK_LEN, pack_blocks, unpack_blocks
+from ..util import obs
 from ..util.obs import log_codec_choice
 from . import WriteOptions, compress, decompress_raw, read_header, write_header
 from ._family import (
@@ -204,17 +205,21 @@ def compress_integer(
     values: np.ndarray, validity: Optional[np.ndarray], options: WriteOptions
 ) -> bytes:
     """Header + body of one integer page.  Without a ratio and a flag the
-    default codec wins and no stats are taken."""
+    default codec wins and no stats are taken.  Spans
+    ``strawboat.write.stats``, ``.choose`` and ``.encode``."""
     if options.default_compress_ratio is None and not _any_flag():
         stats, codec = None, options.default_compression
     else:
-        stats = gen_stats(values, validity)
-        codec = choose_compressor(stats, options)
+        with obs.span("strawboat.write.stats"):
+            stats = gen_stats(values, validity)
+        with obs.span("strawboat.write.choose"):
+            codec = choose_compressor(stats, options)
     log_codec_choice("integer", codec)
-    if codec.raw_mode:
-        return frame_raw(codec, values)
-    body = _codec_compress(codec, values, validity, stats, options)
-    return write_header(codec, len(body), len(values) * values.dtype.itemsize) + body
+    with obs.span("strawboat.write.encode"):
+        if codec.raw_mode:
+            return frame_raw(codec, values)
+        body = _codec_compress(codec, values, validity, stats, options)
+        return write_header(codec, len(body), len(values) * values.dtype.itemsize) + body
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,7 @@ import torch
 
 from ..device import as_device
 from ..errors import OutOfSpecError
+from ..util import obs
 from .aggregate import (
     dense_group_count,
     dense_group_sum,
@@ -214,7 +215,73 @@ class Query:
     def _try_run_resident_fused(self):
         """Grouped aggregate over a resident source, or None when the query
         shape does not fit (a key that is not a dictionary column, more than
-        4096 composite groups, another aggregate function)."""
+        4096 composite groups, another aggregate function).  A
+        ``strawboat.query`` root span (``path="fused"``) with ``.plan``,
+        ``.decode`` (K1 and the planes combined into values), ``.filter``,
+        ``.aggregate`` (group codes and the dense sums), ``.fetch`` (the
+        two stacks to the host) and ``.finish`` (the host's result and
+        order-by)."""
+        rt = self.path
+        with obs.span("strawboat.query", path="fused"):
+            with obs.span("strawboat.query.plan"):
+                plan = self._fused_plan()
+            if plan is None:
+                return None
+            keys, cap, strides, names = plan
+            agg_items = list(self._aggs.items())
+            with obs.span("strawboat.query.decode", device=rt.device):
+                table, key_codes = _fused_decode(rt, names, keys)
+            with obs.span("strawboat.query.filter"):
+                m = rt.mask_tiled()
+                if self._filter is not None:
+                    m = m & self._filter.mask(table)
+            with obs.span("strawboat.query.aggregate", device=rt.device):
+                code = torch.zeros(rt.tiled_slots, dtype=torch.int64, device=rt.device)
+                for k, st in zip(keys, strides):
+                    code = code + key_codes[k].long() * int(st)
+                code32 = code.to(torch.int32)
+                cnt = dense_group_count(code32, cap, m)
+                outs = [cnt if fn == "count" else _fused_agg(fn, c, table, code, code32, cap, m)
+                        for _name, (fn, c) in agg_items]
+            with obs.span("strawboat.query.fetch"):
+                # two host copies: one int64 stack, one float64 stack
+                int_rows, flt_rows, out_slot = [cnt], [], []
+                for o in outs:
+                    if o.is_floating_point():
+                        out_slot.append(("f", len(flt_rows)))
+                        flt_rows.append(o.double())
+                    else:
+                        out_slot.append(("i", len(int_rows)))
+                        int_rows.append(o.long())
+                ints = torch.stack(int_rows).cpu().numpy()
+                flts = torch.stack(flt_rows).cpu().numpy() if flt_rows else np.zeros((0, cap))
+            with obs.span("strawboat.query.finish"):
+                live = np.flatnonzero(ints[0] > 0)
+                # the ungrouped shape keeps its one group even when it is empty
+                valid = live if keys else np.arange(1)
+                res = {"n_groups": np.int64(len(live)), "keys": valid.astype(np.uint64)}
+                # composite codes → per-key values (codes are ranks in the
+                # SORTED dictionary, so code order == value order)
+                rem = valid.copy()
+                for k, st in zip(keys, strides):
+                    codes = rem // int(st)
+                    rem = rem - codes * int(st)
+                    c = rt.columns[k]
+                    if c.kind == "str":
+                        res[f"key_{k}"] = codes.astype(np.int64)
+                        res[f"dict_{k}"] = c.dictionary_host
+                    else:
+                        res[f"key_{k}"] = c.dictionary_host[codes]
+                for (name, _fc), (kind_s, slot) in zip(agg_items, out_slot):
+                    row = flts[slot] if kind_s == "f" else ints[slot]
+                    res[name] = row[valid]
+                if keys and (self._order or self._limit is not None):
+                    res = _order_grouped_host(res, self._order, self._limit)
+                return res
+
+    def _fused_plan(self):
+        """(keys, group count, key strides, the columns read) of the fused
+        branch, or None when the query's shape does not fit it."""
         rt = self.path
         keys = self._keys
         for k in keys:
@@ -227,7 +294,6 @@ class Query:
             return None
         if any(fn not in _FUSED_FNS for fn, _c in self._aggs.values()):
             return None
-        agg_items = list(self._aggs.items())
         filt = self._filter
         strides = np.ones(len(keys), dtype=np.int64)
         for i in range(len(keys) - 2, -1, -1):
@@ -235,97 +301,9 @@ class Query:
         names = sorted(
             set(keys)
             | set(filt.refs if filt is not None else ())
-            | {r for _n, (_f, c) in agg_items for r in (c.refs if isinstance(c, Expr) else (c,))}
+            | {r for _f, c in self._aggs.values() for r in (c.refs if isinstance(c, Expr) else (c,))}
         )
-
-        cols, key_codes = {}, {}
-        read = [rt.columns[n] for n in names]
-        # every read column's planes and validity planes: one K1 launch
-        for n, c, vals, valid in zip(names, read, *_unpack_columns(read)):
-            cols[n] = DeviceColumn(
-                n,
-                c.arrow_type,
-                rt._combine(c, vals, True),
-                valid,
-                dictionary=c.dictionary_host if c.kind == "str" else None,
-            )
-            if n in keys:
-                key_codes[n] = rt._combine(c, vals, False)
-        table = DeviceTable(cols, rt.tiled_slots)
-        m = rt.mask_tiled()
-        if filt is not None:
-            m = m & filt.mask(table)
-        code = torch.zeros(rt.tiled_slots, dtype=torch.int64, device=rt.device)
-        for k, st in zip(keys, strides):
-            code = code + key_codes[k].long() * int(st)
-        code32 = code.to(torch.int32)
-
-        cnt = dense_group_count(code32, cap, m)
-        outs = []
-        for _name, (fn, c) in agg_items:
-            if fn == "count":
-                outs.append(cnt)
-                continue
-            if isinstance(c, Expr):
-                v, vm = c.fn(table)
-                mm = m if vm is None else (m & vm)
-            else:
-                v, vv = cols[c].values, cols[c].validity
-                mm = m if vv is None else (m & vv)
-            if fn in ("sum", "avg", "mean") and not v.is_floating_point():
-                s, c2 = dense_group_sum(code32, v, cap, mask=mm)
-                outs.append(s if fn == "sum" else s.double() / c2.clamp(min=1).double())
-                continue
-            seg = torch.where(mm, code, cap)
-            if fn in ("sum", "avg", "mean"):
-                s = segment_reduce(torch.where(mm, v, 0), seg, cap)
-                if fn == "sum":
-                    outs.append(s)
-                else:
-                    c2 = dense_group_count(seg, cap)
-                    outs.append(s / c2.clamp(min=1).to(v.dtype))
-            else:  # min / max
-                if v.is_floating_point():
-                    neutral = float("inf") if fn == "min" else float("-inf")
-                else:
-                    info = torch.iinfo(v.dtype)
-                    neutral = info.max if fn == "min" else info.min
-                op = "amin" if fn == "min" else "amax"
-                outs.append(segment_reduce(torch.where(mm, v, neutral), seg, cap, op))
-
-        # two host copies: one int64 stack, one float64 stack
-        int_rows, flt_rows, out_slot = [cnt], [], []
-        for o in outs:
-            if o.is_floating_point():
-                out_slot.append(("f", len(flt_rows)))
-                flt_rows.append(o.double())
-            else:
-                out_slot.append(("i", len(int_rows)))
-                int_rows.append(o.long())
-        ints = torch.stack(int_rows).cpu().numpy()
-        flts = torch.stack(flt_rows).cpu().numpy() if flt_rows else np.zeros((0, cap))
-        live = np.flatnonzero(ints[0] > 0)
-        # the ungrouped shape keeps its one group even when it is empty
-        valid = live if keys else np.arange(1)
-        res = {"n_groups": np.int64(len(live)), "keys": valid.astype(np.uint64)}
-        # composite codes → per-key values (codes are ranks in the SORTED
-        # dictionary, so code order == value order)
-        rem = valid.copy()
-        for k, st in zip(keys, strides):
-            codes = rem // int(st)
-            rem = rem - codes * int(st)
-            c = rt.columns[k]
-            if c.kind == "str":
-                res[f"key_{k}"] = codes.astype(np.int64)
-                res[f"dict_{k}"] = c.dictionary_host
-            else:
-                res[f"key_{k}"] = c.dictionary_host[codes]
-        for (name, _fc), (kind_s, slot) in zip(agg_items, out_slot):
-            row = flts[slot] if kind_s == "f" else ints[slot]
-            res[name] = row[valid]
-        if keys and (self._order or self._limit is not None):
-            res = _order_grouped_host(res, self._order, self._limit)
-        return res
+        return keys, cap, strides, names
 
     def _projected(self, table: DeviceTable) -> DeviceTable:
         """Restrict to the select() projection (the scan may carry columns
@@ -390,6 +368,54 @@ class Query:
             else:
                 cols.add(c)
         return sorted(cols)
+
+
+def _fused_decode(rt: ResidentTable, names, keys):
+    """The fused branch's columns ``names`` decoded (every read column's
+    planes and validity planes in one K1 launch) → (table, key codes)."""
+    cols, key_codes = {}, {}
+    read = [rt.columns[n] for n in names]
+    for n, c, vals, valid in zip(names, read, *_unpack_columns(read)):
+        cols[n] = DeviceColumn(
+            n,
+            c.arrow_type,
+            rt._combine(c, vals, True),
+            valid,
+            dictionary=c.dictionary_host if c.kind == "str" else None,
+        )
+        if n in keys:
+            key_codes[n] = rt._combine(c, vals, False)
+    return DeviceTable(cols, rt.tiled_slots), key_codes
+
+
+def _fused_agg(fn: str, c, table: DeviceTable, code: torch.Tensor, code32: torch.Tensor,
+               cap: int, m: torch.Tensor) -> torch.Tensor:
+    """One aggregate other than ``count`` over the composite group
+    ``code``s (int64, and ``code32`` as int32) of the rows ``m`` keeps."""
+    if isinstance(c, Expr):
+        v, vm = c.fn(table)
+        mm = m if vm is None else (m & vm)
+    else:
+        v, vv = table.columns[c].values, table.columns[c].validity
+        mm = m if vv is None else (m & vv)
+    if fn in ("sum", "avg", "mean") and not v.is_floating_point():
+        s, c2 = dense_group_sum(code32, v, cap, mask=mm)
+        return s if fn == "sum" else s.double() / c2.clamp(min=1).double()
+    seg = torch.where(mm, code, cap)
+    if fn in ("sum", "avg", "mean"):
+        s = segment_reduce(torch.where(mm, v, 0), seg, cap)
+        if fn == "sum":
+            return s
+        c2 = dense_group_count(seg, cap)
+        return s / c2.clamp(min=1).to(v.dtype)
+    # min / max
+    if v.is_floating_point():
+        neutral = float("inf") if fn == "min" else float("-inf")
+    else:
+        info = torch.iinfo(v.dtype)
+        neutral = info.max if fn == "min" else info.min
+    op = "amin" if fn == "min" else "amax"
+    return segment_reduce(torch.where(mm, v, neutral), seg, cap, op)
 
 
 def _table_device(table: DeviceTable) -> torch.device:

@@ -49,6 +49,7 @@ from ..kernels.bitunpack import (
     transpose_words_host_tiled,
 )
 from ..kernels.decode import dict_gather_device
+from ..util import obs
 from ..util.bits import pack_blocks
 from .aggregate import segment_reduce
 from ..schema import NULL_TYPE, Field, decimal_params, fixed_binary_width, fixed_size, int_storage
@@ -474,28 +475,33 @@ class ResidentTable:
 
     def _query_inputs(self, names, value_cols, code_cols, predicates, pcols):
         """Decode what a fused query reads: values (through the dictionary)
-        for ``value_cols``, code space for ``code_cols``; plus the row mask
-        (padding, nulls of every read column, the predicates)."""
-        cols, codes = {}, {}
+        for ``value_cols``, code space for ``code_cols`` (span
+        ``strawboat.query.decode``); plus the row mask (padding, nulls of
+        every read column, the predicates; span ``.filter``)."""
+        cols, codes, valids = {}, {}, []
         read = [self.columns[n] for n in names]
-        m = self.mask_tiled()
-        for n, c, vals, valid in zip(names, read, *_unpack_columns(read)):
-            if n in value_cols:
-                cols[n] = self._combine(c, vals, True)
-            if n in code_cols:
-                codes[n] = self._combine(c, vals, False)
-            if valid is not None:
+        with obs.span("strawboat.query.decode", device=self.device):
+            for n, c, vals, valid in zip(names, read, *_unpack_columns(read)):
+                if n in value_cols:
+                    cols[n] = self._combine(c, vals, True)
+                if n in code_cols:
+                    codes[n] = self._combine(c, vals, False)
+                if valid is not None:
+                    valids.append(valid)
+        with obs.span("strawboat.query.filter"):
+            m = self.mask_tiled()
+            for valid in valids:
                 m = m & valid
-        los, his = self._bound_scalars(predicates, pcols)
-        li = hi_i = 0
-        for cname in pcols:
-            lo, hi = predicates[cname]
-            if lo is not None:
-                m = m & (codes[cname] >= los[li])
-                li += 1
-            if hi is not None:
-                m = m & (codes[cname] < his[hi_i])
-                hi_i += 1
+            los, his = self._bound_scalars(predicates, pcols)
+            li = hi_i = 0
+            for cname in pcols:
+                lo, hi = predicates[cname]
+                if lo is not None:
+                    m = m & (codes[cname] >= los[li])
+                    li += 1
+                if hi is not None:
+                    m = m & (codes[cname] < his[hi_i])
+                    hi_i += 1
         return cols, codes, m
 
     # -- order-invariant fused query ops --------------------------------
@@ -509,21 +515,26 @@ class ResidentTable:
         """sum(value [* product_with]) where every predicate column is in
         [lo, hi) — the Q6 shape.  Bounds are half-open, None = unbounded;
         dict predicate columns compare in code space; null rows never count.
-        Returns a 0-d int64 (float64 for float values) device tensor."""
-        pcols = tuple(sorted(predicates))
-        extra = (product_with,) if product_with else ()
-        names = list(dict.fromkeys(pcols + (value,) + extra))
-        cols, _codes, m = self._query_inputs(
-            names, {value, *extra}, set(pcols), predicates, pcols
-        )
-        acc = cols[value]
-        if product_with is not None:
-            if not acc.is_floating_point():
-                acc = acc.long()
-            acc = acc * cols[product_with]
-        if acc.is_floating_point():
-            return torch.where(m, acc, 0).sum(dtype=torch.float64)
-        return torch.where(m, acc, 0).sum(dtype=torch.int64)
+        Returns a 0-d int64 (float64 for float values) device tensor.
+        A ``strawboat.query`` root span (``path="filter_sum"``) with
+        ``.plan``, ``.decode``, ``.filter`` and ``.aggregate``."""
+        with obs.span("strawboat.query", path="filter_sum"):
+            with obs.span("strawboat.query.plan"):
+                pcols = tuple(sorted(predicates))
+                extra = (product_with,) if product_with else ()
+                names = list(dict.fromkeys(pcols + (value,) + extra))
+            cols, _codes, m = self._query_inputs(
+                names, {value, *extra}, set(pcols), predicates, pcols
+            )
+            with obs.span("strawboat.query.aggregate", device=self.device):
+                acc = cols[value]
+                if product_with is not None:
+                    if not acc.is_floating_point():
+                        acc = acc.long()
+                    acc = acc * cols[product_with]
+                if acc.is_floating_point():
+                    return torch.where(m, acc, 0).sum(dtype=torch.float64)
+                return torch.where(m, acc, 0).sum(dtype=torch.int64)
 
     def group_sum(
         self,
@@ -534,22 +545,26 @@ class ResidentTable:
     ):
         """Per-group sums + counts over dense integer keys in [0, num_groups).
         Dict key columns group by (sorted) code.  Returns ``([sums per
-        value column], counts)``; keys outside the range are dropped."""
-        predicates = predicates or {}
-        pcols = tuple(sorted(predicates))
-        names = list(dict.fromkeys((key,) + tuple(values) + pcols))
-        cols, codes, m = self._query_inputs(
-            names, set(values), set(pcols) | {key}, predicates, pcols
-        )
-        k = torch.where(m, codes[key].to(torch.int32), num_groups)
-        outs = []
-        for v in values:
-            vv = cols[v]
-            if not vv.is_floating_point():
-                vv = vv.long()
-            outs.append(segment_reduce(torch.where(m, vv, 0), k, num_groups))
-        cnt = segment_reduce(m.long(), k, num_groups)
-        return outs, cnt
+        value column], counts)``; keys outside the range are dropped.
+        Spans as :meth:`filter_sum`'s, under ``path="group_sum"``."""
+        with obs.span("strawboat.query", path="group_sum"):
+            with obs.span("strawboat.query.plan"):
+                predicates = predicates or {}
+                pcols = tuple(sorted(predicates))
+                names = list(dict.fromkeys((key,) + tuple(values) + pcols))
+            cols, codes, m = self._query_inputs(
+                names, set(values), set(pcols) | {key}, predicates, pcols
+            )
+            with obs.span("strawboat.query.aggregate", device=self.device):
+                k = torch.where(m, codes[key].to(torch.int32), num_groups)
+                outs = []
+                for v in values:
+                    vv = cols[v]
+                    if not vv.is_floating_point():
+                        vv = vv.long()
+                    outs.append(segment_reduce(torch.where(m, vv, 0), k, num_groups))
+                cnt = segment_reduce(m.long(), k, num_groups)
+            return outs, cnt
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,16 @@ pooled page-locked buffers in chunks of about 32 MB, each chunk copied to
 the card asynchronously while the next decompresses
 (:func:`_decode_raw_column_streamed`, ``exec/arena.py``); other raw pages
 decode on the host and upload once per run.
+
+A :func:`scan_file` (each chunk of :func:`scan_chunks`) is a
+``strawboat.scan`` root span (``util/obs.py``) with ``.open`` (footer,
+metas, zone maps), ``.plan`` (``_plan_pages``), ``.parse`` (headers, block
+widths, dictionaries, the host decode of string and bool pages),
+``.decompress`` (host LZ4 / Zstd), ``.copy`` (host → device) and
+``.decode`` (K3, the other decoders, the gathers and the assembly; copies
+nest in it); counters ``scan.pages_planned``, ``scan.pages_kept``,
+``scan.h2d_bytes`` and ``scan.h2d_pageable_bytes`` (the copies from
+pageable host memory).
 """
 
 from __future__ import annotations
@@ -85,6 +95,7 @@ from ..read.reader import infer_schema, read_meta
 from ..schema import (
     FLAT_FLOAT_TYPES, FLAT_INT_TYPES, NULL_TYPE, Field, decimal_params, fixed_size, int_storage,
 )
+from ..util import obs
 from . import arena
 from .pruning import check_predicates, prune_pages, read_zones
 
@@ -282,7 +293,17 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     arr = _torch_view(np.ascontiguousarray(arr))
     if not arr.flags.writeable:
         arr = arr.copy()
-    return torch.from_numpy(arr).to(device)
+    with obs.span("strawboat.scan.copy"):
+        if device.type == "cuda":
+            obs.count("scan.h2d_bytes", arr.nbytes)
+            obs.count("scan.h2d_pageable_bytes", arr.nbytes)
+        return torch.from_numpy(arr).to(device)
+
+
+def _decompress(codec: Compression, bodies, nbytes):
+    """Host decompression of raw-mode bodies (``decompress_raw``)."""
+    with obs.span("strawboat.scan.decompress"):
+        return decompress_raw(codec, bodies, nbytes)
 
 
 def _torch_dtype(np_dtype: np.dtype) -> torch.dtype:
@@ -506,7 +527,7 @@ def _decode_dict_raw_group(plans, np_dtype, device, group_arrays, page_ref,
     codes = {}
     for codec in {j[1] for j in jobs}:
         mine = [j for j in jobs if j[1] == codec]
-        for j, raw in zip(mine, decompress_raw(codec, [j[2] for j in mine], [j[3] * 4 for j in mine])):
+        for j, raw in zip(mine, _decompress(codec, [j[2] for j in mine], [j[3] * 4 for j in mine])):
             codes[j[0]] = np.frombuffer(raw, "<u4", j[3])
     lengths = [j[3] for j in jobs]
     dec = _gather_dicts(_to_device(np.concatenate([codes[j[0]] for j in jobs]), device),
@@ -536,7 +557,7 @@ def _decode_structured_to_device(buf, pos: int, length: int, np_dtype: np.dtype,
         raise OutOfSpecError("integer page truncated")
     if codec.raw_mode:
         nbytes = length * np_dtype.itemsize
-        (raw,) = decompress_raw(codec, [buf[body:end]], [nbytes])
+        (raw,) = _decompress(codec, [buf[body:end]], [nbytes])
         return _to_device(np.frombuffer(raw, np_dtype, length), device), end
     if codec == Compression.ONE_VALUE:
         value = _to_device(parse_one_value(buf, body, np_dtype), device)
@@ -600,6 +621,8 @@ def _plan_pages(file_bytes: np.ndarray, meta: ColumnMeta, nullable: bool, keep=N
         validity, p = read_validity(buf, 0, length) if nullable else (None, 0)
         plans.append((length, validity, buf, p))
         pos += page.length
+    obs.count("scan.pages_planned", len(meta.pages))
+    obs.count("scan.pages_kept", len(plans))
     return plans
 
 
@@ -731,20 +754,23 @@ def _decode_raw_column_streamed(plans, np_dtype: np.dtype, dev: torch.device):
         stage = arena.acquire(stop - base, pin=True) if on_card else None
         target = stage.numpy() if on_card else host_out[base:stop]
         i = start
-        while i < end:  # one native call per run of one codec
-            j = i + 1
-            while j < end and jobs[j][0] == jobs[i][0]:
-                j += 1
-            native.decompress_batch_into(jobs[i][0], [x[1] for x in jobs[i:j]], target,
-                                         offsets[i:j] - base, out_lens[i:j])
-            i = j
+        with obs.span("strawboat.scan.decompress"):
+            while i < end:  # one native call per run of one codec
+                j = i + 1
+                while j < end and jobs[j][0] == jobs[i][0]:
+                    j += 1
+                native.decompress_batch_into(jobs[i][0], [x[1] for x in jobs[i:j]], target,
+                                             offsets[i:j] - base, out_lens[i:j])
+                i = j
         if on_card:
-            with torch.cuda.stream(stream):
-                out[base:stop].copy_(stage, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(stream)
-            consumer.wait_event(done)
-            arena.release(stage, [done])
+            with obs.span("strawboat.scan.copy"):
+                obs.count("scan.h2d_bytes", stop - base)
+                with torch.cuda.stream(stream):
+                    out[base:stop].copy_(stage, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(stream)
+                consumer.wait_event(done)
+                arena.release(stage, [done])
     return out.view(_torch_dtype(np_dtype))
 
 
@@ -761,7 +787,9 @@ def decode_column_pages_device(
     ``device``."""
     dev = as_device(device)
     _check_flat(field)
-    return _decode_plans(_plan_pages(file_bytes, meta, field.nullable, keep), field, dev)
+    with obs.span("strawboat.scan.plan"):
+        plans = _plan_pages(file_bytes, meta, field.nullable, keep)
+    return _decode_plans(plans, field, dev)
 
 
 def _check_flat(field: Field) -> None:
@@ -787,55 +815,57 @@ def _decode_plans(plans, field: Field, dev) -> DeviceColumn:
     values = _decode_raw_column_streamed(plans, np_dtype, dev)
     if values is not None:
         return DeviceColumn(field.name, field.dtype, values, _validity(plans, dev))
-    raw_jobs, k3_jobs, bpv_jobs = _sort_jobs(plans, np_dtype)
+    with obs.span("strawboat.scan.parse"):
+        raw_jobs, k3_jobs, bpv_jobs = _sort_jobs(plans, np_dtype)
 
     raw_host = {}
     for codec, jobs in raw_jobs.items():
-        outs = decompress_raw(codec, [j[1] for j in jobs], [j[2] for j in jobs])
+        outs = _decompress(codec, [j[1] for j in jobs], [j[2] for j in jobs])
         for (idx, _b, _n), out in zip(jobs, outs):
             raw_host[idx] = np.frombuffer(out, np_dtype)
-    group_arrays: Dict = {}
-    page_ref: Dict = {}
-    if k3_jobs:
-        _decode_k3_groups(k3_jobs, np_dtype, dev, group_arrays, page_ref)
-    if bpv_jobs:
-        _decode_varwidth_groups(bpv_jobs, np_dtype, dev, group_arrays, page_ref)
-    _decode_dict_raw_group(plans, np_dtype, dev, group_arrays, page_ref)
+    with obs.span("strawboat.scan.decode"):
+        group_arrays: Dict = {}
+        page_ref: Dict = {}
+        if k3_jobs:
+            _decode_k3_groups(k3_jobs, np_dtype, dev, group_arrays, page_ref)
+        if bpv_jobs:
+            _decode_varwidth_groups(bpv_jobs, np_dtype, dev, group_arrays, page_ref)
+        _decode_dict_raw_group(plans, np_dtype, dev, group_arrays, page_ref)
 
-    # assembly in page order: runs of host pages go up in one copy, group
-    # slices that continue each other merge into one slice
-    # tensors, or [gkey, offset, n_values, ends on a full page] slices
-    parts: List[Any] = []
-    host_run: List[np.ndarray] = []
+        # assembly in page order: runs of host pages go up in one copy, group
+        # slices that continue each other merge into one slice
+        # tensors, or [gkey, offset, n_values, ends on a full page] slices
+        parts: List[Any] = []
+        host_run: List[np.ndarray] = []
 
-    def flush_host():
-        if host_run:
-            parts.append(_to_device(np.concatenate(host_run), dev))
-            host_run.clear()
+        def flush_host():
+            if host_run:
+                parts.append(_to_device(np.concatenate(host_run), dev))
+                host_run.clear()
 
-    for idx, (length, _v, buf, p) in enumerate(plans):
-        if idx in page_ref:
-            flush_host()
-            gkey, off, slots = page_ref[idx]
-            last = parts[-1] if parts else None
-            if isinstance(last, list) and last[0] == gkey and last[3] and last[1] + last[2] == off:
-                last[2] += length
-                last[3] = length == slots
+        for idx, (length, _v, buf, p) in enumerate(plans):
+            if idx in page_ref:
+                flush_host()
+                gkey, off, slots = page_ref[idx]
+                last = parts[-1] if parts else None
+                if isinstance(last, list) and last[0] == gkey and last[3] and last[1] + last[2] == off:
+                    last[2] += length
+                    last[3] = length == slots
+                else:
+                    parts.append([gkey, off, length, length == slots])
+            elif idx in raw_host:
+                host_run.append(raw_host[idx])
             else:
-                parts.append([gkey, off, length, length == slots])
-        elif idx in raw_host:
-            host_run.append(raw_host[idx])
+                flush_host()
+                parts.append(_decode_structured_to_device(buf, p, length, np_dtype, dev)[0])
+        flush_host()
+        tensors = [
+            group_arrays[x[0]][x[1] : x[1] + x[2]] if isinstance(x, list) else x for x in parts
+        ]
+        if not tensors:
+            values = torch.zeros(0, dtype=_torch_dtype(np_dtype), device=dev)
         else:
-            flush_host()
-            parts.append(_decode_structured_to_device(buf, p, length, np_dtype, dev)[0])
-    flush_host()
-    tensors = [
-        group_arrays[x[0]][x[1] : x[1] + x[2]] if isinstance(x, list) else x for x in parts
-    ]
-    if not tensors:
-        values = torch.zeros(0, dtype=_torch_dtype(np_dtype), device=dev)
-    else:
-        values = tensors[0] if len(tensors) == 1 else torch.cat(tensors)
+            values = tensors[0] if len(tensors) == 1 else torch.cat(tensors)
     return DeviceColumn(field.name, field.dtype, values, _validity(plans, dev))
 
 
@@ -850,13 +880,28 @@ def _decode_boolean_column(plans, field: Field, dev) -> DeviceColumn:
     column's bitmap and go up as they are; otherwise RLE / ONE_VALUE pages
     (and raw ones) decode on the host and the bits are packed again."""
     total = sum(length for length, _v, _b, _p in plans)
-    pages = []  # per page: its raw bitmap bytes, or its bools
+    with obs.span("strawboat.scan.parse"):
+        pages = _boolean_pages(plans)
+    if all(x.dtype == np.uint8 for x in pages) and all(l % 8 == 0 for l, _v, _b, _p in plans[:-1]):
+        packed = np.concatenate(pages) if pages else np.zeros(0, np.uint8)
+    else:
+        bits = [x if x.dtype == bool else np.unpackbits(x, count=l, bitorder="little").astype(bool)
+                for x, (l, _v, _b, _p) in zip(pages, plans)]
+        packed = np.packbits(np.concatenate(bits), bitorder="little")
+    with obs.span("strawboat.scan.decode"):
+        values = unpack_validity_device(_to_device(packed, dev), total)
+    return DeviceColumn(field.name, field.dtype, values, _validity(plans, dev))
+
+
+def _boolean_pages(plans) -> List[np.ndarray]:
+    """Per page of a bool column: its raw bitmap bytes, or its bools."""
+    pages = []
     for length, _v, buf, p in plans:
         codec, csize, _us, body = read_header(buf, p)
         if body + csize > len(buf):
             raise OutOfSpecError("boolean page truncated")
         if codec.raw_mode:
-            (raw,) = decompress_raw(codec, [buf[body : body + csize]], [(length + 7) // 8])
+            (raw,) = _decompress(codec, [buf[body : body + csize]], [(length + 7) // 8])
             pages.append(np.asarray(raw, dtype=np.uint8))
         elif codec == Compression.RLE:
             pages.append(bool_codec.rle_decode(buf, body, length))
@@ -864,14 +909,7 @@ def _decode_boolean_column(plans, field: Field, dev) -> DeviceColumn:
             pages.append(bool_codec.one_value_decode(buf, body, length))
         else:
             raise OutOfSpecError(f"unknown boolean codec {codec}")
-    if all(x.dtype == np.uint8 for x in pages) and all(l % 8 == 0 for l, _v, _b, _p in plans[:-1]):
-        packed = np.concatenate(pages) if pages else np.zeros(0, np.uint8)
-    else:
-        bits = [x if x.dtype == bool else np.unpackbits(x, count=l, bitorder="little").astype(bool)
-                for x, (l, _v, _b, _p) in zip(pages, plans)]
-        packed = np.packbits(np.concatenate(bits), bitorder="little")
-    values = unpack_validity_device(_to_device(packed, dev), total)
-    return DeviceColumn(field.name, field.dtype, values, _validity(plans, dev))
+    return pages
 
 
 def _decimal_dict(width: int):
@@ -907,44 +945,47 @@ def _decode_decimal_column(plans, field: Field, dev) -> DeviceColumn:
         raise NotYetImplementedError(f"device scan of decimal {field.dtype} wider than int64")
     i64 = np.dtype(np.int64)
     parse_dict = _decimal_dict(width)
-    _raw, k3_jobs, bpv_jobs = _sort_jobs(plans, i64, parse_dict)
-    group_arrays: Dict = {}
-    page_ref: Dict = {}
-    if k3_jobs:
-        _decode_k3_groups(k3_jobs, i64, dev, group_arrays, page_ref)
-    if bpv_jobs:
-        _decode_varwidth_groups(bpv_jobs, i64, dev, group_arrays, page_ref)
-    _decode_dict_raw_group(plans, i64, dev, group_arrays, page_ref, parse_dict)
-    parts: List[torch.Tensor] = []
-    host_run: List[np.ndarray] = []
+    with obs.span("strawboat.scan.parse"):
+        _raw, k3_jobs, bpv_jobs = _sort_jobs(plans, i64, parse_dict)
+    with obs.span("strawboat.scan.decode"):
+        group_arrays: Dict = {}
+        page_ref: Dict = {}
+        if k3_jobs:
+            _decode_k3_groups(k3_jobs, i64, dev, group_arrays, page_ref)
+        if bpv_jobs:
+            _decode_varwidth_groups(bpv_jobs, i64, dev, group_arrays, page_ref)
+        _decode_dict_raw_group(plans, i64, dev, group_arrays, page_ref, parse_dict)
+        parts: List[torch.Tensor] = []
+        host_run: List[np.ndarray] = []
 
-    def flush_host():
-        if host_run:
-            parts.append(_to_device(np.concatenate(host_run), dev))
-            host_run.clear()
+        def flush_host():
+            if host_run:
+                parts.append(_to_device(np.concatenate(host_run), dev))
+                host_run.clear()
 
-    for idx, (length, _v, buf, p) in enumerate(plans):
-        if idx in page_ref:
-            flush_host()
-            gkey, off, _slots = page_ref[idx]
-            parts.append(group_arrays[gkey][off : off + length])
-            continue
-        codec, _cs, _us, body = read_header(buf, p)
-        if codec == Compression.DICT:  # another index subpage, on the device
-            _ic, icsize, _ius, ibody = read_header(buf, body)
-            lo = parse_dict(buf, ibody + icsize)
-            if lo is not None:
+        for idx, (length, _v, buf, p) in enumerate(plans):
+            if idx in page_ref:
                 flush_host()
-                codes, _end = _decode_structured_to_device(buf, body, length, np.dtype(np.uint32), dev)
-                parts.append(_gather_dicts(codes, [lo], [length], i64, dev))
+                gkey, off, _slots = page_ref[idx]
+                parts.append(group_arrays[gkey][off : off + length])
                 continue
-        mat, _end = decompress_decimal(buf, p, length, width)
-        lo, fits = int64_rows(mat)
-        if not fits.all():
-            raise NotYetImplementedError(f"device scan of decimal {field.dtype} wider than int64")
-        host_run.append(lo)
-    flush_host()
-    values = parts[0] if len(parts) == 1 else torch.cat(parts)
+            codec, _cs, _us, body = read_header(buf, p)
+            if codec == Compression.DICT:  # another index subpage, on the device
+                _ic, icsize, _ius, ibody = read_header(buf, body)
+                lo = parse_dict(buf, ibody + icsize)
+                if lo is not None:
+                    flush_host()
+                    codes, _end = _decode_structured_to_device(buf, body, length,
+                                                               np.dtype(np.uint32), dev)
+                    parts.append(_gather_dicts(codes, [lo], [length], i64, dev))
+                    continue
+            mat, _end = decompress_decimal(buf, p, length, width)
+            lo, fits = int64_rows(mat)
+            if not fits.all():
+                raise NotYetImplementedError(f"device scan of decimal {field.dtype} wider than int64")
+            host_run.append(lo)
+        flush_host()
+        values = parts[0] if len(parts) == 1 else torch.cat(parts)
     return DeviceColumn(field.name, field.dtype, values, _validity(plans, dev))
 
 
@@ -970,7 +1011,8 @@ def _binary_page_jobs(plans, large: bool):
     for length, _v, buf, p in plans:
         codec, _cs, _us, body = read_header(buf, p)
         if codec != Compression.DICT:
-            offsets, values, _end = decode_binary_page(buf, p, length, large)
+            with obs.span("strawboat.scan.decompress"):
+                offsets, values, _end = decode_binary_page(buf, p, length, large)
             jobs.append(("raw", *_dictionary_encode(offsets, values)))
             continue
         icodec, icsize, _ius, ibody = read_header(buf, body)
@@ -990,7 +1032,7 @@ def _binary_page_jobs(plans, large: bool):
                 jobs.append(("k3", parsed[1], parsed[2], parsed[3], sets))
                 continue
         if icodec.raw_mode:
-            (raw,) = decompress_raw(icodec, [buf[ibody:vpos]], [length * 4])
+            (raw,) = _decompress(icodec, [buf[ibody:vpos]], [length * 4])
             jobs.append(("host", np.frombuffer(raw, "<u4", length).astype(np.int64), sets))
         else:
             jobs.append(("dev", buf, body, sets))
@@ -1034,7 +1076,8 @@ def _decode_binary_column_device(plans, field: Field, dev) -> DeviceColumn:
     one over the raw pages' dictionaries in page order).
     ``hash_aggregate`` orders groups by code, so the order is the
     reference's."""
-    jobs = _binary_page_jobs(plans, field.dtype.startswith("large_"))
+    with obs.span("strawboat.scan.parse"):
+        jobs = _binary_page_jobs(plans, field.dtype.startswith("large_"))
     pooled = ([idx for idx, j in enumerate(jobs) if j[0] != "raw"]
               + [idx for idx, j in enumerate(jobs) if j[0] == "raw"])
     dictionary, remap, bases = _merge_dictionaries([jobs[idx][-1] for idx in pooled])
@@ -1050,49 +1093,50 @@ def _decode_binary_column_device(plans, field: Field, dev) -> DeviceColumn:
         _check_codes(codes, limit)
         return dict_gather_device(codes + base, remap_dev)
 
-    # one K3 launch per width; every page's base and size ride per slot
-    k3_slices = {}
-    for gkey, group in _k3_groups([(idx, Compression.DICT, j[1], j[2], j[3], None)
-                                   for idx, j in enumerate(jobs) if j[0] == "k3"]).items():
-        words = _to_device(np.concatenate([g[2] for g in group]), dev)
-        dec = bitunpack_natural_device(words, gkey[1])
-        slot_sizes = [g[3] * 128 for g in group]
-        base = _repeat_per_page([page_base[g[0]][0] for g in group], slot_sizes, len(dec), dev)
-        limit = _repeat_per_page([page_base[g[0]][1] for g in group], slot_sizes, len(dec), dev)
-        codes = remap_device(dec, base, limit)
-        off = 0
-        for g, n in zip(group, slot_sizes):
-            k3_slices[g[0]] = (codes, off)
-            off += n
+    with obs.span("strawboat.scan.decode"):
+        # one K3 launch per width; every page's base and size ride per slot
+        k3_slices = {}
+        for gkey, group in _k3_groups([(idx, Compression.DICT, j[1], j[2], j[3], None)
+                                       for idx, j in enumerate(jobs) if j[0] == "k3"]).items():
+            words = _to_device(np.concatenate([g[2] for g in group]), dev)
+            dec = bitunpack_natural_device(words, gkey[1])
+            slot_sizes = [g[3] * 128 for g in group]
+            base = _repeat_per_page([page_base[g[0]][0] for g in group], slot_sizes, len(dec), dev)
+            limit = _repeat_per_page([page_base[g[0]][1] for g in group], slot_sizes, len(dec), dev)
+            codes = remap_device(dec, base, limit)
+            off = 0
+            for g, n in zip(group, slot_sizes):
+                k3_slices[g[0]] = (codes, off)
+                off += n
 
-    parts_out: List[Any] = []
-    host_run: List[np.ndarray] = []
+        parts_out: List[Any] = []
+        host_run: List[np.ndarray] = []
 
-    def flush_host():
-        if host_run:
-            parts_out.append(_to_device(np.concatenate(host_run).astype(np.int32), dev))
-            host_run.clear()
+        def flush_host():
+            if host_run:
+                parts_out.append(_to_device(np.concatenate(host_run).astype(np.int32), dev))
+                host_run.clear()
 
-    for idx, (j, (length, _v, _buf, _p)) in enumerate(zip(jobs, plans)):
-        if j[0] in ("raw", "host"):
-            base, size = page_base[idx]
-            if len(j[1]) and int(j[1].max()) >= size:
-                raise OutOfSpecError("dictionary code out of range")
-            host_run.append(remap[j[1] + base])
-        else:
-            flush_host()
-            if j[0] == "k3":
-                codes, off = k3_slices[idx]
-                parts_out.append(codes[off : off + length])
-            else:
+        for idx, (j, (length, _v, _buf, _p)) in enumerate(zip(jobs, plans)):
+            if j[0] in ("raw", "host"):
                 base, size = page_base[idx]
-                dec, _end = _decode_structured_to_device(j[1], j[2], length, np.dtype(np.uint32), dev)
-                parts_out.append(remap_device(dec, base, size))
-    flush_host()
-    if not parts_out:
-        codes = torch.zeros(0, dtype=torch.int32, device=dev)
-    else:
-        codes = parts_out[0] if len(parts_out) == 1 else torch.cat(parts_out)
+                if len(j[1]) and int(j[1].max()) >= size:
+                    raise OutOfSpecError("dictionary code out of range")
+                host_run.append(remap[j[1] + base])
+            else:
+                flush_host()
+                if j[0] == "k3":
+                    codes, off = k3_slices[idx]
+                    parts_out.append(codes[off : off + length])
+                else:
+                    base, size = page_base[idx]
+                    dec, _end = _decode_structured_to_device(j[1], j[2], length, np.dtype(np.uint32), dev)
+                    parts_out.append(remap_device(dec, base, size))
+        flush_host()
+        if not parts_out:
+            codes = torch.zeros(0, dtype=torch.int32, device=dev)
+        else:
+            codes = parts_out[0] if len(parts_out) == 1 else torch.cat(parts_out)
     return DeviceColumn(field.name, field.dtype, codes.to(torch.int32), _validity(plans, dev),
                         dictionary=dictionary)
 
@@ -1184,6 +1228,8 @@ def _plan_nested_pages(file_bytes: np.ndarray, meta: ColumnMeta, init, keep=None
         plans.append((levels[-1].length, leaf_validity, buf, p))
         page_keys.append(key)
         pos += page.length
+    obs.count("scan.pages_planned", len(meta.pages))
+    obs.count("scan.pages_kept", len(plans))
     run = ("run", tuple(page_keys), tuple((x.kind, x.nullable) for x in init))
     if run not in cache:
         cache[run] = _concat_levels([cache[k][0] for k in page_keys], init)
@@ -1283,7 +1329,8 @@ def _scan_nested(file_bytes, metas, field: Field, dev, keep):
     leaves, cols, cache = [], [], {}
     for meta, init, lf, fields, name in zip(metas, inits, lfields, _level_fields(field),
                                             _leaf_names(field)):
-        plans, levels = _plan_nested_pages(file_bytes, meta, init, keep, cache)
+        with obs.span("strawboat.scan.plan"):
+            plans, levels = _plan_nested_pages(file_bytes, meta, init, keep, cache)
         col = _decode_plans(plans, Field(name, lf.dtype, lf.nullable), dev)
         col = _insert_fixed_size_slots(levels, fields, col)
         leaves.append(NestedLeaf(name, levels, fields))
@@ -1414,9 +1461,11 @@ def scan_file(
     ``DeviceListColumn`` under list levels, a ``DeviceColumn`` otherwise;
     ``DeviceTable.nested`` keeps each nested field's levels."""
     dev = as_device(device)
-    schema, metas, file_bytes = _open(path)
-    keep = page_keep_mask(path, metas, predicates)
-    return _scan(path, file_bytes, schema, metas, columns, dev, keep)
+    with obs.span("strawboat.scan"):
+        with obs.span("strawboat.scan.open"):
+            schema, metas, file_bytes = _open(path)
+            keep = page_keep_mask(path, metas, predicates)
+        return _scan(path, file_bytes, schema, metas, columns, dev, keep)
 
 
 def scan_chunks(
@@ -1434,16 +1483,19 @@ def scan_chunks(
     dev = as_device(device)
     if chunk_pages < 1:
         raise ValueError(f"chunk_pages must be at least 1, got {chunk_pages}")
-    schema, metas, file_bytes = _open(path)
+    with obs.span("strawboat.scan"), obs.span("strawboat.scan.open"):
+        schema, metas, file_bytes = _open(path)
+        base = page_keep_mask(path, metas, predicates)
     n_pages = max((len(m.pages) for m in metas), default=0)
-    base = page_keep_mask(path, metas, predicates)
     for start in range(0, n_pages, chunk_pages):
         keep = np.zeros(n_pages, dtype=bool)
         keep[start : start + chunk_pages] = True
         if base is not None:
             keep &= base
         if keep.any():
-            yield _scan(path, file_bytes, schema, metas, columns, dev, keep)
+            with obs.span("strawboat.scan"):
+                chunk = _scan(path, file_bytes, schema, metas, columns, dev, keep)
+            yield chunk
 
 
 def k3_launch_groups(path: str, columns: Optional[Sequence[str]] = None):

@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, ``build/lib<name>.so`` beside this file
 (git-ignored).  The build happens at first use, never at import, and is
 redone when the source is newer than the library.  :func:`load_all`
-starts one nvcc per source at once.
+starts one nvcc per source at once.  Each compile is a
+``strawboat.kernel.build`` span (attribute ``kernel``) and counts in
+``kernel.builds`` (``util/obs.py``).
 """
 
 from __future__ import annotations
@@ -16,8 +18,9 @@ import shutil
 import subprocess
 import tempfile
 import threading
-import time
 from typing import Dict
+
+from ..util import obs
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -31,8 +34,6 @@ NVCC_FLAGS = (
 _lock = threading.Lock()  # guards _locks
 _locks: Dict[str, threading.Lock] = {}  # one per library: builds run side by side
 _libs: Dict[str, ctypes.CDLL] = {}
-# seconds each library took to compile in this process (absent: reused)
-build_seconds: Dict[str, float] = {}
 
 
 def nvcc_path() -> str:
@@ -56,14 +57,14 @@ def _compile(name: str, src: str, out: str) -> None:
     os.close(fd)
     try:
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        with obs.span("strawboat.kernel.build", kernel=name):
+            obs.count("kernel.builds")
+            proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed for {name} ({proc.returncode}):\n"
                 f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
             )
-        build_seconds[name] = time.perf_counter() - t0
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):

@@ -16,7 +16,9 @@ values of ``b`` bits LSB-first into its ``b`` words.  Words travel as
   straight into natural row order (``csrc/bitunpack_natural.cu``).
 
 On a CUDA tensor each wrapper launches its hand-written kernel and counts
-the launch; on a CPU tensor it runs the plain torch version.
+the launch in ``util/obs.py``'s counters (``k1.launches`` and
+``k1.planes``, ``k2.launches``, ``k0.launches``, ``k3.launches``); on a
+CPU tensor it runs the plain torch version.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from ..device import shr_u32, u32_to_i32
+from ..util import obs
 from . import _build
 
 LANE_TILE = 512  # lanes per program == 128 blocks
@@ -161,13 +164,9 @@ def bitunpack_tiled(words: torch.Tensor, seed: int, bits: int) -> torch.Tensor:
     if words.device.type == "cpu":
         return bitunpack_tiled_plain(words, seed, bits)
     out = _launch_tiled(words, seed, bits)
-    bitunpack_tiled.launches += 1
-    bitunpack_tiled.planes += 1
+    obs.count("k1.launches")
+    obs.count("k1.planes")
     return out
-
-
-bitunpack_tiled.launches = 0  # K1 launches since the last reset
-bitunpack_tiled.planes = 0  # planes K1 decoded since the last reset
 
 
 # ---------------------------------------------------------------------------
@@ -211,9 +210,8 @@ def bitunpack_tiled_many(planes: Sequence[Tuple[torch.Tensor, int]], seed: int =
     tile)`` int32: the ``(n_tiles, 32, tile)`` values of each, views of
     one ``torch.empty``.  The planes must share one device and be
     contiguous (else it raises); on CUDA one launch decodes up to
-    ``K1_MAX_PLANES`` of them (each launch counts in
-    ``bitunpack_tiled.launches``, each plane in
-    ``bitunpack_tiled.planes``); CPU planes run
+    ``K1_MAX_PLANES`` of them (each launch counts in the counter
+    ``k1.launches``, each plane in ``k1.planes``); CPU planes run
     :func:`bitunpack_tiled_many_plain`."""
     planes = list(planes)
     shapes = []
@@ -244,8 +242,8 @@ def bitunpack_tiled_many(planes: Sequence[Tuple[torch.Tensor, int]], seed: int =
         for lo, hi in plan_tiled_launch(len(planes)):
             err = fn(descs[lo * _PLANE.size : hi * _PLANE.size], hi - lo, stream)
             _raise_on(err, "bitunpack")
-            bitunpack_tiled.launches += 1
-    bitunpack_tiled.planes += len(planes)
+            obs.count("k1.launches")
+    obs.count("k1.planes", len(planes))
     return views
 
 
@@ -266,11 +264,8 @@ def bitunpack_tiled_unseeded(words: torch.Tensor, bits: int) -> torch.Tensor:
     if words.device.type == "cpu":
         return bitunpack_tiled_unseeded_plain(words, bits)
     out = _launch_tiled(words, 0, bits)
-    bitunpack_tiled_unseeded.launches += 1
+    obs.count("k2.launches")
     return out
-
-
-bitunpack_tiled_unseeded.launches = 0  # K2 launches since the last reset
 
 
 def bitunpack_tiled_to_flat(out3: torch.Tensor) -> torch.Tensor:
@@ -310,11 +305,8 @@ def bitunpack_tmajor(wt: torch.Tensor, bits: int) -> torch.Tensor:
     if wt.device.type == "cpu":
         return bitunpack_tmajor_plain(wt, bits)
     out = _launch_tiled(wt.unsqueeze(0), 0, bits)[0]
-    bitunpack_tmajor.launches += 1
+    obs.count("k0.launches")
     return out
-
-
-bitunpack_tmajor.launches = 0  # K0 launches since the last reset
 
 
 def bitunpack_tmajor_natural(wt: torch.Tensor, bits: int) -> torch.Tensor:
@@ -389,14 +381,13 @@ def bitunpack_natural(words: torch.Tensor, seed: int, bits: int) -> torch.Tensor
         err = fn(words.data_ptr(), out.data_ptr(), seed & 0xFFFFFFFF, bits,
                  n_blocks, stream)
     _raise_on(err, "bitunpack_natural")
-    bitunpack_natural.launches += 1
+    obs.count("k3.launches")
     return out
 
 
-bitunpack_natural.launches = 0  # K3 launches since the last reset
-
-
 def launch_counts() -> dict:
-    """K1's and K3's launches in this process since their counters' last
-    reset (the config scripts' summaries carry them)."""
-    return {"k1_launches": bitunpack_tiled.launches, "k3_launches": bitunpack_natural.launches}
+    """K1's and K3's launches in this process (the counters
+    ``k1.launches`` and ``k3.launches``; the config scripts' summaries
+    carry them)."""
+    return {"k1_launches": obs.counter("k1.launches"),
+            "k3_launches": obs.counter("k3.launches")}

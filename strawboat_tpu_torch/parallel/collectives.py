@@ -20,21 +20,23 @@ adds one ``all_reduce`` of the local sum.  Every host decision the
 layer takes from device values (:func:`max_to_host`, :func:`sum_to_host`,
 :func:`gather_objects`) is taken on every process alike.
 
-Inside :func:`record_exchanges` each collective records its bytes and its
-time (CUDA events on the first shard's device; the host clock on the
-CPU), and each process-group call its own, which :func:`exchange_summary`
-reads.
+Each collective is a ``util/obs.py`` span, ``strawboat.exchange.<op>``,
+with its bytes as counts (``exchange.read_bytes``, ``.write_bytes``,
+``.crossed_bytes``) and CUDA events on the first shard's device (the
+host clock on the CPU), and each process-group call one of its own;
+:func:`record_exchanges` records them and :func:`exchange_summary` reads
+them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import operator
-import time
-from typing import List, Optional, Sequence
+from typing import List, Sequence
 
 import torch
 
+from ..util import obs
 from .mesh import world
 
 
@@ -155,47 +157,31 @@ def gather_objects(obj) -> list:
 
 
 # ---------------------------------------------------------------------------
-# exchange records
+# exchange records: ``util/obs.py`` spans named ``strawboat.exchange.<op>``
+# (CUDA events on the device given), their bytes as counts
 
-_records: Optional[list] = None
+EXCHANGE = "strawboat.exchange."
+_BYTES = ("read_bytes", "write_bytes", "crossed_bytes")
 
 
 @contextlib.contextmanager
 def record_exchanges():
     """Record every collective run inside: ``with record_exchanges() as
-    recs: ...``, then :func:`exchange_summary(recs) <exchange_summary>`."""
-    global _records
-    outer, _records = _records, []
-    try:
-        yield _records
-    finally:
-        _records = outer
+    recs: ...``, then :func:`exchange_summary(recs) <exchange_summary>`
+    (``recs`` fills when the block ends, in the order the collectives
+    finished)."""
+    recs: list = []
+    with obs.recording() as rec:
+        yield recs
+    recs.extend(rec.spans(EXCHANGE))
 
 
-class _Span:
-    def __init__(self, op: str, device: torch.device, read: int, write: int, crossed: int):
-        self.op, self.read_bytes, self.write_bytes = op, read, write
-        self.crossed_bytes = crossed
-        self.cuda = device.type == "cuda"
-        if self.cuda:
-            self.stream = torch.cuda.current_stream(device)
-            self.start = torch.cuda.Event(enable_timing=True)
-            self.end = torch.cuda.Event(enable_timing=True)
-            self.start.record(self.stream)
-        else:
-            self.t0 = time.perf_counter()
-
-    def close(self) -> None:
-        if self.cuda:
-            self.end.record(self.stream)
-        else:
-            self.ms = (time.perf_counter() - self.t0) * 1e3
-        _records.append(self)
-
-
-def _span(op: str, device: torch.device, read: int, write: int,
-          crossed: int = 0) -> Optional[_Span]:
-    return None if _records is None else _Span(op, device, read, write, crossed)
+@contextlib.contextmanager
+def _exchange(op: str, device: torch.device, read: int, write: int, crossed: int = 0):
+    with obs.span(EXCHANGE + op, device=device):
+        for name, n in zip(_BYTES, (read, write, crossed)):
+            obs.count("exchange." + name, n)
+        yield
 
 
 def exchange_summary(records) -> List[dict]:
@@ -208,13 +194,10 @@ def exchange_summary(records) -> List[dict]:
     (``all_reduce``), 0 in a world of one."""
     out = []
     for r in records:
-        if r.cuda:
-            r.end.synchronize()
-            ms = r.start.elapsed_time(r.end)
-        else:
-            ms = r.ms
-        out.append({"op": r.op, "read_bytes": r.read_bytes, "write_bytes": r.write_bytes,
-                    "crossed_bytes": r.crossed_bytes, "ms": ms})
+        ms = r.device_ms
+        out.append({"op": r.name[len(EXCHANGE):],
+                     **{k: r.counts.get("exchange." + k, 0) for k in _BYTES},
+                     "ms": r.seconds * 1e3 if ms is None else ms})
     return out
 
 
@@ -223,10 +206,8 @@ def _all_reduce(t: torch.Tensor, op) -> torch.Tensor:
     call (its event on the current stream after the call returns: the
     backend has made that stream wait on its own)."""
     size = torch.distributed.get_world_size()
-    span = _span("all_reduce", t.device, 0, 0, t.numel() * t.element_size() * (size > 1))
-    torch.distributed.all_reduce(t, op=op)
-    if span is not None:
-        span.close()
+    with _exchange("all_reduce", t.device, 0, 0, t.numel() * t.element_size() * (size > 1)):
+        torch.distributed.all_reduce(t, op=op)
     return t
 
 
@@ -242,20 +223,18 @@ def all_to_all(bins: Sequence[torch.Tensor], devices: Sequence[torch.device]) ->
     a world, the bins for other processes in one ``all_to_all_single``."""
     n = len(bins)
     total = sum(b.numel() * b.element_size() for b in bins)
-    span = _span("all_to_all", devices[0], total, total)
-    w = world()
-    if w is None:
-        out = []
-        for d in range(n):
-            recv = torch.empty((n * bins[0].shape[1],) + tuple(bins[0].shape[2:]),
-                               dtype=bins[0].dtype, device=devices[d])
-            for s, b in enumerate(bins):
-                recv[s * b.shape[1] : (s + 1) * b.shape[1]].copy_(b[d], non_blocking=True)
-            out.append(recv)
-    else:
-        out = _all_to_all_world(bins, *w)
-    if span is not None:
-        span.close()
+    with _exchange("all_to_all", devices[0], total, total):
+        w = world()
+        if w is None:
+            out = []
+            for d in range(n):
+                recv = torch.empty((n * bins[0].shape[1],) + tuple(bins[0].shape[2:]),
+                                   dtype=bins[0].dtype, device=devices[d])
+                for s, b in enumerate(bins):
+                    recv[s * b.shape[1] : (s + 1) * b.shape[1]].copy_(b[d], non_blocking=True)
+                out.append(recv)
+        else:
+            out = _all_to_all_world(bins, *w)
     return out
 
 
@@ -278,12 +257,10 @@ def _all_to_all_world(bins, rank: int, size: int) -> List[torch.Tensor]:
         send = stacked.view((k, size, k, cap) + rest).transpose(0, 1)[others].contiguous()
         got = torch.empty_like(send)
         splits = [0 if q == rank else k * k * cap for q in range(size)]
-        span = _span("all_to_all_single", stacked.device, 0, 0,
-                     send.numel() * send.element_size())
-        torch.distributed.all_to_all_single(got.view((-1,) + rest), send.view((-1,) + rest),
-                                            splits, splits)
-        if span is not None:
-            span.close()
+        with _exchange("all_to_all_single", stacked.device, 0, 0,
+                       send.numel() * send.element_size()):
+            torch.distributed.all_to_all_single(got.view((-1,) + rest), send.view((-1,) + rest),
+                                                splits, splits)
         recv[:, others] = got.permute((2, 0, 1) + tuple(range(3, got.dim())))
     return list(recv.view((k, size * k * cap) + rest).unbind(0))
 
@@ -294,20 +271,18 @@ def psum(values: Sequence[torch.Tensor], devices: Sequence[torch.device]) -> Lis
     local sum then one ``all_reduce`` over the processes."""
     nbytes = values[0].numel() * values[0].element_size()
     others = len({d for d in devices} - {devices[0]})
-    span = _span("psum", devices[0], len(values) * nbytes, (1 + others) * nbytes)
-    if len(values) == 1:
-        total = values[0]
-    else:
-        total = torch.stack([v.to(devices[0], non_blocking=True) for v in values]).sum(
-            0, dtype=values[0].dtype)
-    if world() is not None:
-        total = _all_reduce(total.clone() if len(values) == 1 else total,
-                            torch.distributed.ReduceOp.SUM)
-    copies = {devices[0]: total}
-    for d in devices:
-        if d not in copies:
-            copies[d] = total.to(d, non_blocking=True)
-    out = [copies[d] for d in devices]
-    if span is not None:
-        span.close()
+    with _exchange("psum", devices[0], len(values) * nbytes, (1 + others) * nbytes):
+        if len(values) == 1:
+            total = values[0]
+        else:
+            total = torch.stack([v.to(devices[0], non_blocking=True) for v in values]).sum(
+                0, dtype=values[0].dtype)
+        if world() is not None:
+            total = _all_reduce(total.clone() if len(values) == 1 else total,
+                                torch.distributed.ReduceOp.SUM)
+        copies = {devices[0]: total}
+        for d in devices:
+            if d not in copies:
+                copies[d] = total.to(d, non_blocking=True)
+        out = [copies[d] for d in devices]
     return out

@@ -22,6 +22,12 @@ layout is the reference's:
     EOS marker (0xFFFFFFFF, then 0 as u32)
 
 Under the same forcing flags the file's bytes equal the JAX writer's.
+
+A :func:`write_file` is a ``strawboat.write`` root span (``util/obs.py``)
+with ``.prepare`` (the columns to storage arrays), one ``.page`` a page
+job (in the pool's threads, each counting in ``write.pages``; the codecs'
+``.stats``, ``.choose`` and ``.encode`` under it) and ``.io`` (the
+file's writes).
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from ..schema import (
     FLAT_FLOAT_TYPES, NULL_TYPE, WRITABLE_TYPES, Field, decimal_params, fixed_binary_width,
     int_storage, schema_to_bytes,
 )
+from ..util import obs
 from ..util.hybrid_rle import encode_levels, encode_validity_bitpacked, get_bit_width
 from .nested import cum_sums, slice_nested, to_nested, write_levels
 
@@ -344,20 +351,23 @@ def _encode_pages(fields, data, spans, options):
     jobs: List[Tuple[int, int, int]] = [
         (li, off, ln) for li in range(len(leaves)) for off, ln in spans
     ]
+    parent = obs.current()  # the write's span, handed to the pool's threads
 
     def encode(job):
-        li, off, ln = job
-        ci, lf, nests, leaf = leaves[li]
-        if lf is not None:
-            s_nests, s_leaf = slice_nested(nests, leaf, off, ln)
-            return write_nested_page(s_nests, s_leaf, lf, options), None
-        values, validity = data[ci]
-        page_values = _page_slice(values, off, ln)
-        page_validity = None if validity is None else validity[off : off + ln]
-        zone = None
-        if options.zone_maps and (fields[ci].is_flat_int or fields[ci].is_flat_float):
-            zone = PageZone(*compute_zones(page_values, page_validity), ln)
-        return (write_page(page_values, page_validity, fields[ci], options), ln), zone
+        with obs.span("strawboat.write.page", parent=parent):
+            obs.count("write.pages")
+            li, off, ln = job
+            ci, lf, nests, leaf = leaves[li]
+            if lf is not None:
+                s_nests, s_leaf = slice_nested(nests, leaf, off, ln)
+                return write_nested_page(s_nests, s_leaf, lf, options), None
+            values, validity = data[ci]
+            page_values = _page_slice(values, off, ln)
+            page_validity = None if validity is None else validity[off : off + ln]
+            zone = None
+            if options.zone_maps and (fields[ci].is_flat_int or fields[ci].is_flat_float):
+                zone = PageZone(*compute_zones(page_values, page_validity), ln)
+            return (write_page(page_values, page_validity, fields[ci], options), ln), zone
 
     workers = min(len(jobs), os.cpu_count() or 1)
     if workers <= 1:
@@ -473,7 +483,8 @@ class NativeWriter:
     def start(self) -> None:
         if self._state != _NONE:
             raise OutOfSpecError("The strawboat file can only be started once")
-        self._write(ARROW_MAGIC + b"\x00\x00")
+        with obs.span("strawboat.write.io"):
+            self._write(ARROW_MAGIC + b"\x00\x00")
         self._state = _STARTED
 
     def write(self, chunk) -> None:
@@ -481,20 +492,23 @@ class NativeWriter:
             raise OutOfSpecError("The strawboat file can only accept one RowGroup in a single file")
         if self._state != _STARTED:
             raise OutOfSpecError("The strawboat file must be started before it can be written to")
-        columns, fields = _as_columns(chunk, self.fields)
-        fields, data, rows = _prepare(columns, fields)
+        with obs.span("strawboat.write.prepare"):
+            columns, fields = _as_columns(chunk, self.fields)
+            fields, data, rows = _prepare(columns, fields)
         self.fields = fields
         step = max(min(self.options.max_page_size or rows, rows), 1)
         spans = [(off, min(step, rows - off)) for off in range(0, rows, step)]
         pages, self.zones = _encode_pages(fields, data, spans, self.options)
-        self.metas = _write_pages(self._write, self._offset, pages)
+        with obs.span("strawboat.write.io"):
+            self.metas = _write_pages(self._write, self._offset, pages)
         self._state = _WRITTEN
 
     def finish(self) -> None:
         if self._state != _WRITTEN:
             raise OutOfSpecError("The strawboat file must be written before it can be finished")
-        self._write(_footer(self.fields, self.metas, self.zones))
-        self.writer.flush()
+        with obs.span("strawboat.write.io"):
+            self._write(_footer(self.fields, self.metas, self.zones))
+            self.writer.flush()
         self._state = _FINISHED
 
 
@@ -524,14 +538,15 @@ def write_file(path_or_file, columns, schema=None,
     "struct", children=...)``); a flat ``columns.Column`` is taken too.
     ``options.zone_maps`` writes a zone of every page of the flat integer,
     temporal and float columns."""
-    own = isinstance(path_or_file, (str, os.PathLike))
-    f = open(path_or_file, "wb") if own else path_or_file
-    try:
-        w = NativeWriter(f, schema, options)
-        w.start()
-        w.write(columns)
-        w.finish()
-        return w.metas
-    finally:
-        if own:
-            f.close()
+    with obs.span("strawboat.write"):
+        own = isinstance(path_or_file, (str, os.PathLike))
+        f = open(path_or_file, "wb") if own else path_or_file
+        try:
+            w = NativeWriter(f, schema, options)
+            w.start()
+            w.write(columns)
+            w.finish()
+            return w.metas
+        finally:
+            if own:
+                f.close()

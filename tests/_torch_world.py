@@ -386,14 +386,14 @@ def case_resident(mesh, inp):
     one K1 call a process over its shards' planes (and Q6's K1 launches:
     none on the CPU, where the wrapper runs the plain version)."""
     from strawboat_tpu_torch import parallel as par
-    from strawboat_tpu_torch.kernels import bitunpack as bu
+    from strawboat_tpu_torch.util import obs
 
     srt = _sharded_resident(mesh, inp["resident_path"])
     calls, orig = _counting_k1()
     try:
-        launches = bu.bitunpack_tiled.launches
+        launches = obs.counter("k1.launches")
         q6 = par.sharded_filter_sum(srt, inp["q6_preds"], value="ep", product_with="disc")
-        launches = bu.bitunpack_tiled.launches - launches
+        launches = obs.counter("k1.launches") - launches
         q6_calls = list(calls)
         calls.clear()
         group = par.sharded_group_sum(srt, "grp", ["ep"], num_groups=6,

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from strawboat_tpu_torch.kernels import bitunpack as port
+from strawboat_tpu_torch.util import obs
 
 SEEDS = (0, 0xA5A500FF)
 
@@ -92,11 +93,11 @@ def test_wrapper_rejects_bad_input():
 def test_cpu_tensor_runs_plain_and_counts_no_launch():
     """A CPU tensor takes the plain version; the launch count only moves
     where the CUDA kernel launches."""
-    before = port.bitunpack_tiled.launches
+    before = obs.counter("k1.launches")
     w = torch.from_numpy(_words(7).view(np.int32))
     got = port.bitunpack_tiled(w, 3, 7)
     assert torch.equal(got, port.bitunpack_tiled_plain(w, 3, 7))
-    assert port.bitunpack_tiled.launches == before
+    assert obs.counter("k1.launches") == before
 
 
 # ---------------------------------------------------------------------------
@@ -144,11 +145,11 @@ def test_k2_k0_plain_versions_and_counts():
     """On the CPU the wrappers run their plain versions and count no
     launch; the plain versions are K1's at seed 0."""
     w = torch.from_numpy(_words(9).view(np.int32))
-    counts = (port.bitunpack_tiled_unseeded.launches, port.bitunpack_tmajor.launches)
+    counts = (obs.counter("k2.launches"), obs.counter("k0.launches"))
     assert torch.equal(port.bitunpack_tiled_unseeded(w, 9), port.bitunpack_tiled_plain(w, 0, 9))
     wt = w[0]
     assert torch.equal(port.bitunpack_tmajor(wt, 9), port.bitunpack_tiled_plain(w[:1], 0, 9)[0])
-    assert counts == (port.bitunpack_tiled_unseeded.launches, port.bitunpack_tmajor.launches)
+    assert counts == (obs.counter("k2.launches"), obs.counter("k0.launches"))
     with pytest.raises(ValueError):
         port.bitunpack_tmajor(torch.zeros((9, 500), dtype=torch.int32), 9)  # lanes % 512
     with pytest.raises(ValueError):
@@ -219,11 +220,11 @@ def test_descriptors_pack_each_plane():
 
 
 def test_many_cpu_counts_no_launch_and_rejects_bad_lists():
-    before = (port.bitunpack_tiled.launches, port.bitunpack_tiled.planes)
+    before = (obs.counter("k1.launches"), obs.counter("k1.planes"))
     planes = _plane_list([(1, 3, 512), (2, 8, 512)])
     got = port.bitunpack_tiled_many(planes, 3)
     assert all(torch.equal(g, port.bitunpack_tiled_plain(w, 3, b)) for (w, b), g in zip(planes, got))
-    assert (port.bitunpack_tiled.launches, port.bitunpack_tiled.planes) == before
+    assert (obs.counter("k1.launches"), obs.counter("k1.planes")) == before
     meta = torch.empty((1, 3, 512), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="different devices"):
         port.bitunpack_tiled_many([planes[0], (meta, 3)])

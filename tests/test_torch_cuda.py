@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from strawboat_tpu_torch.kernels import bitunpack as bu
+from strawboat_tpu_torch.util import obs
 
 pytestmark = pytest.mark.cuda
 
@@ -29,10 +30,10 @@ def test_k1_matches_plain_on_card(cuda, seed):
     for b in range(1, 33):
         w = torch.randint(-(2**31), 2**31 - 1, (3, b, 16384), dtype=torch.int32,
                           device=cuda, generator=g)
-        before = bu.bitunpack_tiled.launches
+        before = obs.counter("k1.launches")
         got = bu.bitunpack_tiled(w, seed, b)
         torch.cuda.synchronize()
-        assert bu.bitunpack_tiled.launches == before + 1
+        assert obs.counter("k1.launches") == before + 1
         assert torch.equal(got, bu.bitunpack_tiled_plain(w, seed, b)), b
 
 
@@ -42,7 +43,7 @@ def test_resident_q1_q6_on_card(cuda):
 
     cols = tpch.generate_lineitem(1.0, rows=200_000)
     rt = make_resident({k: cols[k] for k in tpch.Q1_Q6_COLUMNS}, cuda)
-    before = bu.bitunpack_tiled.launches
+    before = obs.counter("k1.launches")
     assert int(tpch.q6(rt)) == tpch.q6_numpy_reference(cols)
     got = tpch.q1_rows(tpch.q1(rt))
     want = tpch.q1_numpy_reference(cols)
@@ -53,7 +54,7 @@ def test_resident_q1_q6_on_card(cuda):
                 np.testing.assert_allclose(got[key][name], w, rtol=1e-12)
             else:
                 assert got[key][name] == w, (key, name)
-    assert bu.bitunpack_tiled.launches > before
+    assert obs.counter("k1.launches") > before
 
 
 @pytest.mark.parametrize("seed", [0, 0xA5A500FF])
@@ -64,20 +65,20 @@ def test_k3_matches_plain_on_card(cuda, seed):
         for n_blocks in (1, 7, cta - 1, cta, cta + 1, 777, 2000):
             w = torch.randint(-(2**31), 2**31 - 1, (n_blocks, 4 * b), dtype=torch.int32,
                               device=cuda, generator=g)
-            before = bu.bitunpack_natural.launches
+            before = obs.counter("k3.launches")
             got = bu.bitunpack_natural(w, seed, b)
             torch.cuda.synchronize()
-            assert bu.bitunpack_natural.launches == before + (b > 0)  # b == 0: no launch
+            assert obs.counter("k3.launches") == before + (b > 0)  # b == 0: no launch
             assert torch.equal(got, bu.bitunpack_natural_plain(w, seed, b)), (b, n_blocks)
     # a start 4 bytes past a 16-byte boundary is refused before any launch
     flat = torch.zeros(4 * 6 * 100 + 1, dtype=torch.int32, device=cuda)
     misaligned = flat[1:].view(100, 4 * 6)
-    before = bu.bitunpack_natural.launches
+    before = obs.counter("k3.launches")
     with pytest.raises(ValueError, match="16-byte"):
         bu.bitunpack_natural(misaligned, seed, 6)
     with pytest.raises(ValueError, match="contiguous"):
         bu.bitunpack_natural(flat[: 4 * 6 * 100].view(4 * 6, 100).t(), seed, 6)
-    assert bu.bitunpack_natural.launches == before
+    assert obs.counter("k3.launches") == before
 
 
 def test_k2_k0_match_plain_on_card(cuda):
@@ -103,10 +104,10 @@ def test_scan_on_card(cuda, tmp_path, monkeypatch, flags):
     cols = tpch.generate_lineitem(1.0, rows=300_000)
     path = str(tmp_path / "lineitem.str")
     tpch.write_lineitem(path, cols)
-    before = bu.bitunpack_natural.launches
+    before = obs.counter("k3.launches")
     table = scan_file(path, device=cuda)
     torch.cuda.synchronize()
-    assert bu.bitunpack_natural.launches > before
+    assert obs.counter("k3.launches") > before
     for k in tpch.INT_COLUMNS:
         assert table[k].values.device.type == "cuda"
         np.testing.assert_array_equal(host_values(table[k]), cols[k], err_msg=k)
@@ -129,10 +130,10 @@ def test_q3_general_path_on_card(cuda, tmp_path, monkeypatch):
     tpch.write_lineitem(lp, cols)
     tpch.write_orders(op, orders)
     want = tpch.q3_numpy_reference(cols, orders)
-    before = bu.bitunpack_natural.launches
+    before = obs.counter("k3.launches")
     res = tpch.q3_query(lp, op, cuda)
     assert res["revenue"].device.type == "cuda"
-    assert bu.bitunpack_natural.launches > before
+    assert obs.counter("k3.launches") > before
     assert tpch.q3_rows(res["key_o_orderpriority"], res["n_groups"], res["revenue"]) == want
     got = tpch.q3_like(scan_file(lp, cuda), scan_file(op, cuda))
     assert tpch.q3_rows(*got) == want
@@ -144,10 +145,10 @@ def test_q3_general_path_on_card(cuda, tmp_path, monkeypatch):
     keys = g["key_l_suppkey"][:n].cpu().numpy()
     np.testing.assert_array_equal(g["n"][:n].cpu().numpy(),
                                   np.bincount(cols["l_suppkey"][m], minlength=10000)[keys])
-    before = bu.bitunpack_tiled.launches
+    before = obs.counter("k1.launches")
     rt = load_resident(lp, cuda)
     assert int(tpch.q6(rt)) == tpch.q6_numpy_reference(cols)
-    assert bu.bitunpack_tiled.launches > before
+    assert obs.counter("k1.launches") > before
 
 
 def test_k3_on_string_index_pages_matches_plain_on_card(cuda, tmp_path, monkeypatch):
@@ -170,15 +171,15 @@ def test_k3_on_string_index_pages_matches_plain_on_card(cuda, tmp_path, monkeypa
     for _col, (codec, b), _pages, words in groups:
         assert codec == Compression.DICT
         w = torch.from_numpy(words.view(np.int32)).to(cuda)
-        before = bu.bitunpack_natural.launches
+        before = obs.counter("k3.launches")
         got = bu.bitunpack_natural(w, 0, b)
         torch.cuda.synchronize()
-        assert bu.bitunpack_natural.launches == before + 1
+        assert obs.counter("k3.launches") == before + 1
         assert torch.equal(got.cpu(), bu.bitunpack_natural_plain(w.cpu(), 0, b)), b
-    before = bu.bitunpack_natural.launches
+    before = obs.counter("k3.launches")
     on_card = scan_file(path, cuda, columns=strings)
     torch.cuda.synchronize()
-    assert bu.bitunpack_natural.launches == before + len(groups)
+    assert obs.counter("k3.launches") == before + len(groups)
     on_cpu = scan_file(path, "cpu", columns=strings)
     for k in strings:
         assert on_card[k].values.device.type == "cuda"
@@ -215,15 +216,15 @@ def test_k3_on_typed_dict_index_pages_matches_plain_on_card(cuda, tmp_path, monk
     for _col, (codec, b), _pages, words in groups:
         assert codec == Compression.DICT
         w = torch.from_numpy(words.view(np.int32)).to(cuda)
-        before = bu.bitunpack_natural.launches
+        before = obs.counter("k3.launches")
         got = bu.bitunpack_natural(w, 0, b)
         torch.cuda.synchronize()
-        assert bu.bitunpack_natural.launches == before + 1
+        assert obs.counter("k3.launches") == before + 1
         assert torch.equal(got.cpu(), bu.bitunpack_natural_plain(w.cpu(), 0, b)), b
-    before = bu.bitunpack_natural.launches
+    before = obs.counter("k3.launches")
     on_card = scan_file(path, cuda)
     torch.cuda.synchronize()
-    assert bu.bitunpack_natural.launches == before + len(groups)
+    assert obs.counter("k3.launches") == before + len(groups)
     on_cpu = scan_file(path, "cpu")
     for k, v in cols.items():
         assert on_card[k].values.device.type == "cuda"
@@ -317,10 +318,10 @@ def test_nested_leaf_pages_through_k3_on_card(cuda, tmp_path):
     for _col, (_codec, b), _pages, words in groups:
         w = torch.from_numpy(words.view(np.int32)).to(cuda)
         assert torch.equal(bu.bitunpack_natural(w, 0, b).cpu(), bu.bitunpack_natural_plain(w.cpu(), 0, b))
-    before = bu.bitunpack_natural.launches
+    before = obs.counter("k3.launches")
     on_card = scan_file(path, cuda)
     torch.cuda.synchronize()
-    assert bu.bitunpack_natural.launches == before + len(groups)
+    assert obs.counter("k3.launches") == before + len(groups)
     on_cpu = scan_file(path, "cpu")
     for k, c in on_cpu.columns.items():
         g = on_card[k]
@@ -336,10 +337,10 @@ def test_list_sum_on_card_equals_cpu(cuda, tmp_path):
 
     path, offsets, price = _nested_orders_file(tmp_path)
     rt = load_resident(path, cuda)
-    before = bu.bitunpack_tiled.launches
+    before = obs.counter("k1.launches")
     got = rt.list_sum("o_lineprices")
     torch.cuda.synchronize()
-    assert bu.bitunpack_tiled.launches > before
+    assert obs.counter("k1.launches") > before
     want = np.add.reduceat(price, offsets[:-1])
     assert got.cpu().tolist() == want.tolist()
     assert got.cpu().tolist() == load_resident(path, "cpu").list_sum("o_lineprices").tolist()
@@ -406,11 +407,11 @@ def test_sharded_k1_on_card_equals_plain(cuda):
     rt = make_resident({k: cols[k] for k in tpch.Q1_Q6_COLUMNS}, cuda)
     srt = shard_resident(rt, make_mesh(4, cuda), "shards")
     planes = [p for c in srt.columns.values() for local in c.local for p in local.planes]
-    before = (bu.bitunpack_tiled.launches, bu.bitunpack_tiled.planes)
+    before = (obs.counter("k1.launches"), obs.counter("k1.planes"))
     got = bu.bitunpack_tiled_many(planes)
     torch.cuda.synchronize()
     # every shard's planes in one launch
-    assert (bu.bitunpack_tiled.launches, bu.bitunpack_tiled.planes) == (
+    assert (obs.counter("k1.launches"), obs.counter("k1.planes")) == (
         before[0] + 1, before[1] + len(planes))
     for (w, b), g in zip(planes, got):
         assert torch.equal(g, bu.bitunpack_tiled_plain(w, 0, b)), b
@@ -431,11 +432,11 @@ def test_k1_many_matches_plain_on_card(cuda, seed):
 
     planes = [plane(2, b, tile) for tile in (16384, 512) for b in range(1, 33)]
     for many in (planes, planes[:5], planes + planes[:6]):
-        before = (bu.bitunpack_tiled.launches, bu.bitunpack_tiled.planes)
+        before = (obs.counter("k1.launches"), obs.counter("k1.planes"))
         got = bu.bitunpack_tiled_many(many, seed)
         torch.cuda.synchronize()
         launches = 1 if len(many) <= bu.K1_MAX_PLANES else 2
-        assert (bu.bitunpack_tiled.launches, bu.bitunpack_tiled.planes) == (
+        assert (obs.counter("k1.launches"), obs.counter("k1.planes")) == (
             before[0] + launches, before[1] + len(many))
         for (w, b), o in zip(many, got):
             assert torch.equal(o, bu.bitunpack_tiled_plain(w, seed, b)), (b, tuple(w.shape))
@@ -456,10 +457,10 @@ def test_k1_odd_tile_and_misaligned_base_on_card(cuda):
         assert torch.equal(bu.bitunpack_tiled(w, 7, b), bu.bitunpack_tiled_plain(w, 7, b))
     for w, o in zip((odd, shifted), bu.bitunpack_tiled_many([(odd, 9), (shifted, 13)], 7)):
         assert torch.equal(o, bu.bitunpack_tiled_plain(w, 7, w.shape[1]))
-    before = bu.bitunpack_tiled.launches
+    before = obs.counter("k1.launches")
     with pytest.raises(ValueError, match="contiguous"):
         bu.bitunpack_tiled_many([(odd, 9), (flat[: 2 * 13 * 512].view(2, 512, 13).transpose(1, 2), 13)])
-    assert bu.bitunpack_tiled.launches == before
+    assert obs.counter("k1.launches") == before
 
 
 def test_sharded_and_resident_q6_launch_k1_once_on_card(cuda):
@@ -476,10 +477,10 @@ def test_sharded_and_resident_q6_launch_k1_once_on_card(cuda):
           "l_extendedprice", "l_discount")
     for run, planes in ((lambda: tpch.q6(rt), 4), (lambda: tpch.q1(rt), 7),
                         (lambda: sharded_filter_sum(srt, *q6), 16)):
-        before = (bu.bitunpack_tiled.launches, bu.bitunpack_tiled.planes)
+        before = (obs.counter("k1.launches"), obs.counter("k1.planes"))
         run()
         torch.cuda.synchronize()
-        assert (bu.bitunpack_tiled.launches, bu.bitunpack_tiled.planes) == (
+        assert (obs.counter("k1.launches"), obs.counter("k1.planes")) == (
             before[0] + 1, before[1] + planes)
     assert int(sharded_filter_sum(srt, *q6)) == int(tpch.q6(rt)) == tpch.q6_numpy_reference(cols)
 
@@ -608,10 +609,10 @@ def test_fixed_binary_scan_on_card_equals_plain_scan(cuda, tmp_path, monkeypatch
                       for w, v in ints.items()})
     path = str(tmp_path / "fixed.str")
     write_file(path, table, options=WriteOptions(max_page_size=65536))
-    before = bu.bitunpack_natural.launches
+    before = obs.counter("k3.launches")
     got = scan_file(path, cuda)
     torch.cuda.synchronize()
-    assert bu.bitunpack_natural.launches > before
+    assert obs.counter("k3.launches") > before
     plain = scan_file(path, "cpu")
     for w, v in ints.items():
         c = got[f"w{w}"]
@@ -632,3 +633,27 @@ def test_q1_dense_on_card_equals_cpu(cuda, tmp_path):
     got = tpch.q1_dense(scan_file(path, cuda))
     assert got.equals(tpch.q1_dense(scan_file(path, "cpu")))
     assert tpch.q1_table_rows(got) == tpch.q1_numpy_reference(cols)
+
+
+def test_query_phase_events_resolve_on_card(cuda):
+    """Recorded resident Q6 and Q1 on the card: each query root's
+    ``decode`` and ``aggregate`` spans carry CUDA events that resolve to
+    device milliseconds, and the answers are those of the unrecorded
+    queries."""
+    from strawboat_tpu_torch.benchsuite import tpch
+    from strawboat_tpu_torch.exec import make_resident
+
+    cols = tpch.generate_lineitem(1.0, seed=0, rows=2_000_000)
+    rt = make_resident({k: cols[k] for k in tpch.Q1_Q6_COLUMNS}, cuda)
+    q6, q1 = int(tpch.q6(rt)), tpch.q1_rows(tpch.q1(rt))
+    with obs.recording() as rec:
+        assert int(tpch.q6(rt)) == q6
+        assert tpch.q1_rows(tpch.q1(rt)) == q1
+    roots = [r for r in rec.roots if r.name == "strawboat.query"]
+    assert [r.attrs["path"] for r in roots] == ["filter_sum", "fused"]
+    for r in roots:
+        for phase in ("decode", "aggregate"):
+            (sp,) = [s for s in r.children if s.name == f"strawboat.query.{phase}"]
+            assert 0 < sp.device_ms < 1000
+        decode = next(s for s in r.children if s.name == "strawboat.query.decode")
+        assert decode.counts["k1.launches"] == 1

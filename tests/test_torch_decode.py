@@ -19,6 +19,7 @@ from strawboat_tpu.kernels import decode as jref
 from strawboat_tpu.util.bits import pack_blocks
 from strawboat_tpu_torch.kernels import bitunpack as bu
 from strawboat_tpu_torch.kernels import decode as port
+from strawboat_tpu_torch.util import obs
 
 SEEDS = (0, 0xA5A500FF)
 
@@ -87,10 +88,10 @@ def test_k3_round_trips_packed_values():
 
 
 def test_k3_cpu_runs_plain_and_rejects_bad_input():
-    before = bu.bitunpack_natural.launches
+    before = obs.counter("k3.launches")
     w = _t(_block_words(5))
     assert torch.equal(bu.bitunpack_natural(w, 9, 5), bu.bitunpack_natural_plain(w, 9, 5))
-    assert bu.bitunpack_natural.launches == before
+    assert obs.counter("k3.launches") == before
     with pytest.raises(ValueError):
         bu.bitunpack_natural(w, 0, 6)  # 4*bits disagrees with the words
     with pytest.raises(TypeError):

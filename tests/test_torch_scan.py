@@ -29,9 +29,9 @@ from strawboat_tpu_torch.errors import NotYetImplementedError, OutOfSpecError, S
 from strawboat_tpu_torch.exec import scan_file
 from strawboat_tpu_torch.exec import scan as port_scan
 from strawboat_tpu_torch.exec.scan import host_values
-from strawboat_tpu_torch.kernels import bitunpack as bu
 from strawboat_tpu_torch.meta import serialize_metas
 from strawboat_tpu_torch.read.reader import infer_schema, read_meta
+from strawboat_tpu_torch.util import obs
 from strawboat_tpu_torch.write import write_file
 
 DICT, BP = "STRAWBOAT_DICT_COMPRESSION", "STRAWBOAT_BITPACK_COMPRESSION"
@@ -373,9 +373,9 @@ def test_lineitem_scan_q6_and_k3_groups(tmp_path, flags):
         flags(names)
         path = str(tmp_path / f"lineitem_{len(names)}.str")
         tpch.write_lineitem(path, cols, max_page_size=8192, columns=tpch.INT_COLUMNS)
-        before = bu.bitunpack_natural.launches
+        before = obs.counter("k3.launches")
         got = _check_scan(path, {k: cols[k] for k in tpch.INT_COLUMNS})
-        assert bu.bitunpack_natural.launches == before
+        assert obs.counter("k3.launches") == before
         assert int(tpch.q6(got)) == tpch.q6_numpy_reference(cols)
         jobs = {}
         schema, metas, file_bytes = port_scan._open(path)
