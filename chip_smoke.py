@@ -6,7 +6,7 @@ path and the file scan path.
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
 1. device  — the card's name, and its power limit from nvidia-smi;
-2. build   — compile kernels K1 and K3 (``strawboat_tpu_torch/kernels/csrc``)
+2. build   — compile kernels K1, K3 and K6 (``strawboat_tpu_torch/kernels/csrc``)
    with nvcc, one process per source, started together;
 3. kernel  — K1 bit-exact against its plain torch version for every width
    1..32 and two seeds; ``bitunpack_tiled_many`` (one launch over a list
@@ -29,7 +29,12 @@ the resident path (K1's launches are counted over 6–8):
 7. q6      — ``filter_sum`` Q6 == the numpy reference, one K1 launch,
    warm latency;
 8. q1      — ``Query(rt)`` Q1 == the numpy reference (exact; ``avg_*`` to
-   rtol 1e-12), one K1 launch, warm latency;
+   rtol 1e-12), one K1 launch, one K6 launch, warm latency;
+8a. k6     — K6 (``csrc/group_agg.cu``) on the inputs resident Q1 hands it
+   at SF10 (the key codes, the filter's mask and the five distinct values):
+   equal to its plain version, one launch; its event-window and device
+   times against the bound (the distinct inputs' bytes at 3.35 TB/s), the
+   plain version's time;
 
 the scan path (K3's launches are counted over 9–11):
 
@@ -727,16 +732,68 @@ def phase_q1(rt, cols) -> None:
     from strawboat_tpu_torch.benchsuite import tpch
 
     before = k1_counts()
+    k6 = (obs.counter("k6.launches"), obs.counter("k6.torch_aggs"))
     res = tpch.q1(rt)
     launched, planes = k1_counts(before)
+    k6 = (obs.counter("k6.launches") - k6[0], obs.counter("k6.torch_aggs") - k6[1])
     got = tpch.q1_rows(res)
     _q1_check("Q1", got, tpch.q1_numpy_reference(cols))
     if launched != 1:
         raise AssertionError(f"Q1 launched K1 {launched} times, not once")
+    if k6 != (1, 0):
+        raise AssertionError(f"Q1: K6 launches, aggregates on the torch route {k6} != (1, 0)")
     ms = wall_ms(lambda: tpch.q1(rt))
     emit("q1", groups=len(got), equal_to_numpy=True, k1_launches=launched, k1_planes=planes,
-         warm_median_ms=ms,
+         k6_launches=k6[0], k6_torch_aggs=k6[1], warm_median_ms=ms,
          count_order=sum(a["count_order"] for a in got.values()))
+
+
+def phase_k6(rt) -> dict:
+    """K6 on the call resident Q1 makes (captured from one ``tpch.q1``):
+    equal to its plain version, one launch a call, its times against the
+    bound.  Returns the kernel summary."""
+    from strawboat_tpu_torch.benchsuite import tpch
+    from strawboat_tpu_torch.exec import aggregate
+    from strawboat_tpu_torch.kernels import group_agg as ga
+
+    seen, orig = [], aggregate.group_agg
+
+    def capture(*a):
+        seen.append(a)
+        return orig(*a)
+
+    aggregate.group_agg = capture
+    try:
+        tpch.q1(rt)
+    finally:
+        aggregate.group_agg = orig
+    if len(seen) != 1:
+        raise AssertionError(f"resident Q1 called K6 {len(seen)} times, not once")
+    keys, cap, mask, outputs = seen[0]
+    before = obs.counter("k6.launches")
+    got = ga.group_agg(keys, cap, mask, outputs)
+    want = ga.group_agg_plain(keys, cap, mask, outputs)
+    torch.cuda.synchronize()
+    launches = obs.counter("k6.launches") - before
+    if launches != 1 or not torch.equal(got, want):
+        raise AssertionError(f"K6 on Q1's inputs: {launches} launches, equal {torch.equal(got, want)}")
+    # each distinct input read once, the sums written once
+    inputs = {t.data_ptr(): t for t in [k for k, _s in keys] + [mask]
+              + [t for o in outputs for t in o if t is not None]}
+    nbytes = sum(t.numel() * t.element_size() for t in inputs.values()) + got.numel() * 8
+    distinct = len({(id(v), id(m)) for v, m in outputs})
+    facts = {"max_abs_err": 0, "rows": int(mask.shape[0]), "cap": cap, "keys": len(keys),
+             "outputs": len(outputs), "distinct_outputs": distinct,
+             "plan": ga.plan_launches(cap, distinct), "input_bytes": nbytes,
+             "bound_ms": bound_ms(nbytes),
+             "ms": event_ms(lambda: ga.group_agg(keys, cap, mask, outputs)),
+             "plain_ms": event_ms(lambda: ga.group_agg_plain(keys, cap, mask, outputs), 3, 1)}
+    dev, facts["device_ms_first_try_short"] = device_ms(
+        [(lambda: ga.group_agg(keys, cap, mask, outputs), 1, "group_agg")])
+    facts["device_ms"] = dev[0]
+    facts["bound_share"] = facts["bound_ms"] / facts["device_ms"]
+    emit("k6", launches_a_call=launches, equal_to_plain=True, **facts)
+    return facts
 
 
 def k3_bytes(b: int, n_blocks: int) -> int:
@@ -2995,8 +3052,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     with obs.recording() as built:
-        _build.load_all(["bitunpack", "bitunpack_natural"])
-    emit("build", kernels=["bitunpack", "bitunpack_natural"], seconds=time.perf_counter() - t0,
+        _build.load_all(["bitunpack", "bitunpack_natural", "group_agg"])
+    emit("build", kernels=["bitunpack", "bitunpack_natural", "group_agg"],
+         seconds=time.perf_counter() - t0,
          compile_seconds={s.attrs["kernel"]: s.seconds
                           for s in built.spans("strawboat.kernel.build")},
          nvcc=_build.nvcc_path())
@@ -3020,6 +3078,9 @@ def main() -> int:
     phase_q6(rt, cols)
     phase_q1(rt, cols)
     k1_launches = kernel_counts(base)["K1"]
+    k6_timed = obs.counter("k6.launches")
+    k6 = phase_k6(rt)
+    k6_timed = obs.counter("k6.launches") - k6_timed  # the k6 phase's own calls
     if k1_launches <= 0:
         raise AssertionError("the resident path never launched K1")
     phase_s["resident"] = time.perf_counter() - started
@@ -3179,6 +3240,10 @@ def main() -> int:
         line("bitunpack_tiled_unseeded", "bitunpack.cu", "174", k2_k0["K2"]["launches"], k2_k0["K2"]),
         line("bitunpack_tmajor", "bitunpack.cu", "41", k2_k0["K0"]["launches"], k2_k0["K0"]),
         line("bitunpack_natural", "bitunpack_natural.cu", "298", k3_launches, k3),
+        # every launch but the k6 phase's own calls
+        dict(line("group_agg", "group_agg.cu", "", obs.counter("k6.launches") - k6_timed, k6),
+             replaces="strawboat_tpu/exec/aggregate.py:233 dense_group_sum (a one-hot matmul "
+                      "XLA fuses, no Pallas kernel)"),
     ]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -279,25 +279,25 @@ def q1_dense(table, delta_days: int = Q1_DEFAULT_DELTA):
     """TPC-H Q1 over a scanned lineitem ``DeviceTable`` on the dense-code
     path (reference ``q1_dense``): the composite code ``rf · n_ls + ls`` of
     the two flags' dictionary codes indexes ``n_rf · n_ls`` groups, the
-    five sums and the count come from ``dense_group_sum`` (the count once)
-    and come back to the host in one fetch.  Returns the reference's arrow
+    five sums and the count come from one ``dense_group_sum`` call (K6 on a
+    card) and come back to the host in one fetch.  Returns the reference's arrow
     table: the two keys (utf8) and the 8 aggregates, ordered by the keys.
     Money columns are integers (cents)."""
     import pyarrow as pa
 
-    from ..exec.aggregate import dense_group_sum, segment_reduce
+    from ..exec.aggregate import dense_group_sum
 
     mask = (col("l_shipdate") <= EPOCH_DAYS - delta_days).mask(table)
     rf, ls = table["l_returnflag"], table["l_linestatus"]
     n_ls = len(ls.dictionary)
     ng = len(rf.dictionary) * n_ls
-    code = torch.where(mask, rf.values.long() * n_ls + ls.values.long(), -1)
     qty, ep, disc, tax = (table[n].values.long() for n in MONEY_COLUMNS)
     disc_price = ep * (100 - disc)
     charge = disc_price * (100 + tax)
-    sum_qty, cnt = dense_group_sum(code, qty, ng)
-    sums = [segment_reduce(v, code, ng) for v in (ep, disc_price, charge, disc)]
-    stacked = torch.stack([sum_qty, *sums, cnt]).cpu().numpy()
+    sums, counts = dense_group_sum(
+        [(rf.values, n_ls), (ls.values, 1)],
+        [(v, None) for v in (qty, ep, disc_price, charge, disc)], ng, mask=mask)
+    stacked = torch.cat([sums, counts[:1]]).cpu().numpy()
     sum_qty, sum_base, sum_dp, sum_ch, sum_disc, cnt = stacked
     live = np.flatnonzero(cnt > 0)
     n = cnt[live].astype(np.float64)

@@ -4,8 +4,11 @@ Counterpart of ``strawboat_tpu/exec/aggregate.py``:
 
 - dense keys (``dense_group_sum`` and the ``jax.ops.segment_*`` calls of
   the resident path): the reference groups with a one-hot matmul on the MXU
-  because scatters serialize on the TPU; here a grouped sum is an exact
-  int64 scatter-add.  These run in two levels: rows are cut into chunks of
+  because scatters serialize on the TPU.  Here integer sums and counts over
+  up to ``K6_MAX_GROUPS`` groups are one call of the hand-written kernel K6
+  (``kernels/group_agg.py``): every sum and count of a query in one pass,
+  with no per-row atomic.  Beyond, and for floats, min and max,
+  ``segment_reduce`` scatters in two levels: rows are cut into chunks of
   ``CHUNK``, each chunk scatters into its own row of partials, and the
   partials are reduced over chunks (with few groups a single-level scatter
   sends every row's atomic to the same handful of addresses);
@@ -31,6 +34,7 @@ import torch
 
 from ..device import SIGN64, u64_to_i64, widen_i64
 from ..errors import CapacityError, NotYetImplementedError
+from ..kernels.group_agg import K6_MAX_GROUPS, composite_code, group_agg
 from .expr import Expr
 from .scan import unsigned_view
 
@@ -84,31 +88,81 @@ def segment_reduce(
     return out[:num_segments]
 
 
+def _k6_int(t: torch.Tensor, memo: Dict[int, torch.Tensor]) -> torch.Tensor:
+    """``t`` as K6 takes it: int32 or int64 and contiguous (any other dtype
+    through ``.to(torch.int64)``, as the scatter-add route takes it); one
+    tensor a distinct input (``memo``), so repeated inputs stay one."""
+    got = memo.get(id(t))
+    if got is None:
+        got = t if t.dtype in (torch.int32, torch.int64) else t.to(torch.int64)
+        got = memo[id(t)] = got.contiguous()
+    return got
+
+
 def dense_group_sum(
-    codes: torch.Tensor,
-    values: torch.Tensor,
+    codes,
+    values,
     num_groups: int,
     mask: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+):
     """Exact int64 per-group sums and counts for dense keys in
     ``[0, num_groups)``.  Rows with ``mask`` False, negative codes or codes
-    ``>= num_groups`` are dropped.  Sums wrap mod 2^64, as the reference's."""
+    ``>= num_groups`` are dropped.  Sums wrap mod 2^64, as the reference's.
+
+    ``codes`` is one tensor of group codes, or ``[(codes, stride)]`` key
+    columns whose composite code ``Σ codes · stride`` is the group;
+    ``values`` one integer tensor, or ``[(values, validity)]``: each summed
+    over the rows ``mask & validity`` keeps (``values`` None: a count,
+    ``validity`` None: every row).  Returns ``(sums, counts)``: for one
+    tensor both ``(num_groups,)``, the count of the rows ``mask`` keeps;
+    for a list both ``(len(values), num_groups)``, ``counts[i]`` the rows
+    that ``sums[i]`` adds.
+
+    Up to ``K6_MAX_GROUPS`` groups this is one call of K6 (every distinct
+    input read once, on CUDA one launch where the outputs fit one);
+    beyond, the two-level scatter-add of :func:`segment_reduce`."""
+    single = isinstance(values, torch.Tensor)
+    keys = [(codes, 1)] if isinstance(codes, torch.Tensor) else list(codes)
+    items = [(values, None)] if single else list(values)
+    if num_groups > K6_MAX_GROUPS:
+        sums, counts = _segment_sums(keys, items, num_groups, mask)
+    else:
+        memo: Dict[int, torch.Tensor] = {}
+        keys = [(_k6_int(k, memo), int(st)) for k, st in keys]
+        items = [(None if v is None else _k6_int(v, memo),
+                  None if m is None else m.contiguous()) for v, m in items]
+        n = len(items)
+        out = group_agg(keys, num_groups, None if mask is None else mask.contiguous(),
+                        items + [(None, m) for _v, m in items])
+        sums, counts = out[:n], out[n:]
+    return (sums[0], counts[0]) if single else (sums, counts)
+
+
+def _segment_sums(keys, items, num_groups: int, mask: Optional[torch.Tensor]):
+    """:func:`dense_group_sum` beyond ``K6_MAX_GROUPS`` groups: the composite
+    code on the host's side, then :func:`segment_reduce` an output."""
+    code = composite_code(keys, keys[0][0].shape[0], keys[0][0].device)
     if mask is not None:
-        codes = torch.where(mask, codes, -1)
-    sums = segment_reduce(values.to(torch.int64), codes, num_groups, "sum")
-    return sums, dense_group_count(codes, num_groups)
+        code = torch.where(mask, code, -1)
+    ones = torch.ones(code.shape, dtype=torch.int64, device=code.device)
+    sums, counts = [], []
+    for v, valid in items:
+        seg = code if valid is None else torch.where(valid, code, -1)
+        counts.append(segment_reduce(ones, seg, num_groups))
+        sums.append(counts[-1] if v is None else segment_reduce(v.to(torch.int64), seg, num_groups))
+    return torch.stack(sums), torch.stack(counts)
 
 
 def dense_group_count(
     codes: torch.Tensor, num_groups: int, mask: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
-    """int64 rows per group, with ``dense_group_sum``'s dropping rules.
-    (A scatter-add of ones: ``torch.bincount`` into a handful of bins
-    contends on a few addresses and took 5x as long on the H100.)"""
-    if mask is not None:
-        codes = torch.where(mask, codes, -1)
-    ones = torch.ones(codes.shape, dtype=torch.int64, device=codes.device)
-    return segment_reduce(ones, codes, num_groups, "sum")
+    """int64 rows per group, with ``dense_group_sum``'s dropping rules: a
+    one-output K6 call up to ``K6_MAX_GROUPS`` groups, a scatter-add of
+    ones beyond."""
+    if num_groups > K6_MAX_GROUPS:
+        return _segment_sums([(codes, 1)], [(None, None)], num_groups, mask)[0][0]
+    return group_agg([(_k6_int(codes, {}), 1)], num_groups,
+                     None if mask is None else mask.contiguous(), [(None, None)])[0]
 
 
 # ---------------------------------------------------------------------------

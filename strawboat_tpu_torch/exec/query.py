@@ -35,6 +35,7 @@ import torch
 
 from ..device import as_device
 from ..errors import OutOfSpecError
+from ..kernels.group_agg import composite_code
 from ..util import obs
 from .aggregate import (
     dense_group_count,
@@ -218,7 +219,8 @@ class Query:
         4096 composite groups, another aggregate function).  A
         ``strawboat.query`` root span (``path="fused"``) with ``.plan``,
         ``.decode`` (K1 and the planes combined into values), ``.filter``,
-        ``.aggregate`` (group codes and the dense sums), ``.fetch`` (the
+        ``.aggregate`` (the aggregates' expressions and the grouped sums:
+        one K6 call, :func:`_fused_aggregates`), ``.fetch`` (the
         two stacks to the host) and ``.finish`` (the host's result and
         order-by)."""
         rt = self.path
@@ -236,13 +238,7 @@ class Query:
                 if self._filter is not None:
                     m = m & self._filter.mask(table)
             with obs.span("strawboat.query.aggregate", device=rt.device):
-                code = torch.zeros(rt.tiled_slots, dtype=torch.int64, device=rt.device)
-                for k, st in zip(keys, strides):
-                    code = code + key_codes[k].long() * int(st)
-                code32 = code.to(torch.int32)
-                cnt = dense_group_count(code32, cap, m)
-                outs = [cnt if fn == "count" else _fused_agg(fn, c, table, code, code32, cap, m)
-                        for _name, (fn, c) in agg_items]
+                cnt, outs = _fused_aggregates(agg_items, table, key_codes, keys, strides, cap, m)
             with obs.span("strawboat.query.fetch"):
                 # two host copies: one int64 stack, one float64 stack
                 int_rows, flt_rows, out_slot = [cnt], [], []
@@ -388,19 +384,51 @@ def _fused_decode(rt: ResidentTable, names, keys):
     return DeviceTable(cols, rt.tiled_slots), key_codes
 
 
-def _fused_agg(fn: str, c, table: DeviceTable, code: torch.Tensor, code32: torch.Tensor,
+def _fused_aggregates(agg_items, table: DeviceTable, key_codes, keys, strides, cap: int,
+                      m: torch.Tensor):
+    """The fused branch's aggregates over the composite groups of the rows
+    ``m`` keeps → (each group's rows, one ``(cap,)`` tensor an aggregate).
+    The count and every integer sum, avg and mean are one
+    ``dense_group_sum`` call (K6: each distinct input read once, one count
+    a distinct validity); the rest (floats, min, max) take
+    :func:`_fused_agg` and count in ``k6.torch_aggs``."""
+    items = [(None, None)]  # item 0 counts the rows m keeps
+    routes = []  # an item's index, "count", or (values, validity) for the torch route
+    for _name, (fn, c) in agg_items:
+        if fn == "count":
+            routes.append("count")
+            continue
+        if isinstance(c, Expr):
+            v, vm = c.fn(table)
+        else:
+            v, vm = table.columns[c].values, table.columns[c].validity
+        if fn in ("sum", "avg", "mean") and not v.is_floating_point():
+            routes.append(len(items))
+            items.append((v, vm))
+        else:
+            routes.append((v, vm))
+    key_cols = [(key_codes[k], int(st)) for k, st in zip(keys, strides)]
+    sums, counts = dense_group_sum(key_cols, items, cap, mask=m)
+    cnt, outs, code = sums[0], [], None
+    for (_name, (fn, _c)), r in zip(agg_items, routes):
+        if r == "count":
+            outs.append(cnt)
+        elif isinstance(r, int):
+            s = sums[r]
+            outs.append(s if fn == "sum" else s.double() / counts[r].clamp(min=1).double())
+        else:
+            obs.count("k6.torch_aggs")
+            if code is None:
+                code = composite_code(key_cols, m.shape[0], m.device)
+            outs.append(_fused_agg(fn, *r, code, cap, m))
+    return cnt, outs
+
+
+def _fused_agg(fn: str, v: torch.Tensor, vm: Optional[torch.Tensor], code: torch.Tensor,
                cap: int, m: torch.Tensor) -> torch.Tensor:
-    """One aggregate other than ``count`` over the composite group
-    ``code``s (int64, and ``code32`` as int32) of the rows ``m`` keeps."""
-    if isinstance(c, Expr):
-        v, vm = c.fn(table)
-        mm = m if vm is None else (m & vm)
-    else:
-        v, vv = table.columns[c].values, table.columns[c].validity
-        mm = m if vv is None else (m & vv)
-    if fn in ("sum", "avg", "mean") and not v.is_floating_point():
-        s, c2 = dense_group_sum(code32, v, cap, mask=mm)
-        return s if fn == "sum" else s.double() / c2.clamp(min=1).double()
+    """A float sum / avg / mean, or a min / max, of ``v`` (validity ``vm``)
+    over the composite group ``code``s (int64) of the rows ``m`` keeps."""
+    mm = m if vm is None else (m & vm)
     seg = torch.where(mm, code, cap)
     if fn in ("sum", "avg", "mean"):
         s = segment_reduce(torch.where(mm, v, 0), seg, cap)

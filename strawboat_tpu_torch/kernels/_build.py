@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, ``build/lib<name>.so`` beside this file
 (git-ignored).  The build happens at first use, never at import, and is
 redone when the source is newer than the library.  :func:`load_all`
-starts one nvcc per source at once.  Each compile is a
+starts one nvcc per source at once; :func:`entry` binds a C function,
+building the libraries of ``SIDE_BY_SIDE`` together (the resident query's
+K1 and K6, so a first run's nvcc times overlap).  Each compile is a
 ``strawboat.kernel.build`` span (attribute ``kernel``) and counts in
 ``kernel.builds`` (``util/obs.py``).
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -34,6 +37,9 @@ NVCC_FLAGS = (
 _lock = threading.Lock()  # guards _locks
 _locks: Dict[str, threading.Lock] = {}  # one per library: builds run side by side
 _libs: Dict[str, ctypes.CDLL] = {}
+
+# libraries built together when either is first needed
+SIDE_BY_SIDE = ("bitunpack", "group_agg")
 
 
 def nvcc_path() -> str:
@@ -94,3 +100,15 @@ def load_all(names) -> None:
     with cf.ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
         for fut in [pool.submit(load, n) for n in names]:
             fut.result()
+
+
+@functools.cache
+def entry(name: str, symbol: str, argtypes: tuple):
+    """C function ``symbol`` of ``csrc/<name>.cu`` with ``argtypes``,
+    returning ``int`` (built at first use, with ``SIDE_BY_SIDE``'s other
+    libraries when ``name`` is one of them)."""
+    load_all(SIDE_BY_SIDE if name in SIDE_BY_SIDE else (name,))
+    fn = getattr(load(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn

@@ -24,7 +24,6 @@ CPU tensor it runs the plain torch version.
 from __future__ import annotations
 
 import ctypes
-import functools
 import struct
 from typing import List, Sequence, Tuple
 
@@ -103,15 +102,6 @@ def bitunpack_tiled_plain(words: torch.Tensor, seed: int, bits: int) -> torch.Te
     return out
 
 
-@functools.cache
-def _kernel(name: str, symbol: str, argtypes: tuple):
-    """A compiled kernel's C entry point (built at first use)."""
-    fn = getattr(_build.load(name), symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
-
-
 _TILED_ARGS = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint, ctypes.c_int,
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
@@ -145,7 +135,7 @@ def _launch_tiled(words: torch.Tensor, seed: int, bits: int) -> torch.Tensor:
     if n_tiles < 1:
         raise ValueError(f"n_tiles must be at least 1, got {n_tiles}")
     out = torch.empty((n_tiles, 32, tile), dtype=torch.int32, device=words.device)
-    fn = _kernel("bitunpack", "sb_bitunpack_tiled", _TILED_ARGS)
+    fn = _build.entry("bitunpack", "sb_bitunpack_tiled", _TILED_ARGS)
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream(words.device).cuda_stream
         err = fn(
@@ -236,7 +226,7 @@ def bitunpack_tiled_many(planes: Sequence[Tuple[torch.Tensor, int]], seed: int =
     out = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
     views = [v.view(n, 32, tile) for v, (n, _b, tile) in zip(out.split(sizes), shapes)]
     descs = tiled_descriptors(planes, [v.data_ptr() for v in views], seed)
-    fn = _kernel("bitunpack", "sb_bitunpack_tiled_many", _MANY_ARGS)
+    fn = _build.entry("bitunpack", "sb_bitunpack_tiled_many", _MANY_ARGS)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for lo, hi in plan_tiled_launch(len(planes)):
@@ -375,7 +365,7 @@ def bitunpack_natural(words: torch.Tensor, seed: int, bits: int) -> torch.Tensor
     out = torch.empty(n_blocks * 128, dtype=torch.int32, device=words.device)
     if n_blocks == 0:
         return out
-    fn = _kernel("bitunpack_natural", "sb_bitunpack_natural", _NATURAL_ARGS)
+    fn = _build.entry("bitunpack_natural", "sb_bitunpack_natural", _NATURAL_ARGS)
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream(words.device).cuda_stream
         err = fn(words.data_ptr(), out.data_ptr(), seed & 0xFFFFFFFF, bits,
@@ -386,8 +376,9 @@ def bitunpack_natural(words: torch.Tensor, seed: int, bits: int) -> torch.Tensor
 
 
 def launch_counts() -> dict:
-    """K1's and K3's launches in this process (the counters
-    ``k1.launches`` and ``k3.launches``; the config scripts' summaries
-    carry them)."""
+    """K1's, K3's and K6's launches in this process (the counters
+    ``k1.launches``, ``k3.launches`` and ``k6.launches``; the config
+    scripts' summaries carry them)."""
     return {"k1_launches": obs.counter("k1.launches"),
-            "k3_launches": obs.counter("k3.launches")}
+            "k3_launches": obs.counter("k3.launches"),
+            "k6_launches": obs.counter("k6.launches")}

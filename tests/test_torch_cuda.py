@@ -45,7 +45,10 @@ def test_resident_q1_q6_on_card(cuda):
     rt = make_resident({k: cols[k] for k in tpch.Q1_Q6_COLUMNS}, cuda)
     before = obs.counter("k1.launches")
     assert int(tpch.q6(rt)) == tpch.q6_numpy_reference(cols)
+    k6 = (obs.counter("k6.launches"), obs.counter("k6.torch_aggs"))
     got = tpch.q1_rows(tpch.q1(rt))
+    # every integer sum, average and count of Q1 in one K6 launch
+    assert (obs.counter("k6.launches"), obs.counter("k6.torch_aggs")) == (k6[0] + 1, k6[1])
     want = tpch.q1_numpy_reference(cols)
     assert list(got) == list(want)
     for key, aggs in want.items():
@@ -55,6 +58,56 @@ def test_resident_q1_q6_on_card(cuda):
             else:
                 assert got[key][name] == w, (key, name)
     assert obs.counter("k1.launches") > before
+
+
+@pytest.mark.parametrize("cap", [1, 6, 20, 64, 4096])
+def test_k6_matches_plain_on_card(cuda, cap):
+    """K6 against its plain version at each cap and launch plan: a thread's
+    own sums (bounds 8 and 32, outputs split over launches past 8), a
+    block's (split past 96 KB), int32 and int64 keys and values with wrapping
+    sums, masks and validities, repeated outputs, a row count that is not a
+    multiple of a step's rows, and bases off 16 bytes (the scalar loads)."""
+    from strawboat_tpu_torch.kernels import group_agg as ga
+
+    rng = np.random.default_rng(cap)
+    n = 1_000_003
+    inner = 2 if cap % 2 == 0 else 1
+
+    def ints(lo, hi):
+        return torch.from_numpy(rng.integers(lo, hi, n + 1, dtype=np.int64))
+
+    edge = ints(2**63 - 2**40, 2**63 - 1)
+    full = {"k0": ints(-1, cap // inner + 1).int(), "k1": ints(0, inner),
+            "v0": ints(-(2**31), 2**31 - 1).int(),
+            "v1": torch.where(torch.from_numpy(rng.random(n + 1) < 0.5), edge, -edge),
+            "v2": ints(0, 10**6)}
+    full.update({k: torch.from_numpy(rng.random(n + 1) < p)
+                 for k, p in (("m", 0.9), ("b0", 0.5), ("b1", 0.3))})
+    on_card = {k: t.to(cuda) for k, t in full.items()}
+
+    def calls(t):
+        v, b = [t["v0"], t["v1"], t["v2"]], [t["b0"], t["b1"]]
+        keys = [(t["k0"], inner), (t["k1"], 1)]
+        return [(keys, [(v[0], None), (v[1], None), (None, None), (v[2], b[0]), (None, b[0]),
+                        (v[1], b[1])]),
+                (keys[1:] if inner > 1 else keys, [(v[1], None)]),
+                (keys, [(v[i % 3], b[i % 2] if i % 4 else None) for i in range(10)]
+                 + [(None, None), (v[1], None)])]
+
+    for off in (0, 1):  # 1: every base 4 or 8 bytes past a 16-byte boundary
+        host = {k: x[off:n + off] for k, x in full.items()}
+        card = {k: x[off:n + off] for k, x in on_card.items()}
+        for (keys, outputs), (ckeys, coutputs) in zip(calls(host), calls(card)):
+            distinct = len({(id(a), id(b)) for a, b in outputs})
+            before = obs.counter("k6.launches")
+            got = ga.group_agg(ckeys, cap, card["m"], coutputs)
+            torch.cuda.synchronize()
+            assert obs.counter("k6.launches") - before == len(ga.plan_launches(cap, distinct))
+            assert torch.equal(got.cpu(), ga.group_agg_plain(keys, cap, host["m"], outputs)), (
+                cap, off, len(outputs))
+    # a CUDA tensor never takes the plain version: past the bound it raises
+    with pytest.raises(ValueError, match="cap"):
+        ga.group_agg([(on_card["k0"], 1)], ga.K6_MAX_GROUPS + 1, None, [(None, None)])
 
 
 @pytest.mark.parametrize("seed", [0, 0xA5A500FF])

@@ -181,9 +181,10 @@ def test_the_ring_of_roots_is_bounded(monkeypatch):
 
 def test_launch_counts_keeps_its_keys_and_reads_the_counters():
     got = bu.launch_counts()
-    assert set(got) == {"k1_launches", "k3_launches"}
+    assert set(got) == {"k1_launches", "k3_launches", "k6_launches"}
     assert got == {"k1_launches": obs.counter("k1.launches"),
-                   "k3_launches": obs.counter("k3.launches")}
+                   "k3_launches": obs.counter("k3.launches"),
+                   "k6_launches": obs.counter("k6.launches")}
 
 
 def test_a_kernel_build_is_a_span_and_a_count(tmp_path, monkeypatch):
