@@ -15,7 +15,7 @@ decision is agreed by all of them.  ``dryrun.py`` builds its own
 single-process mesh.  Every entry takes its mesh or device explicitly.
 """
 
-from .collectives import ShardedTensor, all_to_all, concat_shards, psum, shard  # noqa: F401
+from .collectives import ShardedTensor, all_to_all, concat_shards, pmax, psum, shard  # noqa: F401
 from .mesh import Mesh, distributed_init, make_mesh  # noqa: F401
 from .shuffle import hash_partition_ids, shuffle_by_key  # noqa: F401
 from .dist_agg import distributed_aggregate  # noqa: F401
@@ -27,7 +27,9 @@ from .dist_scan import (  # noqa: F401
     local_shard_table,
 )
 from .dist_resident import (  # noqa: F401
+    load_sharded_resident,
     shard_resident,
     sharded_filter_sum,
     sharded_group_sum,
+    sharded_keyed_aggregate,
 )

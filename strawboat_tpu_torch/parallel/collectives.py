@@ -11,7 +11,11 @@ CUDA), never row by row:
   bins concatenated in source order (``jax.lax.all_to_all(...,
   split_axis=0, concat_axis=0, tiled=True)``);
 * :func:`psum` — the shards' values summed on the first shard's device,
-  the sum copied to every shard (``jax.lax.psum``).
+  the sum copied to every shard (``jax.lax.psum``);
+* :func:`pmax` — the shards' values' elementwise largest, on the first
+  shard's device (``jax.lax.pmax``);
+* :func:`all_gather` — every process's tensor of one shape, stacked in
+  rank order on the device (``jax.lax.all_gather``).
 
 Inside a ``torch.distributed`` world (``mesh.py``) a process holds only
 its own shards: bins between them still move by device copy, the bins
@@ -252,16 +256,20 @@ def _all_to_all_world(bins, rank: int, size: int) -> List[torch.Tensor]:
     mine = stacked[:, rank * k : (rank + 1) * k]  # (k_src, k_dst, cap, ...)
     recv[:, rank].copy_(mine.transpose(0, 1), non_blocking=True)
     if size > 1:
-        others = [q for q in range(size) if q != rank]
-        # the send buffer by destination rank: (size - 1, k_src, k_dst, cap, ...)
-        send = stacked.view((k, size, k, cap) + rest).transpose(0, 1)[others].contiguous()
+        # the send buffer by destination rank, this one's left out: (size -
+        # 1, k_src, k_dst, cap, ...).  Slices, not a list of ranks: a list
+        # index is copied to the card with a blocking copy, a host sync
+        by_dst = stacked.view((k, size, k, cap) + rest).transpose(0, 1)
+        send = torch.cat([by_dst[:rank], by_dst[rank + 1 :]])
         got = torch.empty_like(send)
         splits = [0 if q == rank else k * k * cap for q in range(size)]
         with _exchange("all_to_all_single", stacked.device, 0, 0,
                        send.numel() * send.element_size()):
             torch.distributed.all_to_all_single(got.view((-1,) + rest), send.view((-1,) + rest),
                                                 splits, splits)
-        recv[:, others] = got.permute((2, 0, 1) + tuple(range(3, got.dim())))
+        got = got.permute((2, 0, 1) + tuple(range(3, got.dim())))  # (k_dst, size - 1, k_src, ...)
+        recv[:, :rank] = got[:, :rank]
+        recv[:, rank + 1 :] = got[:, rank:]
     return list(recv.view((k, size * k * cap) + rest).unbind(0))
 
 
@@ -286,3 +294,30 @@ def psum(values: Sequence[torch.Tensor], devices: Sequence[torch.device]) -> Lis
                 copies[d] = total.to(d, non_blocking=True)
         out = [copies[d] for d in devices]
     return out
+
+
+def all_gather(t: torch.Tensor) -> torch.Tensor:
+    """Every process's ``t`` (one shape and dtype on every process),
+    stacked in rank order on ``t``'s device: ``(world, ...)``, one
+    ``all_gather`` and no host sync (``t[None]`` outside a world).  The
+    fixed-size counterpart of :func:`gather_objects`."""
+    w = world()
+    if w is None:
+        return t.unsqueeze(0)
+    out = torch.empty((w[1],) + tuple(t.shape), dtype=t.dtype, device=t.device)
+    with _exchange("all_gather", t.device, 0, 0, t.numel() * t.element_size() * (w[1] > 1)):
+        torch.distributed.all_gather(list(out.unbind(0)), t.contiguous())
+    return out
+
+
+def pmax(values: Sequence[torch.Tensor], devices: Sequence[torch.device]) -> torch.Tensor:
+    """The elementwise largest of every shard's ``values`` (same shape and
+    dtype), left on ``devices[0]`` (``jax.lax.pmax``); in a world, the
+    local largest then one ``all_reduce`` MAX over the processes, so every
+    process holds the same tensor."""
+    nbytes = values[0].numel() * values[0].element_size()
+    with _exchange("pmax", devices[0], len(values) * nbytes, nbytes):
+        total = torch.stack([v.to(devices[0], non_blocking=True) for v in values]).amax(0)
+        if world() is not None:
+            total = _all_reduce(total, torch.distributed.ReduceOp.MAX)
+    return total

@@ -6,6 +6,13 @@ pre-aggregates its rows with the port's ``grouped_aggregate``, the
 ``num_groups`` partial slots of every shard are repartitioned by key hash
 (one all_to_all a payload), and each shard combines the partials it owns.
 The exchange moves ``P · num_groups`` slots a shard, not the rows.
+
+Where the key is a dense slot id of a known span (an integer column's
+value less its lowest, or a dictionary code), the stages take no sort
+(:func:`dense_partials`, :func:`exchange_dense`, :func:`combine_dense`):
+each shard adds its rows into every slot of the span, shard ``d`` owns
+the ``d``-th contiguous range of slots, and combining is an elementwise
+sum of the ranges it receives; nothing in them waits on the host.
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ import torch
 
 from ..errors import CapacityError
 from ..exec.aggregate import grouped_aggregate
-from .collectives import ShardedTensor, max_to_host, shard
+from .collectives import ShardedTensor, all_to_all, max_to_host, shard
 from .shuffle import exchange, grown, hash_partition_ids
 
 _COMBINE = {"sum": "sum", "count": "sum", "min": "min", "max": "max"}
@@ -58,6 +65,60 @@ def exchange_partials(devs, staged, num_groups: int, n_parts: int):
     for r, rv in zip(per_shard, recv_valid):
         out.append((r[0], r[1:-1], rv & r[-1]))
     return out
+
+
+def dense_partials(slot, cols, mask, slots: int):
+    """One shard's stage 1 over dense slot ids ``slot`` (int32 or int64,
+    every id in ``[0, slots)``; fewer than 2^31 rows): each slot's sum of each of ``cols`` over the rows
+    ``mask`` keeps (all where None; int64, float64 for float values, the
+    float ones added in arrival order) and its row count, by one
+    ``index_add_`` each.  Returns the payloads, one ``(columns, slots)``
+    tensor a dtype, and where each of ``cols`` and the count landed: a
+    ``(payload, row)`` pair each, the count's last."""
+    dev = slot.device
+    sums = []
+    for v in cols:
+        v = v.to(torch.float64 if v.is_floating_point() else torch.int64)
+        if mask is not None:
+            v = torch.where(mask, v, torch.zeros((), dtype=v.dtype, device=dev))
+        sums.append(torch.zeros(slots, dtype=v.dtype, device=dev).index_add_(0, slot, v))
+    # a shard's rows count in int32 (half the bytes of a row's 1), widened a slot
+    ones = (torch.ones(slot.shape, dtype=torch.int32, device=dev) if mask is None
+            else mask.to(torch.int32))
+    sums.append(torch.zeros(slots, dtype=torch.int32, device=dev).index_add_(0, slot, ones)
+                .to(torch.int64))
+    by_dtype: Dict[torch.dtype, list] = {}
+    for i, t in enumerate(sums):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    where = [None] * len(sums)
+    for p, idx in enumerate(by_dtype.values()):
+        for r, i in enumerate(idx):
+            where[i] = (p, r)
+    return [torch.stack([sums[i] for i in idx]) for idx in by_dtype.values()], where
+
+
+def exchange_dense(devs, payloads_by_shard, n_parts: int):
+    """Stage 2 of the dense stages: shard ``d`` receives the ``d``-th of
+    ``n_parts`` equal ranges of every shard's slots, one all_to_all a
+    payload.  Per local shard, each payload's ``(n_parts, slots /
+    n_parts, columns)`` ranges in source order."""
+    out = [[] for _ in payloads_by_shard]
+    for j in range(len(payloads_by_shard[0])):
+        bins = []
+        for pays in payloads_by_shard:
+            k, slots = pays[j].shape
+            bins.append(pays[j].view(k, n_parts, slots // n_parts).permute(1, 2, 0).contiguous())
+        for s, r in enumerate(all_to_all(bins, devs)):
+            out[s].append(r.view((n_parts, -1) + tuple(r.shape[1:])))
+    return out
+
+
+def combine_dense(received, where):
+    """One shard's final stage over its received ranges: the sums of the
+    columns and the count of every slot it owns, in the order of
+    :func:`dense_partials`' ``where`` (the count last)."""
+    tot = [r.sum(0) for r in received]
+    return [tot[p][:, r] for p, r in where]
 
 
 def distributed_aggregate(

@@ -19,6 +19,7 @@ world.
 
 from __future__ import annotations
 
+import importlib
 import os
 import pickle
 import time
@@ -435,6 +436,11 @@ CASES = {name[len("case_"):]: fn for name, fn in globals().items() if name.start
 
 
 def run_case(name: str, mesh, inp):
+    """Case ``name`` of :data:`CASES`, or ``"<module>:<function>"``: a case
+    another test module keeps (a module of ``tests/`` that imports no JAX)."""
+    if ":" in name:
+        module, fn = name.split(":")
+        return to_host(getattr(importlib.import_module(module), fn)(mesh, inp))
     return to_host(CASES[name](mesh, inp))
 
 

@@ -710,3 +710,65 @@ def test_query_phase_events_resolve_on_card(cuda):
             assert 0 < sp.device_ms < 1000
         decode = next(s for s in r.children if s.name == "strawboat.query.decode")
         assert decode.counts["k1.launches"] == 1
+
+
+def _sharded_agg_single_cpu(parts):
+    import _torch_sharded_world as sw
+    from strawboat_tpu_torch.parallel import load_sharded_resident, make_mesh
+
+    mesh = make_mesh(sw.SHARDS, "cpu")
+    return sw.queries(load_sharded_resident(parts, mesh, tile=sw.TILE))
+
+
+def _sharded_agg_same(got, want):
+    import _torch_sharded_world as sw
+
+    assert torch.equal(got["filter_sum"].cpu(), want["filter_sum"].cpu())
+    for g, w in zip(got["group_sum"][0], want["group_sum"][0]):
+        assert torch.equal(g.cpu(), w.cpu())
+    assert torch.equal(got["group_sum"][1].cpu(), want["group_sum"][1].cpu())
+    assert got["q15"]["max"] == want["q15"]["max"]
+    assert sw.union(got["q15"]["groups"]) == sw.union(want["q15"]["groups"])
+    for name in ("s", "n", "lo", "hi"):
+        assert sw.union(got["nullable"][name]) == sw.union(want["nullable"][name])
+
+
+def test_sharded_keyed_aggregate_on_card(cuda):
+    """The per-process loader and the keyed aggregate on a 4-shard mesh on
+    one card answer as on the CPU, Q15's answer as numpy's; one K1 launch
+    a keyed aggregate."""
+    import _torch_sharded_world as sw
+    from strawboat_tpu_torch import parallel as par
+    from strawboat_tpu_torch.parallel import load_sharded_resident, make_mesh
+
+    parts = sw.make_parts(7, tie=True)
+    srt = load_sharded_resident(parts, make_mesh(sw.SHARDS, cuda), tile=sw.TILE)
+    _sharded_agg_same(sw.queries(srt), _sharded_agg_single_cpu(parts))
+    _, best, holders = sw.numpy_q15(parts)
+    before = obs.counter("k1.launches")
+    res = par.sharded_keyed_aggregate(srt, "k", {"revenue": ("sum", sw.revenue())},
+                                      {"sd": sw.QUARTER}, max_of="revenue")
+    assert obs.counter("k1.launches") == before + 1
+    assert res["max"] == {"value": best, "keys": holders} and len(holders) == 2
+
+
+def test_nccl_world_of_four_cards_sharded_keyed_aggregate(cuda, tmp_path):
+    """Four ranks under NCCL, one card each, a shard a rank: the loader's
+    table and the keyed aggregate over the NCCL exchange answer as the
+    single-process mesh on the CPU, Q15's answer as numpy's, and a
+    capacity below the groups raises on every rank.  Needs four cards on
+    one host; skips with fewer."""
+    import _torch_sharded_world as sw
+    from _torch_world import run_world
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    parts = sw.make_parts(7, tie=True)
+    names = ["_torch_sharded_world:case_loader", "_torch_sharded_world:case_capacity"]
+    got = run_world(4, {"parts": parts}, names, str(tmp_path / "world"), device="cuda")
+    loader = got[names[0]]
+    assert loader["shard_rows"] == sw.LENGTHS
+    _sharded_agg_same(loader, _sharded_agg_single_cpu(parts))
+    _, best, holders = sw.numpy_q15(parts)
+    assert loader["q15"]["max"] == {"value": best, "keys": holders}
+    assert got[names[1]]["capacity"] == 64 and got[names[1]]["required"] > 64
