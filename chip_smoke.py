@@ -6,7 +6,7 @@ path and the file scan path.
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
 1. device  — the card's name, and its power limit from nvidia-smi;
-2. build   — compile kernels K1, K3 and K6 (``strawboat_tpu_torch/kernels/csrc``)
+2. build   — compile kernels K1, K3, K6 and K7 (``strawboat_tpu_torch/kernels/csrc``)
    with nvcc, one process per source, started together;
 3. kernel  — K1 bit-exact against its plain torch version for every width
    1..32 and two seeds; ``bitunpack_tiled_many`` (one launch over a list
@@ -26,7 +26,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 the resident path (K1's launches are counted over 6–8):
 
 6. load    — ``make_resident(..., device="cuda")``;
-7. q6      — ``filter_sum`` Q6 == the numpy reference, one K1 launch,
+7. q6      — ``filter_sum`` Q6 == the numpy reference, one K1 launch, one
+   K7 launch and no filter_sum on the torch route (``k7.torch_routes``),
    warm latency;
 8. q1      — ``Query(rt)`` Q1 == the numpy reference (exact; ``avg_*`` to
    rtol 1e-12), one K1 launch, one K6 launch, warm latency;
@@ -35,6 +36,11 @@ the resident path (K1's launches are counted over 6–8):
    equal to its plain version, one launch; its event-window and device
    times against the bound (the distinct inputs' bytes at 3.35 TB/s), the
    plain version's time;
+8b. k7     — K7 (``csrc/filter_sum.cu``) on the inputs resident Q6 hands it
+   at SF10 (K1's words of its four columns, the three bounds): equal to its
+   plain version, one launch; its event-window and device times against
+   the bound (the rows' bytes of each input at 3.35 TB/s), the plain
+   version's time;
 
 the scan path (K3's launches are counted over 9–11):
 
@@ -704,16 +710,20 @@ def phase_q6(rt, cols) -> None:
     from strawboat_tpu_torch.benchsuite import tpch
 
     before = k1_counts()
+    k7 = (obs.counter("k7.launches"), obs.counter("k7.torch_routes"))
     got = int(tpch.q6(rt))
     launched, planes = k1_counts(before)
+    k7 = (obs.counter("k7.launches") - k7[0], obs.counter("k7.torch_routes") - k7[1])
     want = tpch.q6_numpy_reference(cols)
     if got != want:
         raise AssertionError(f"Q6 {got} != numpy {want}")
     if launched != 1:
         raise AssertionError(f"Q6 launched K1 {launched} times, not once")
+    if k7 != (1, 0):
+        raise AssertionError(f"Q6: K7 launches, filter_sums on the torch route {k7} != (1, 0)")
     ms = wall_ms(lambda: int(tpch.q6(rt)))
     emit("q6", revenue=got, equal_to_numpy=True, k1_launches=launched, k1_planes=planes,
-         warm_median_ms=ms)
+         k7_launches=k7[0], k7_torch_routes=k7[1], warm_median_ms=ms)
 
 
 def _q1_check(what: str, got, want) -> None:
@@ -793,6 +803,55 @@ def phase_k6(rt) -> dict:
     facts["device_ms"] = dev[0]
     facts["bound_share"] = facts["bound_ms"] / facts["device_ms"]
     emit("k6", launches_a_call=launches, equal_to_plain=True, **facts)
+    return facts
+
+
+def phase_k7(rt) -> dict:
+    """K7 on the call resident Q6 makes (captured from one ``tpch.q6``):
+    equal to its plain version, one launch a call, its times against the
+    bound.  Returns the kernel summary."""
+    from strawboat_tpu_torch.benchsuite import tpch
+    from strawboat_tpu_torch.exec import resident
+    from strawboat_tpu_torch.kernels import filter_sum as fs
+
+    seen, orig = [], resident.k7_filter_sum
+
+    def capture(*a):
+        seen.append(a)
+        return orig(*a)
+
+    resident.k7_filter_sum = capture
+    try:
+        tpch.q6(rt)
+    finally:
+        resident.k7_filter_sum = orig
+    if len(seen) != 1:
+        raise AssertionError(f"resident Q6 called K7 {len(seen)} times, not once")
+    args = seen[0]
+    value, rows, product, bounds, nonzero = args
+    before = obs.counter("k7.launches")
+    got = fs.filter_sum(*args)
+    want = fs.filter_sum_plain(*args)
+    torch.cuda.synchronize()
+    launches = obs.counter("k7.launches") - before
+    if launches != 1 or not torch.equal(got, want):
+        raise AssertionError(f"K7 on Q6's inputs: {launches} launches, equal {torch.equal(got, want)}")
+    # each distinct input's rows read once (the padding slots are not read),
+    # the sum written once
+    inputs = {t.data_ptr(): t for t in [value, product, *(b[0] for b in bounds), *nonzero]
+              if t is not None}
+    nbytes = len(inputs) * rows * 4 + 8
+    facts = {"max_abs_err": 0, "rows": rows, "slots": int(value.shape[0]),
+             "inputs": len(inputs), "bounds": [b[1:] for b in bounds], "input_bytes": nbytes,
+             "bound_ms": bound_ms(nbytes),
+             "slot_bound_ms": bound_ms(len(inputs) * int(value.shape[0]) * 4),
+             "ms": event_ms(lambda: fs.filter_sum(*args)),
+             "plain_ms": event_ms(lambda: fs.filter_sum_plain(*args), 3, 1)}
+    dev, facts["device_ms_first_try_short"] = device_ms(
+        [(lambda: fs.filter_sum(*args), 1, "filter_sum")])
+    facts["device_ms"] = dev[0]
+    facts["bound_share"] = facts["bound_ms"] / facts["device_ms"]
+    emit("k7", launches_a_call=launches, equal_to_plain=True, **facts)
     return facts
 
 
@@ -3052,8 +3111,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     with obs.recording() as built:
-        _build.load_all(["bitunpack", "bitunpack_natural", "group_agg"])
-    emit("build", kernels=["bitunpack", "bitunpack_natural", "group_agg"],
+        _build.load_all(["bitunpack", "bitunpack_natural", "group_agg", "filter_sum"])
+    emit("build", kernels=["bitunpack", "bitunpack_natural", "group_agg", "filter_sum"],
          seconds=time.perf_counter() - t0,
          compile_seconds={s.attrs["kernel"]: s.seconds
                           for s in built.spans("strawboat.kernel.build")},
@@ -3081,6 +3140,9 @@ def main() -> int:
     k6_timed = obs.counter("k6.launches")
     k6 = phase_k6(rt)
     k6_timed = obs.counter("k6.launches") - k6_timed  # the k6 phase's own calls
+    k7_timed = obs.counter("k7.launches")
+    k7 = phase_k7(rt)
+    k7_timed = obs.counter("k7.launches") - k7_timed  # the k7 phase's own calls
     if k1_launches <= 0:
         raise AssertionError("the resident path never launched K1")
     phase_s["resident"] = time.perf_counter() - started
@@ -3244,6 +3306,10 @@ def main() -> int:
         dict(line("group_agg", "group_agg.cu", "", obs.counter("k6.launches") - k6_timed, k6),
              replaces="strawboat_tpu/exec/aggregate.py:233 dense_group_sum (a one-hot matmul "
                       "XLA fuses, no Pallas kernel)"),
+        # every launch but the k7 phase's own calls
+        dict(line("filter_sum", "filter_sum.cu", "", obs.counter("k7.launches") - k7_timed, k7),
+             replaces="strawboat_tpu/exec/resident.py:547 filter_sum (the compares, product "
+                      "and sum XLA fuses in one jit, no Pallas kernel)"),
     ]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

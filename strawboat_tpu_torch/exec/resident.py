@@ -49,6 +49,7 @@ from ..kernels.bitunpack import (
     transpose_words_host_tiled,
 )
 from ..kernels.decode import dict_gather_device
+from ..kernels.filter_sum import K7_MAX_INPUTS, filter_sum as k7_filter_sum
 from ..util import obs
 from ..util.bits import pack_blocks
 from .aggregate import segment_reduce
@@ -162,10 +163,11 @@ def _unpack_planes(planes) -> List[torch.Tensor]:
     return out
 
 
-def _unpack_columns(cols: Sequence["ResidentColumn"]):
+def _unpack_columns(cols: Sequence["ResidentColumn"], validity_words: bool = False):
     """The planes and validity planes of ``cols`` through one K1 call a
-    device → (each column's unpacked planes, each column's validity as
-    bools in tiled order or None)."""
+    device → (each column's unpacked planes, each column's validity in
+    tiled order or None: bools, or K1's int32 words where
+    ``validity_words``)."""
     planes = []
     for c in cols:
         planes.extend(c.planes)
@@ -175,7 +177,11 @@ def _unpack_columns(cols: Sequence["ResidentColumn"]):
     vals, valid = [], []
     for c in cols:
         vals.append([next(flat) for _ in c.planes])
-        valid.append(None if c.validity_plane is None else next(flat) != 0)
+        if c.validity_plane is None:
+            valid.append(None)
+        else:
+            words = next(flat)
+            valid.append(words if validity_words else words != 0)
     return vals, valid
 
 
@@ -194,6 +200,7 @@ class ResidentTable:
     _mask: Optional[torch.Tensor] = field(
         default=None, init=False, repr=False, compare=False
     )
+    _live: Optional[int] = field(default=None, init=False, repr=False, compare=False)
 
     def __getitem__(self, name: str) -> ResidentColumn:
         return self.columns[name]
@@ -454,24 +461,39 @@ class ResidentTable:
         hi_c = None if hi is None else int(np.searchsorted(d, hi, "left"))
         return lo_c, hi_c, True
 
-    def _bound_scalars(self, predicates, pcols):
-        """Device scalars for the lo/hi literals in the column's decoded
-        dtype (code space for dict columns), cached by value."""
+    def _bounds(self, predicates, pcols):
+        """``((column, lo, hi), ...)``: each literal cast to the column's
+        decoded dtype (code space for dict columns) as a host scalar, None
+        where open, cached by value.  Both routes of filter_sum compare
+        against these."""
         key = tuple((c,) + tuple(predicates[c]) for c in pcols)
         hit = self._bounds_cache.get(key)
         if hit is None:
-            los, his = [], []
+            hit = []
             for cname in pcols:
-                lo, hi = predicates[cname]
-                lo, hi, is_code = self._code_bounds(cname, lo, hi)
+                given = predicates[cname]
+                lo, hi, is_code = self._code_bounds(cname, *given)
                 dt = torch.int32 if is_code else self.columns[cname].decoded_dtype()
-                if predicates[cname][0] is not None:
-                    los.append(torch.tensor(lo, dtype=dt, device=self.device))
-                if predicates[cname][1] is not None:
-                    his.append(torch.tensor(hi, dtype=dt, device=self.device))
-            hit = (tuple(los), tuple(his))
-            self._bounds_cache[key] = hit
+                hit.append((cname,) + tuple(
+                    None if g is None else torch.tensor(b, dtype=dt).item()
+                    for g, b in zip(given, (lo, hi))))
+            hit = self._bounds_cache[key] = tuple(hit)
         return hit
+
+    def _bound_scalars(self, predicates, pcols):
+        """``_bounds``' given ends in ``pcols`` order: (lo's, hi's)."""
+        b = self._bounds(predicates, pcols)
+        return (tuple(lo for _c, lo, _hi in b if lo is not None),
+                tuple(hi for _c, _lo, hi in b if hi is not None))
+
+    def _live_rows(self) -> int:
+        """The real rows as ``mask_tiled`` marks them (its True prefix: the
+        padding is the tail), the row count K7 takes, so that both routes
+        of filter_sum read which slots are real from the one mask.
+        Counted once a table."""
+        if self._live is None:
+            self._live = int(self.mask_tiled().sum())
+        return self._live
 
     def _query_inputs(self, names, value_cols, code_cols, predicates, pcols):
         """Decode what a fused query reads: values (through the dictionary)
@@ -516,13 +538,21 @@ class ResidentTable:
         [lo, hi) — the Q6 shape.  Bounds are half-open, None = unbounded;
         dict predicate columns compare in code space; null rows never count.
         Returns a 0-d int64 (float64 for float values) device tensor.
-        A ``strawboat.query`` root span (``path="filter_sum"``) with
-        ``.plan``, ``.decode``, ``.filter`` and ``.aggregate``."""
+        Narrow integer columns take K7 (``kernels/filter_sum.py``) over K1's
+        words (``_k7_takes``); any other call takes the torch passes and
+        counts in ``k7.torch_routes``.  A ``strawboat.query`` root span
+        (``path="filter_sum"``) with ``.plan``, ``.decode``, ``.filter``
+        and ``.aggregate``."""
         with obs.span("strawboat.query", path="filter_sum"):
             with obs.span("strawboat.query.plan"):
                 pcols = tuple(sorted(predicates))
                 extra = (product_with,) if product_with else ()
                 names = list(dict.fromkeys(pcols + (value,) + extra))
+                on_k7 = self._k7_takes(names, pcols, (value,) + extra)
+                if not on_k7:
+                    obs.count("k7.torch_routes")
+            if on_k7:
+                return self._filter_sum_k7(names, predicates, pcols, value, product_with)
             cols, _codes, m = self._query_inputs(
                 names, {value, *extra}, set(pcols), predicates, pcols
             )
@@ -535,6 +565,42 @@ class ResidentTable:
                 if acc.is_floating_point():
                     return torch.where(m, acc, 0).sum(dtype=torch.float64)
                 return torch.where(m, acc, 0).sum(dtype=torch.int64)
+
+    def _k7_takes(self, names, pcols, summed) -> bool:
+        """Whether K7 takes a filter_sum: the summed columns narrow plain
+        integers (one ≤31-bit plane, no offset: the values are K1's words),
+        each predicate column such an integer or a dictionary column
+        compared in code space, no float, and at most ``K7_MAX_INPUTS``
+        planes and validity planes in all."""
+        cols = self.columns
+
+        def narrow(c):
+            return c.kind == "int" and not c.is_dict and c._narrow_int
+
+        if not all(narrow(cols[n]) for n in summed):
+            return False
+        if not all(narrow(cols[n]) or (cols[n].is_dict and cols[n].kind in ("int", "str"))
+                   for n in pcols):
+            return False
+        inputs = sum(1 + (cols[n].validity_plane is not None) for n in names)
+        return inputs <= K7_MAX_INPUTS
+
+    def _filter_sum_k7(self, names, predicates, pcols, value, product_with):
+        """filter_sum through K7 over K1's words: ``.decode`` is the one K1
+        call, ``.filter`` the bounds and the live rows on the host,
+        ``.aggregate`` the K7 launch."""
+        read = [self.columns[n] for n in names]
+        with obs.span("strawboat.query.decode", device=self.device):
+            vals, valid = _unpack_columns(read, validity_words=True)
+        words = {n: v[0] for n, v in zip(names, vals)}
+        with obs.span("strawboat.query.filter"):
+            bounds = [(words[n], lo, hi) for n, lo, hi in self._bounds(predicates, pcols)]
+            live = self._live_rows()
+        with obs.span("strawboat.query.aggregate", device=self.device):
+            return k7_filter_sum(
+                words[value], live,
+                words[product_with] if product_with else None,
+                bounds, [v for v in valid if v is not None])
 
     def group_sum(
         self,

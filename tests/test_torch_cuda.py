@@ -110,6 +110,74 @@ def test_k6_matches_plain_on_card(cuda, cap):
         ga.group_agg([(on_card["k0"], 1)], ga.K6_MAX_GROUPS + 1, None, [(None, None)])
 
 
+def _k7_case(rng, n, n_in, wrap=False):
+    """K7's arguments over ``n_in`` int32 columns of ``n`` rows (numpy):
+    the value, a product, bounds on the others (one open end each) and a
+    validity column; near 2^31 where ``wrap``, so that products near 2^62
+    wrap the sum mod 2^64."""
+    lo = (1 << 31) - 4096 if wrap else 0
+    cols = [rng.integers(lo, 1 << 31 if wrap else 1 << 24, n).astype(np.int32) for _ in range(n_in)]
+    if n_in > 2:
+        cols[-1] = (rng.random(n) < 0.8).astype(np.int32)  # a validity column
+    bounds = [(i, 1 << 20, None) if i % 2 else (i, None, 1 << 23)
+              for i in range(2, n_in - 1)]
+    return cols, bounds
+
+
+def _k7_call(cols, bounds, num_rows, device, off=0):
+    """Both versions' arguments from ``_k7_case``'s on ``device``; ``off``
+    words past each base (off 16 bytes where it is not a multiple of 4)."""
+    ts = [torch.from_numpy(np.concatenate([np.zeros(off, np.int32), c])).to(device)[off:]
+          for c in cols]
+    product = ts[1] if len(ts) > 1 else None
+    nonzero = [ts[-1]] if len(ts) > 2 else []
+    return ts[0], num_rows, product, [(ts[i], lo, hi) for i, lo, hi in bounds], nonzero
+
+
+@pytest.mark.parametrize("shape", ["q6_sf10", "ragged", "off_16_bytes", "inputs", "wrap"])
+def test_k7_matches_plain_on_card(cuda, shape):
+    """K7 against its plain version: at resident Q6's SF10 shape (4 inputs
+    over 60,293,120 slots, the padding past 59,986,052 rows), on row counts
+    that leave a partial step and a tail of 1–3 rows, from bases off 16
+    bytes (the scalar loads), over 1–8 inputs, and on sums that wrap."""
+    from strawboat_tpu_torch.kernels import filter_sum as fs
+
+    rng = np.random.default_rng(len(shape))
+    cases = {"q6_sf10": [(60_293_120, 59_986_052, 4, False, 0)],
+             "ragged": [(n, rows, 4, False, 0) for n, rows in (
+                 (1, 1), (7, 5), (8195, 8192), (1 << 20, (1 << 20) - 1), (1_000_003, 1_000_003))],
+             "off_16_bytes": [(100_003, 100_001, 4, False, 1), (4096, 4096, 3, False, 2)],
+             "inputs": [(300_001, 299_999, k, False, 0) for k in range(1, 9)],
+             "wrap": [(2_000_000, 2_000_000, 2, True, 0)]}[shape]
+    for n, rows, n_in, wrap, off in cases:
+        cols, bounds = _k7_case(rng, n, n_in, wrap)
+        before = obs.counter("k7.launches")
+        got = fs.filter_sum(*_k7_call(cols, bounds, rows, cuda, off))
+        torch.cuda.synchronize()
+        assert obs.counter("k7.launches") - before == 1
+        want = fs.filter_sum_plain(*_k7_call(cols, bounds, rows, "cpu"))
+        assert got.device.type == "cuda" and got.dtype == torch.int64 and got.dim() == 0
+        assert int(got) == int(want), (shape, n, rows, n_in, off)
+
+
+def test_k7_raises_on_what_it_does_not_take_on_card(cuda):
+    """More than 8 distinct columns, non-int32, non-contiguous, mixed
+    devices: the wrapper raises and launches nothing."""
+    from strawboat_tpu_torch.kernels import filter_sum as fs
+
+    v = torch.arange(4096, dtype=torch.int32, device=cuda)
+    before = obs.counter("k7.launches")
+    for call in (
+            lambda: fs.filter_sum(v, 4096, bounds=[(v.clone(), 0, 9) for _ in range(8)]),
+            lambda: fs.filter_sum(v.long(), 4096),
+            lambda: fs.filter_sum(v, 4096, product=v.float()),
+            lambda: fs.filter_sum(torch.arange(8192, dtype=torch.int32, device=cuda)[::2], 4096),
+            lambda: fs.filter_sum(v, 4096, nonzero=[v.cpu()])):
+        with pytest.raises((TypeError, ValueError)):
+            call()
+    assert obs.counter("k7.launches") == before
+
+
 @pytest.mark.parametrize("seed", [0, 0xA5A500FF])
 def test_k3_matches_plain_on_card(cuda, seed):
     g = torch.Generator(device=cuda).manual_seed(seed & 0xFFFF)
@@ -536,6 +604,21 @@ def test_sharded_and_resident_q6_launch_k1_once_on_card(cuda):
         assert (obs.counter("k1.launches"), obs.counter("k1.planes")) == (
             before[0] + 1, before[1] + planes)
     assert int(sharded_filter_sum(srt, *q6)) == int(tpch.q6(rt)) == tpch.q6_numpy_reference(cols)
+
+
+def test_resident_q6_launches_k1_and_k7_once_on_card(cuda):
+    """A resident Q6 makes one K1 launch over its 4 planes and one K7
+    launch, and leaves no filter_sum on the torch route."""
+    from strawboat_tpu_torch.benchsuite import tpch
+    from strawboat_tpu_torch.exec import make_resident
+
+    cols = tpch.generate_lineitem(1.0, seed=4, rows=2_000_000)
+    rt = make_resident({k: cols[k] for k in tpch.Q1_Q6_COLUMNS}, cuda)
+    names = ("k1.launches", "k1.planes", "k7.launches", "k7.torch_routes")
+    before = [obs.counter(k) for k in names]
+    got = int(tpch.q6(rt))
+    assert [obs.counter(k) - b for k, b in zip(names, before)] == [1, 4, 1, 0]
+    assert got == tpch.q6_numpy_reference(cols)
 
 
 def test_all_to_all_and_psum_on_card(cuda):
