@@ -145,12 +145,38 @@ def _segment_sums(keys, items, num_groups: int, mask: Optional[torch.Tensor]):
     if mask is not None:
         code = torch.where(mask, code, -1)
     ones = torch.ones(code.shape, dtype=torch.int64, device=code.device)
+    counted: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}  # one count a distinct validity
     sums, counts = [], []
     for v, valid in items:
-        seg = code if valid is None else torch.where(valid, code, -1)
-        counts.append(segment_reduce(ones, seg, num_groups))
-        sums.append(counts[-1] if v is None else segment_reduce(v.to(torch.int64), seg, num_groups))
+        if id(valid) not in counted:
+            seg = code if valid is None else torch.where(valid, code, -1)
+            counted[id(valid)] = seg, segment_reduce(ones, seg, num_groups)
+        seg, cnt = counted[id(valid)]
+        counts.append(cnt)
+        sums.append(cnt if v is None else segment_reduce(v.to(torch.int64), seg, num_groups))
     return torch.stack(sums), torch.stack(counts)
+
+
+def group_sums(key: torch.Tensor, values: Sequence[torch.Tensor], num_groups: int,
+               mask: Optional[torch.Tensor] = None):
+    """Per-group sums of each of ``values`` and the rows per group, over
+    the rows ``mask`` keeps (None: every row) whose ``key`` lies in
+    ``[0, num_groups)``: the resident ``group_sum``'s.  The count and every
+    integer sum (exact int64) are one :func:`dense_group_sum` call, which
+    alone chooses K6 or the scatter; a float sum keeps its dtype through
+    :func:`segment_reduce`.  Returns ``([sums per value], counts)``."""
+    ints = [v for v in values if not v.is_floating_point()]
+    sums, _counts = dense_group_sum(key, [(None, None)] + [(v, None) for v in ints],
+                                    num_groups, mask=mask)
+    int_sums, seg, outs = iter(sums[1:]), None, []
+    for v in values:
+        if not v.is_floating_point():
+            outs.append(next(int_sums))
+            continue
+        if seg is None:
+            seg = key if mask is None else torch.where(mask, key, num_groups)
+        outs.append(segment_reduce(v if mask is None else torch.where(mask, v, 0), seg, num_groups))
+    return outs, sums[0]
 
 
 def dense_group_count(

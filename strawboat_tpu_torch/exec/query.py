@@ -375,12 +375,12 @@ def _fused_decode(rt: ResidentTable, names, keys):
         cols[n] = DeviceColumn(
             n,
             c.arrow_type,
-            rt._combine(c, vals, True),
+            c.combine(vals, True),
             valid,
             dictionary=c.dictionary_host if c.kind == "str" else None,
         )
         if n in keys:
-            key_codes[n] = rt._combine(c, vals, False)
+            key_codes[n] = c.combine(vals, False)
     return DeviceTable(cols, rt.tiled_slots), key_codes
 
 

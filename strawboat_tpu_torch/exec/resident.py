@@ -52,9 +52,8 @@ from ..kernels.decode import dict_gather_device
 from ..kernels.filter_sum import K7_MAX_INPUTS, filter_sum as k7_filter_sum
 from ..util import obs
 from ..util.bits import pack_blocks
-from .aggregate import segment_reduce
 from ..schema import NULL_TYPE, Field, decimal_params, fixed_binary_width, fixed_size, int_storage
-from .aggregate import list_segment_sum
+from .aggregate import group_sums, list_segment_sum
 from .scan import DeviceColumn, DeviceListColumn, DeviceTable, to_pa_array, unsigned_view
 
 _MAX_DICT = 1 << 20  # dictionary entries beyond this: plain planes instead
@@ -122,6 +121,62 @@ class ResidentColumn:
         if self._narrow_int and not self.wide:
             return torch.int32
         return torch.int64
+
+    def combine(self, unpacked, with_dict: bool = True) -> torch.Tensor:
+        """Unpacked planes (flat int32 u32 bits, as K1 gives them) →
+        the column's values (a dictionary column's through its dictionary
+        when ``with_dict``, else its codes; strings always codes)."""
+        if self.is_dict:
+            codes = unpacked[0]
+            if with_dict and self.dictionary is not None:
+                return dict_gather_device(codes, self.dictionary)
+            return codes
+        if self.kind == "bool":
+            return unpacked[0] != 0
+        if self.kind == "f32":
+            u = unpacked[0]
+            if self.offset or self.bit_shift:
+                w = words_u32(u)
+                if self.offset:
+                    w = (w + (self.offset & U32_MASK)) & U32_MASK
+                if self.bit_shift:
+                    w = (w << self.bit_shift) & U32_MASK
+                u = w.to(torch.int32)
+            return u.view(torch.float32)
+        if self._narrow_int and self.kind == "int":
+            v = unpacked[0]  # values < 2^31
+            return v.long() if self.wide else v
+        u = None
+        for v, sh in zip(unpacked, self.shifts):
+            p = words_u32(v) << sh
+            u = p if u is None else u | p
+        if self.offset:
+            u = u + u64_to_i64(self.offset)  # wraps mod 2^64
+        if self.bit_shift:
+            u = u << self.bit_shift
+        if self.kind == "f64":
+            return u.view(torch.float64)
+        return u
+
+    def compare_bounds(self, lo, hi):
+        """A predicate's value bounds ``[lo, hi)`` in the space the column
+        is compared in, as plain numbers (None where open): a sorted
+        dictionary's codes (``[lo, hi)`` over values is
+        ``[searchsorted(lo), searchsorted(hi))`` over codes), else the
+        values as given.
+
+        The routes differ past this point on purpose, each as its JAX
+        counterpart does: the single-table queries cast each end to the
+        column's compared dtype (int32 for codes) and cache it once a
+        table (``ResidentTable._bounds``, as JAX ``_bound_scalars``), so a
+        fraction on an integer column truncates and an end past the dtype
+        raises; the sharded queries compare against the plain numbers (as
+        JAX ``_bound_scalars_sharded``).  Tests hold each route against
+        its counterpart: keep the two."""
+        if not self.is_dict:
+            return lo, hi
+        d = self.dictionary_host
+        return tuple(None if b is None else int(np.searchsorted(d, b, "left")) for b in (lo, hi))
 
 
 def _slot_source_index(n_tiles: int, tile: int) -> np.ndarray:
@@ -274,50 +329,12 @@ class ResidentTable:
 
     # -- decode --------------------------------------------------------
 
-    @staticmethod
-    def _combine(c: ResidentColumn, vals, with_dict: bool):
-        """Unpacked planes (flat int32 u32 bits) → decoded column values
-        (dict columns: values when ``with_dict``, else codes)."""
-        if c.is_dict:
-            codes = vals[0]
-            if with_dict and c.dictionary is not None:
-                return dict_gather_device(codes, c.dictionary)
-            return codes
-        if c.kind == "bool":
-            return vals[0] != 0
-        if c.kind == "f32":
-            u = vals[0]
-            if c.offset or c.bit_shift:
-                w = words_u32(u)
-                if c.offset:
-                    w = (w + (c.offset & U32_MASK)) & U32_MASK
-                if c.bit_shift:
-                    w = (w << c.bit_shift) & U32_MASK
-                u = w.to(torch.int32)
-            return u.view(torch.float32)
-        if c._narrow_int and c.kind == "int":
-            v = vals[0]  # values < 2^31
-            return v.long() if c.wide else v
-        u = None
-        for v, sh in zip(vals, c.shifts):
-            p = words_u32(v) << sh
-            u = p if u is None else u | p
-        if c.offset:
-            u = u + u64_to_i64(c.offset)  # wraps mod 2^64
-        if c.bit_shift:
-            u = u << c.bit_shift
-        if c.kind == "f64":
-            return u.view(torch.float64)
-        return u
-
-    def _decode_col(self, c: ResidentColumn, with_dict: bool = True):
-        return self._combine(c, _unpack_planes(c.planes), with_dict)
-
     def decode_tiled(self, name: str, with_dict: bool = True) -> torch.Tensor:
         """Column values in tiled order, padding slots included.  Dict columns
         decode through the dictionary unless ``with_dict`` is False (code
         space); strings always return codes."""
-        return self._decode_col(self.columns[name], with_dict)
+        c = self.columns[name]
+        return c.combine(_unpack_planes(c.planes), with_dict)
 
     def validity_tiled(self, name: str) -> Optional[torch.Tensor]:
         """Validity (True = non-null) in tiled order, or None (all valid)."""
@@ -358,7 +375,7 @@ class ResidentTable:
 
     def _natural(self, c: ResidentColumn, with_dict: bool = True) -> torch.Tensor:
         """An explicit column's values (a list's child too) in natural order."""
-        return self._decode_col(c, with_dict)[: c.length]
+        return c.combine(_unpack_planes(c.planes), with_dict)[: c.length]
 
     def _col_validity(self, c: ResidentColumn) -> Optional[np.ndarray]:
         if c.validity_plane is None:
@@ -450,41 +467,24 @@ class ResidentTable:
 
     # -- bound translation ---------------------------------------------
 
-    def _code_bounds(self, col: str, lo, hi):
-        """VALUE bounds → CODE bounds for sorted-dict columns: [lo, hi) over
-        values equals [searchsorted(lo), searchsorted(hi)) over codes."""
-        c = self.columns[col]
-        if c.dictionary_host is None:
-            return lo, hi, False
-        d = c.dictionary_host
-        lo_c = None if lo is None else int(np.searchsorted(d, lo, "left"))
-        hi_c = None if hi is None else int(np.searchsorted(d, hi, "left"))
-        return lo_c, hi_c, True
-
     def _bounds(self, predicates, pcols):
-        """``((column, lo, hi), ...)``: each literal cast to the column's
-        decoded dtype (code space for dict columns) as a host scalar, None
-        where open, cached by value.  Both routes of filter_sum compare
-        against these."""
+        """``((column, lo, hi), ...)``: each literal in the column's
+        compared space (``ResidentColumn.compare_bounds``) cast to its
+        compared dtype (int32 for codes) as a host scalar, None where
+        open, cached by value.  Both routes of filter_sum compare against
+        these."""
         key = tuple((c,) + tuple(predicates[c]) for c in pcols)
         hit = self._bounds_cache.get(key)
         if hit is None:
             hit = []
             for cname in pcols:
-                given = predicates[cname]
-                lo, hi, is_code = self._code_bounds(cname, *given)
-                dt = torch.int32 if is_code else self.columns[cname].decoded_dtype()
+                c = self.columns[cname]
+                dt = torch.int32 if c.is_dict else c.decoded_dtype()
                 hit.append((cname,) + tuple(
-                    None if g is None else torch.tensor(b, dtype=dt).item()
-                    for g, b in zip(given, (lo, hi))))
+                    None if b is None else torch.tensor(b, dtype=dt).item()
+                    for b in c.compare_bounds(*predicates[cname])))
             hit = self._bounds_cache[key] = tuple(hit)
         return hit
-
-    def _bound_scalars(self, predicates, pcols):
-        """``_bounds``' given ends in ``pcols`` order: (lo's, hi's)."""
-        b = self._bounds(predicates, pcols)
-        return (tuple(lo for _c, lo, _hi in b if lo is not None),
-                tuple(hi for _c, _lo, hi in b if hi is not None))
 
     def _live_rows(self) -> int:
         """The real rows as ``mask_tiled`` marks them (its True prefix: the
@@ -505,25 +505,12 @@ class ResidentTable:
         with obs.span("strawboat.query.decode", device=self.device):
             for n, c, vals, valid in zip(names, read, *_unpack_columns(read)):
                 if n in value_cols:
-                    cols[n] = self._combine(c, vals, True)
+                    cols[n] = c.combine(vals, True)
                 if n in code_cols:
-                    codes[n] = self._combine(c, vals, False)
-                if valid is not None:
-                    valids.append(valid)
+                    codes[n] = c.combine(vals, False)
+                valids.append(valid)
         with obs.span("strawboat.query.filter"):
-            m = self.mask_tiled()
-            for valid in valids:
-                m = m & valid
-            los, his = self._bound_scalars(predicates, pcols)
-            li = hi_i = 0
-            for cname in pcols:
-                lo, hi = predicates[cname]
-                if lo is not None:
-                    m = m & (codes[cname] >= los[li])
-                    li += 1
-                if hi is not None:
-                    m = m & (codes[cname] < his[hi_i])
-                    hi_i += 1
+            m = kept_rows(self.mask_tiled(), valids, self._bounds(predicates, pcols), codes)
         return cols, codes, m
 
     # -- order-invariant fused query ops --------------------------------
@@ -609,10 +596,11 @@ class ResidentTable:
         num_groups: int,
         predicates: Optional[Dict[str, Tuple[Optional[float], Optional[float]]]] = None,
     ):
-        """Per-group sums + counts over dense integer keys in [0, num_groups).
-        Dict key columns group by (sorted) code.  Returns ``([sums per
-        value column], counts)``; keys outside the range are dropped.
-        Spans as :meth:`filter_sum`'s, under ``path="group_sum"``."""
+        """Per-group sums + counts over dense integer keys in [0, num_groups)
+        (``aggregate.group_sums``).  Dict key columns group by (sorted)
+        code.  Returns ``([sums per value column], counts)``; keys outside
+        the range are dropped.  Spans as :meth:`filter_sum`'s, under
+        ``path="group_sum"``."""
         with obs.span("strawboat.query", path="group_sum"):
             with obs.span("strawboat.query.plan"):
                 predicates = predicates or {}
@@ -622,15 +610,29 @@ class ResidentTable:
                 names, set(values), set(pcols) | {key}, predicates, pcols
             )
             with obs.span("strawboat.query.aggregate", device=self.device):
-                k = torch.where(m, codes[key].to(torch.int32), num_groups)
-                outs = []
-                for v in values:
-                    vv = cols[v]
-                    if not vv.is_floating_point():
-                        vv = vv.long()
-                    outs.append(segment_reduce(torch.where(m, vv, 0), k, num_groups))
-                cnt = segment_reduce(m.long(), k, num_groups)
-            return outs, cnt
+                return group_sums(codes[key].to(torch.int32), [cols[v] for v in values],
+                                  num_groups, m)
+
+
+def kept_rows(base, valid, bounds, codes):
+    """The mask of the rows a resident query keeps: ``base`` (the real
+    slots, or None where the planes are already cut at the real row
+    count) and-ed with each read column's validity in ``valid`` (None: no
+    nulls) and with each ``(column, lo, hi)`` of ``bounds`` over that
+    column's ``codes`` (its compared space; None ends open).  None where
+    nothing narrows it: every row is kept."""
+    def keeps():
+        yield from (v for v in valid if v is not None)
+        for cname, lo, hi in bounds:
+            if lo is not None:
+                yield codes[cname] >= lo
+            if hi is not None:
+                yield codes[cname] < hi
+
+    m = base
+    for keep in keeps():
+        m = keep if m is None else m & keep
+    return m
 
 
 # ---------------------------------------------------------------------------

@@ -99,7 +99,7 @@ from ..util import obs
 from . import arena
 from .pruning import check_predicates, prune_pages, read_zones
 
-_SCAN_TODO = "ROADMAP.md queue 1, 'Types and pages still refused'"
+_SCAN_TODO = "ROADMAP.md, 'Types and pages still refused'"
 
 
 @dataclass

@@ -6,11 +6,14 @@ tile axis is a row axis: cutting every plane's leading (tile) dimension
 into equal blocks gives each shard a contiguous row range, aligned across
 columns and validity planes.  A query decodes every shard's planes through
 kernel K1 at local shapes, one launch for all the shards on a device
-(``ResidentTable._combine``: K1's output is already in slot order, so the
-reference's ``_rows_to_t_major`` has no counterpart), reduces locally and
-combines with one ``psum``.  In a world of processes each process keeps
-only its own shards' tile blocks and decodes them in one K1 call; the
-``psum`` crosses the processes.
+(``ResidentColumn.combine``: K1's output is already in slot order, so the
+reference's ``_rows_to_t_major`` has no counterpart), keeps the rows that
+``exec/resident.py``'s ``kept_rows`` folds from the validity planes and
+the bounds of ``ResidentColumn.compare_bounds`` over the planes cut at
+the shard's row count, reduces locally and combines with one ``psum``.
+In a world of processes each process keeps only its own shards' tile
+blocks and decodes them in one K1 call; the ``psum`` crosses the
+processes.
 
 A table can also be loaded shard by shard (:func:`load_sharded_resident`):
 each process makes only its own rows resident, the world agrees every
@@ -32,7 +35,7 @@ import numpy as np
 import torch
 
 from ..errors import CapacityError, NotYetImplementedError
-from ..exec.aggregate import dense_group_sum, segment_reduce
+from ..exec.aggregate import group_sums
 from ..exec.expr import Expr
 from ..exec.resident import (
     ResidentColumn,
@@ -42,6 +45,7 @@ from ..exec.resident import (
     _split_planes_device,
     _unpack_columns,
     _unpack_planes,
+    kept_rows,
     make_resident,
 )
 from ..exec.scan import DeviceColumn, DeviceTable
@@ -195,7 +199,7 @@ def _remap(c: ResidentColumn, codes: torch.Tensor, glob: np.ndarray, tile: int) 
 def _plain(c: ResidentColumn, vals, tile: int) -> ResidentColumn:
     """A dictionary-coded integer column re-encoded as plain planes on its
     device (where other shards hold the column plain)."""
-    v = ResidentTable._combine(c, vals, True)[: c.length]
+    v = c.combine(vals, True)[: c.length]
     out = _encode_int_device(DeviceColumn(c.name, c.arrow_type, v), tile, c.length)
     out.validity_plane = c.validity_plane
     return out
@@ -288,43 +292,31 @@ def _decode_shards(srt: ShardedResidentTable, names):
     return [(vals[s * k : (s + 1) * k], valid[s * k : (s + 1) * k]) for s in range(n_shards)]
 
 
-def _code_bounds(srt: ShardedResidentTable, predicates: Bounds, pcols):
-    """Bound literals in code space for sorted-dictionary columns (host
-    side, once a query), as plain numbers."""
-    out = []
-    for cname in pcols:
-        lo, hi = predicates[cname]
-        dh = srt.columns[cname].dictionary_host
-        if dh is not None:
-            lo = None if lo is None else int(np.searchsorted(dh, lo, "left"))
-            hi = None if hi is None else int(np.searchsorted(dh, hi, "left"))
-        out.append((cname, lo, hi))
-    return out
+def _bounds(srt: ShardedResidentTable, predicates: Bounds, pcols):
+    """``[(column, lo, hi)]``: each predicate in its column's compared
+    space, as plain numbers (``ResidentColumn.compare_bounds``; host side,
+    once a query)."""
+    return [(c,) + srt.columns[c].local[0].compare_bounds(*predicates[c]) for c in pcols]
 
 
-def _local_inputs(srt, s: int, names, value_cols, code_cols, bounds, decoded):
-    """Local shard ``s``'s values (``value_cols``), codes (``code_cols``)
-    and row mask from its ``decoded`` planes (``_decode_shards``): real
-    rows (slots below the shard's row count), non-null in every read
-    column, inside every bound."""
-    first = decoded[0][0][0]  # the first column's first plane: every slot
-    m = torch.arange(first.shape[0], dtype=torch.int64, device=first.device) < srt.shard_rows[
-        srt.mesh.first_shard + s]
-    cols, codes = {}, {}
-    for n, vals, valid in zip(names, *decoded):
-        c = srt.columns[n].local[s]
-        if n in value_cols:
-            cols[n] = ResidentTable._combine(c, vals, True)
-        if n in code_cols:
-            codes[n] = ResidentTable._combine(c, vals, False)
-        if valid is not None:
-            m = m & valid
-    for cname, lo, hi in bounds:
-        if lo is not None:
-            m = m & (codes[cname] >= lo)
-        if hi is not None:
-            m = m & (codes[cname] < hi)
-    return cols, codes, m
+def _column(srt, s: int, name: str, planes, at, with_dict: bool = True) -> torch.Tensor:
+    """Local shard ``s``'s column ``name`` at slots ``at`` (indices, or a
+    slice) from its unpacked ``planes``: each plane cut, then combined
+    (values, or codes where not ``with_dict``)."""
+    return srt.columns[name].local[s].combine([p[at] for p in planes], with_dict)
+
+
+def _kept_mask(srt, s: int, names, bounds, decoded):
+    """Local shard ``s``'s rows and the mask of those a query keeps (None:
+    every row; ``kept_rows``): non-null in every read column, inside every
+    bound (code space for dictionary columns).  The planes are cut at the
+    shard's row count, so padding needs no mask; nothing waits on the
+    host."""
+    vals, valid = decoded
+    n = srt.shard_rows[srt.mesh.first_shard + s]
+    codes = {c: _column(srt, s, c, vals[names.index(c)], slice(0, n), False)
+             for c, _lo, _hi in bounds}
+    return n, kept_rows(None, [None if v is None else v[:n] for v in valid], bounds, codes)
 
 
 def sharded_filter_sum(
@@ -341,18 +333,19 @@ def sharded_filter_sum(
     pcols = tuple(sorted(predicates))
     extra = (product_with,) if product_with else ()
     names = list(dict.fromkeys(pcols + (value,) + extra))
-    bounds = _code_bounds(srt, predicates, pcols)
+    bounds = _bounds(srt, predicates, pcols)
     devs = srt.mesh.axis_devices(srt.axis)
     partial = []
     decoded = _decode_shards(srt, names)
     for s in range(len(devs)):
-        cols, _codes, m = _local_inputs(srt, s, names, {value, *extra}, set(pcols), bounds,
-                                        decoded[s])
-        acc = cols[value]
+        n, m = _kept_mask(srt, s, names, bounds, decoded[s])
+        vals = decoded[s][0]
+        acc = _column(srt, s, value, vals[names.index(value)], slice(0, n))
         if product_with is not None:
-            acc = (acc if acc.is_floating_point() else acc.long()) * cols[product_with]
+            acc = (acc if acc.is_floating_point() else acc.long()) * _column(
+                srt, s, product_with, vals[names.index(product_with)], slice(0, n))
         dt = torch.float64 if acc.is_floating_point() else torch.int64
-        partial.append(torch.where(m, acc, 0).sum(dtype=dt))
+        partial.append((acc if m is None else torch.where(m, acc, 0)).sum(dtype=dt))
     return psum(partial, devs)[0]
 
 
@@ -366,38 +359,30 @@ def sharded_group_sum(
     """Per-group sums + counts over a sharded resident table: each shard
     decodes its planes, groups by the key's codes (a sorted global
     dictionary is shared, so codes compare across shards), sums locally
-    (``dense_group_sum``; float values and more than 4096 groups through
-    ``segment_reduce``, as the reference switches) and one ``psum`` a
-    result combines.  Integer sums are int64 (the reference's segment
-    branch keeps a 32-bit column's width).  Returns ``((sums per value),
-    counts)`` on the first shard's device."""
+    (``aggregate.group_sums``, as the single-table ``group_sum``) and one
+    ``psum`` a result combines.  Integer sums are int64 (the reference's
+    segment branch keeps a 32-bit column's width).  Returns ``((sums per
+    value), counts)`` on the first shard's device; counts None where no
+    value is asked for, as the reference's."""
     predicates = predicates or {}
     pcols = tuple(sorted(predicates))
     names = list(dict.fromkeys((key,) + tuple(values) + pcols))
-    bounds = _code_bounds(srt, predicates, pcols)
+    bounds = _bounds(srt, predicates, pcols)
     devs = srt.mesh.axis_devices(srt.axis)
     sums = [[] for _ in values]
     counts = []
     decoded = _decode_shards(srt, names)
     for s in range(len(devs)):
-        cols, codes, m = _local_inputs(srt, s, names, set(values), {key, *pcols}, bounds,
-                                       decoded[s])
-        k = codes[key].to(torch.int32)
-        for i, vname in enumerate(values):
-            vv = cols[vname]
-            if vv.is_floating_point() or num_groups > 4096:
-                if not vv.is_floating_point():
-                    vv = vv.long()
-                seg = torch.where(m, k, num_groups)
-                part = segment_reduce(torch.where(m, vv, 0), seg, num_groups)
-                cnt = segment_reduce(m.long(), seg, num_groups)
-            else:
-                part, cnt = dense_group_sum(k, vv.long(), num_groups, mask=m)
-            sums[i].append(part)
-            if i == 0:
-                counts.append(cnt)
+        n, m = _kept_mask(srt, s, names, bounds, decoded[s])
+        vals, at = decoded[s][0], slice(0, n)
+        k = _column(srt, s, key, vals[0], at, False).to(torch.int32)
+        part, cnt = group_sums(k, [_column(srt, s, v, vals[names.index(v)], at) for v in values],
+                               num_groups, m)
+        for i, p in enumerate(part):
+            sums[i].append(p)
+        counts.append(cnt)
     outs = tuple(psum(p, devs)[0] for p in sums)
-    return outs, (psum(counts, devs)[0] if counts else None)
+    return outs, (psum(counts, devs)[0] if values else None)
 
 
 def _refs(c) -> Tuple[str, ...]:
@@ -417,32 +402,10 @@ def _selected(srt, s: int, names, at, n: int, vals) -> DeviceTable:
     a slice of ``n`` rows) from their unpacked planes ``vals``: each plane
     cut, then combined into values (dictionary columns through the
     dictionary)."""
-    cols = {}
-    for name, planes in zip(names, vals):
-        c = srt.columns[name].local[s]
-        cols[name] = DeviceColumn(name, c.arrow_type,
-                                  ResidentTable._combine(c, [p[at] for p in planes], True))
+    cols = {name: DeviceColumn(name, srt.columns[name].local[s].arrow_type,
+                               _column(srt, s, name, planes, at))
+            for name, planes in zip(names, vals)}
     return DeviceTable(cols, n)
-
-
-def _kept_mask(srt, s: int, names, bounds, decoded):
-    """Local shard ``s``'s rows and the mask of those a query keeps (None:
-    every row): non-null in every read column, inside every bound (code
-    space for dictionary columns).  The planes are cut at the shard's row
-    count, so padding needs no mask; nothing waits on the host."""
-    vals, valid = decoded
-    n = srt.shard_rows[srt.mesh.first_shard + s]
-    m = None
-    for v in valid:
-        if v is not None:
-            m = v[:n] if m is None else m & v[:n]
-    for cname, lo, hi in bounds:
-        c = srt.columns[cname].local[s]
-        code = ResidentTable._combine(c, [p[:n] for p in vals[names.index(cname)]], False)
-        for keep in ((None if lo is None else code >= lo), (None if hi is None else code < hi)):
-            if keep is not None:
-                m = keep if m is None else m & keep
-    return n, m
 
 
 def _finish(final, pos: Optional[int], need, n_valid, devs):
@@ -496,7 +459,7 @@ def _dense_stages(srt, s, key, lowest, slots, reads, values, vals, n, m):
     shard's ``n`` rows, and ``dist_agg.dense_partials`` under mask ``m``
     (``count`` aggregates read the count)."""
     c = srt.columns[key].local[s]
-    slot = ResidentTable._combine(c, [p[:n] for p in vals[0]], False)
+    slot = _column(srt, s, key, vals[0], slice(0, n), False)
     if slot.dtype not in (torch.int32, torch.int64):
         slot = slot.to(torch.int64)
     if c.is_dict:  # a null row's code need not be one
@@ -594,7 +557,7 @@ def sharded_keyed_aggregate(
         if cap is None:
             bound = min(srt.num_rows if span is None else span[1], srt.num_rows)
             cap = 1 << max(bound - 1, 0).bit_length()
-        bounds = _code_bounds(srt, predicates, pcols)
+        bounds = _bounds(srt, predicates, pcols)
         with obs.span("strawboat.query.decode", device=devs[0]):
             decoded = _decode_shards(srt, names)
         with obs.span("strawboat.query.filter", device=devs[0]):

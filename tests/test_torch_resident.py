@@ -103,6 +103,14 @@ def _table(case: str) -> pa.Table:
             "nb": _nullable(rng.random(n) < 0.3, valid, pa.bool_()),
             "v": pa.array(rng.integers(0, 1000, n).astype(np.int32)),
         })
+    if case == "wide_groups":  # keys up to 6000: those past 5000 drop out
+        n = 20_000
+        valid = rng.random(n) < 0.9
+        return pa.table({
+            "k": pa.array(rng.integers(0, 6000, n)),
+            "p": pa.array(rng.integers(0, 100, n).astype(np.int32)),
+            "v": _nullable(rng.integers(-(1 << 40), 1 << 40, n), valid, pa.int64()),
+        })
     if case == "decimal":
         from decimal import Decimal
 
@@ -128,6 +136,8 @@ QUERIES = {
     "strings": ("s", ("bravo", "delta"), "v", None, "s", 6),
     "bools": ("v", (100, 900), "v", None, "v", 1000),
     "decimal": ("d", (None, 10**15), "d", None, "g", 3),
+    # group_sum past K6_MAX_GROUPS: the scatter route of dense_group_sum
+    "wide_groups": ("p", (10, 90), "v", None, "k", 5000),
 }
 
 
@@ -271,7 +281,7 @@ def _assert_same_answers(got, want, case):
             np.testing.assert_array_equal(g, w, err_msg=case)
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + ("wide_groups",))
 def test_queries_match_reference(tables, ref_decoded, case):
     """filter_sum and group_sum, over the port's own encode and over the
     reference's planes carried across with ``from_reference``."""
