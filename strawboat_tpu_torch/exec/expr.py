@@ -9,6 +9,12 @@ A column-vs-number comparison carries a zone-map pruning atom
 (``pruning.Comparison``), and ``&`` concatenates them; every other
 composition clears them, and string comparisons make none, as in the
 reference.  ``Query`` hands a filter's atoms to the file scan.
+
+``col``, ``lit`` and every binary operator also record a read-only
+description of their node (``Expr.node``: ``("col", name)``, ``("lit",
+value)`` or ``(op, left node, right node)``), built on the host with the
+expression; nothing evaluates it.  :func:`product_factors` maps one to the
+factor form kernel K9 (``kernels/keyed_add.py``) takes.
 """
 
 from __future__ import annotations
@@ -38,6 +44,9 @@ class Expr:
     # prunable conjunctive atoms (column-vs-literal comparisons); sound
     # only under AND, so every other composition clears them
     atoms: tuple = ()
+    # the node's description: ("col", name), ("lit", value) or (op, left
+    # node, right node) with op a name of _NODE_NAMES; () where none is kept
+    node: tuple = ()
 
     def _bin(self, other, op) -> "Expr":
         other_e = _as_expr(other)
@@ -58,7 +67,7 @@ class Expr:
             atoms = (Comparison(self.name, _OP_NAMES[op], other),)
         if op is _logical_and:
             atoms = self.atoms + other_e.atoms
-        return Expr(f, self.refs + other_e.refs, atoms)
+        return Expr(f, self.refs + other_e.refs, atoms, (_NODE_NAMES[op], self.node, other_e.node))
 
     def __gt__(self, o):
         return self._bin(o, operator.gt)
@@ -143,6 +152,12 @@ def _logical_or(a, b):
     return torch.logical_or(torch.as_tensor(a), torch.as_tensor(b))
 
 
+_NODE_NAMES = {
+    **_OP_NAMES, operator.add: "add", operator.sub: "sub", operator.mul: "mul",
+    operator.truediv: "truediv", _logical_and: "and", _logical_or: "or",
+}
+
+
 def _and_mask(a, b):
     if a is None:
         return b
@@ -162,7 +177,7 @@ def col(name: str) -> "ColExpr":
         c = t[name]
         return c.values, c.validity
 
-    return ColExpr(f, refs=(name,), name=name)
+    return ColExpr(f, refs=(name,), node=("col", name), name=name)
 
 
 def _as_bytes(v):
@@ -287,4 +302,32 @@ def lit(value) -> Expr:
     def f(t):
         return value, None
 
-    return Expr(f)
+    return Expr(f, node=("lit", value))
+
+
+def _int_literal(node) -> bool:
+    return node[:1] == ("lit",) and type(node[1]) is int
+
+
+def _factor(node):
+    """One factor of :func:`product_factors`, or None."""
+    if node[:1] == ("col",):
+        return ("col", 0, node[1])
+    if len(node) == 3 and node[0] in ("add", "sub"):
+        op, a, b = node
+        if _int_literal(a) and b[:1] == ("col",):
+            return (op, a[1], b[1])
+        if op == "add" and a[:1] == ("col",) and _int_literal(b):
+            return ("add", b[1], a[1])
+    return None
+
+
+def product_factors(node: tuple):
+    """K9's factor form of a summed value's description (``Expr.node``):
+    a product of one or two factors, each ``("col", 0, name)`` (the
+    column), ``("sub", literal, name)`` (literal − column) or ``("add",
+    literal, name)`` (literal + column), the literal a Python int; None
+    for any other shape."""
+    parts = (node[1], node[2]) if node[:1] == ("mul",) else (node,)
+    factors = tuple(_factor(p) for p in parts)
+    return None if None in factors else factors

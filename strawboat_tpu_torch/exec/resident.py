@@ -107,6 +107,18 @@ class ResidentColumn:
             and self.planes[0][1] <= 31
         )
 
+    @property
+    def words_are(self) -> Optional[str]:
+        """What K1's int32 words of this column are to a kernel that reads
+        them in place of :meth:`combine`'s column (K7, K9): ``"values"``
+        for a narrow plain integer (one ≤31-bit plane, no offset),
+        ``"codes"`` for a dictionary-coded integer or string column (fit
+        for a key or a code-space bound, never for a summed value), else
+        None."""
+        if self.is_dict:
+            return "codes" if self.kind in ("int", "str") else None
+        return "values" if self.kind == "int" and self._narrow_int else None
+
     def decoded_dtype(self) -> torch.dtype:
         if self.is_dict:
             if self.kind == "str":
@@ -557,17 +569,12 @@ class ResidentTable:
         """Whether K7 takes a filter_sum: the summed columns narrow plain
         integers (one ≤31-bit plane, no offset: the values are K1's words),
         each predicate column such an integer or a dictionary column
-        compared in code space, no float, and at most ``K7_MAX_INPUTS``
-        planes and validity planes in all."""
+        compared in code space (``ResidentColumn.words_are``), no float,
+        and at most ``K7_MAX_INPUTS`` planes and validity planes in all."""
         cols = self.columns
-
-        def narrow(c):
-            return c.kind == "int" and not c.is_dict and c._narrow_int
-
-        if not all(narrow(cols[n]) for n in summed):
+        if not all(cols[n].words_are == "values" for n in summed):
             return False
-        if not all(narrow(cols[n]) or (cols[n].is_dict and cols[n].kind in ("int", "str"))
-                   for n in pcols):
+        if not all(cols[n].words_are is not None for n in pcols):
             return False
         inputs = sum(1 + (cols[n].validity_plane is not None) for n in names)
         return inputs <= K7_MAX_INPUTS

@@ -6,7 +6,7 @@ library with a plain C interface, ``build/lib<name>.so`` beside this file
 redone when the source is newer than the library.  :func:`load_all`
 starts one nvcc per source at once; :func:`entry` binds a C function,
 building the libraries of ``SIDE_BY_SIDE`` together (the resident queries'
-K1, K6 and K7, so a first run's nvcc times overlap).  Each compile is a
+K1, K6, K7 and K9, so a first run's nvcc times overlap).  Each compile is a
 ``strawboat.kernel.build`` span (attribute ``kernel``) and counts in
 ``kernel.builds`` (``util/obs.py``).
 """
@@ -39,7 +39,7 @@ _locks: Dict[str, threading.Lock] = {}  # one per library: builds run side by si
 _libs: Dict[str, ctypes.CDLL] = {}
 
 # libraries built together when either is first needed
-SIDE_BY_SIDE = ("bitunpack", "group_agg", "filter_sum")
+SIDE_BY_SIDE = ("bitunpack", "group_agg", "filter_sum", "keyed_add")
 
 
 def nvcc_path() -> str:

@@ -39,23 +39,32 @@ _ENTRY_ARGS = (ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p)
 Bound = Tuple[torch.Tensor, Optional[int], Optional[int]]
 
 
+def check_columns(named: Sequence[Tuple[str, torch.Tensor]]) -> Tuple[int, torch.device]:
+    """The length and device of the first of ``named``'s ``(what, column)``
+    pairs; raises unless every column is int32, 1-D, contiguous, of that
+    length and on that device (what the kernels over K1's words take)."""
+    lead, first = named[0]
+    n, dev = first.shape[0] if first.dim() == 1 else -1, first.device
+    for what, t in named:
+        if t.dtype != torch.int32:
+            raise TypeError(f"{what}: dtype {t.dtype}, expected torch.int32")
+        if t.dim() != 1 or t.shape[0] != n:
+            raise ValueError(f"{what}: shape {tuple(t.shape)}, expected one dimension of "
+                             f"the {lead}'s length")
+        if t.device != dev:
+            raise ValueError(f"{what} on {t.device}, the {lead} on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what} must be contiguous")
+    return n, dev
+
+
 def _check(value, num_rows: int, product, bounds: Sequence[Bound],
            nonzero: Sequence[torch.Tensor]) -> torch.device:
     """The inputs' device; raises on anything the kernel does not take."""
     named = [("value", value)] + ([("product", product)] if product is not None else [])
     named += [(f"bound {i}", t) for i, (t, _lo, _hi) in enumerate(bounds)]
     named += [(f"nonzero {i}", t) for i, t in enumerate(nonzero)]
-    n, dev = value.shape[0] if value.dim() == 1 else -1, value.device
-    for what, t in named:
-        if t.dtype != torch.int32:
-            raise TypeError(f"{what}: dtype {t.dtype}, expected torch.int32")
-        if t.dim() != 1 or t.shape[0] != n:
-            raise ValueError(f"{what}: shape {tuple(t.shape)}, expected one dimension of "
-                             f"the value's length")
-        if t.device != dev:
-            raise ValueError(f"{what} on {t.device}, the value on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{what} must be contiguous")
+    n, dev = check_columns(named)
     if not 0 <= num_rows <= n:
         raise ValueError(f"num_rows must be in 0..{n}, got {num_rows}")
     for i, (_t, lo, hi) in enumerate(bounds):
@@ -86,13 +95,15 @@ def filter_sum_plain(value: torch.Tensor, num_rows: int, product: Optional[torch
     return torch.where(keep, acc, 0).sum(dtype=torch.int64)
 
 
-def _inputs(value, product, bounds: Sequence[Bound], nonzero) -> Tuple[List, List, List, int]:
-    """The kernel's inputs: the value first, the product second (the value
-    again where it is its own product), then each other distinct tensor
-    once → (tensors, lo, hi, nonzero bits).  Bounds on one tensor
-    intersect."""
-    ins = [value] + ([product] if product is not None else [])
-    lo, hi, nz = [_I64_MIN] * len(ins), [_I64_MAX] * len(ins), 0
+def distinct_inputs(lead: Sequence[torch.Tensor], bounds: Sequence[Bound], nonzero,
+                    rest: Sequence[torch.Tensor] = ()) -> Tuple[List, List, List, int, int]:
+    """A kernel's inputs over K1's words: ``lead`` first, as given (a
+    tensor twice where it is given twice), then each other distinct tensor
+    of ``bounds``, ``nonzero`` and ``rest`` once → (tensors, lo, hi, bits of
+    the inputs a bound or nonzero test reads, bits of the nonzero tests).
+    Bounds on one tensor intersect."""
+    ins = list(lead)
+    lo, hi, tested, nz = [_I64_MIN] * len(ins), [_I64_MAX] * len(ins), 0, 0
 
     def slot(t) -> int:
         for i, u in enumerate(ins):
@@ -105,13 +116,18 @@ def _inputs(value, product, bounds: Sequence[Bound], nonzero) -> Tuple[List, Lis
 
     for t, b_lo, b_hi in bounds:
         i = slot(t)
+        tested |= 1 << i
         if b_lo is not None:
             lo[i] = max(lo[i], b_lo)
         if b_hi is not None:
             hi[i] = min(hi[i], b_hi)
     for t in nonzero:
-        nz |= 1 << slot(t)
-    return ins, lo, hi, nz
+        i = slot(t)
+        tested |= 1 << i
+        nz |= 1 << i
+    for t in rest:
+        slot(t)
+    return ins, lo, hi, tested, nz
 
 
 def filter_sum(value: torch.Tensor, num_rows: int, product: Optional[torch.Tensor] = None,
@@ -125,7 +141,10 @@ def filter_sum(value: torch.Tensor, num_rows: int, product: Optional[torch.Tenso
     distinct tensors; bounds Python ints in int64; else it raises."""
     bounds, nonzero = list(bounds), list(nonzero)
     dev = _check(value, num_rows, product, bounds, nonzero)
-    ins, lo, hi, nz = _inputs(value, product, bounds, nonzero)
+    # the value first, the product second (the value again where it is its
+    # own product)
+    lead = [value] + ([product] if product is not None else [])
+    ins, lo, hi, _tested, nz = distinct_inputs(lead, bounds, nonzero)
     if len(ins) > K7_MAX_INPUTS:
         raise ValueError(f"at most {K7_MAX_INPUTS} distinct columns, got {len(ins)}")
     if dev.type == "cpu":

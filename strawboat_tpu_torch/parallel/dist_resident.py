@@ -21,9 +21,9 @@ dictionary-coded column's sorted dictionary (local codes are remapped on
 the card) and each shard keeps its own row count.  Over either kind,
 :func:`sharded_keyed_aggregate` groups by any integer key column (one K1
 call a device, then ``dist_agg.py``'s local partials, keyed exchange and
-combine: dense slots over the key's span, or the kept rows compacted and
-sorted), and fetches the largest group and its holders when asked (TPC-H
-Q15's shape).
+combine: dense slots over the key's span, added by kernel K9 where the
+columns allow, or the kept rows compacted and sorted), and fetches the
+largest group and its holders when asked (TPC-H Q15's shape).
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ import torch
 
 from ..errors import CapacityError, NotYetImplementedError
 from ..exec.aggregate import group_sums
-from ..exec.expr import Expr
+from ..exec.expr import Expr, product_factors
 from ..exec.resident import (
     ResidentColumn,
     ResidentTable,
@@ -50,6 +50,7 @@ from ..exec.resident import (
 )
 from ..exec.scan import DeviceColumn, DeviceTable
 from ..kernels.bitunpack import TILE3D
+from ..kernels.keyed_add import K9_MAX_INPUTS, K9_MAX_TERMS, Factor, keyed_add
 from ..util import obs
 from .collectives import ShardedTensor, all_gather, gather_objects, pmax, psum
 from .dist_agg import (
@@ -279,7 +280,7 @@ def load_sharded_resident(
         sum(shard_rows), tile, mesh, axis, 0, shard_rows=shard_rows, spans=spans)
 
 
-def _decode_shards(srt: ShardedResidentTable, names):
+def _decode_shards(srt: ShardedResidentTable, names, validity_words: bool = False):
     """This process's shards' planes and validity planes of ``names``
     through K1 at local shapes, one call a device (the reference's
     per-shard Pallas calls): per local shard, (each column's unpacked
@@ -287,7 +288,7 @@ def _decode_shards(srt: ShardedResidentTable, names):
     them."""
     n_shards = len(srt.mesh.axis_devices(srt.axis))
     vals, valid = _unpack_columns(
-        [srt.columns[n].local[s] for s in range(n_shards) for n in names])
+        [srt.columns[n].local[s] for s in range(n_shards) for n in names], validity_words)
     k = len(names)
     return [(vals[s * k : (s + 1) * k], valid[s * k : (s + 1) * k]) for s in range(n_shards)]
 
@@ -474,6 +475,63 @@ def _dense_stages(srt, s, key, lowest, slots, reads, values, vals, n, m):
     return dense_partials(slot, cols, m, slots)
 
 
+def _k9_terms(srt, key, names, pcols, bounds, specs):
+    """K9's terms for a dense keyed aggregate, by column: each summed
+    value's :func:`product_factors` (a column name is its own one factor),
+    or None where K9 does not take the call (``ResidentTable._k7_takes``'
+    rule on these columns' ``ResidentColumn.words_are``): a value that is
+    no such product, a summed column whose words are not its values (a
+    dictionary column's are codes, even where it is also the key or a
+    predicate), any other column read whose words are neither values nor
+    codes, a literal or bound outside its column's dtype, or more inputs
+    or terms than one launch takes."""
+    terms = []
+    for fn, e in specs:
+        if fn == "count":
+            continue
+        factors = product_factors(e.node if isinstance(e, Expr) else ("col", e))
+        if factors is None:
+            return None
+        terms.append(factors)
+    summed = {col for t in terms for _op, _l, col in t}
+    for n in names:
+        fit = ("values",) if n in summed else ("values", "codes")
+        if any(c.words_are not in fit for c in srt.columns[n].local):
+            return None
+
+    def fits(name, v) -> bool:
+        wide = any(c.wide and not c.is_dict for c in srt.columns[name].local)
+        bits = 63 if wide else 31
+        return type(v) is int and -(1 << bits) <= v < (1 << bits)
+
+    if not all(fits(col, lit) for t in terms for _op, lit, col in t):
+        return None
+    if not all(v is None or fits(c, v) for c, lo, hi in bounds for v in (lo, hi)):
+        return None
+    read = {key, *pcols, *(col for t in terms for _op, _l, col in t)}
+    validity = max(sum(srt.columns[n].local[s].validity_plane is not None for n in names)
+                   for s in range(len(srt.columns[key].local)))
+    if len(read) + validity > K9_MAX_INPUTS or not 0 < len(terms) <= K9_MAX_TERMS:
+        return None
+    return terms
+
+
+def _k9_stages(srt, s, key, lowest, slots, names, terms, bounds, decoded):
+    """Local shard ``s``'s dense partials through one K9 launch over K1's
+    words (``decoded``: validity as words; ``bounds`` on the words): the
+    payload and ``where`` of ``dist_agg.dense_partials`` for the same sums
+    (one int64 ``(terms + 1, slots)`` payload, the count last)."""
+    vals, valid = decoded
+    words = {n: v[0] for n, v in zip(names, vals)}
+    c = srt.columns[key].local[s]
+    factors = [[Factor(words[col], srt.columns[col].local[s].wide, op, lit)
+                for op, lit, col in t] for t in terms]
+    out = keyed_add(words[key], srt.shard_rows[srt.mesh.first_shard + s], slots, factors,
+                    lowest=0 if c.is_dict else lowest, clamp=c.is_dict, bounds=bounds,
+                    nonzero=[v for v in valid if v is not None])
+    return [out], [(0, i) for i in range(len(terms) + 1)]
+
+
 def _dense_keys(srt, key: str, s: int, lowest: int, owned: int) -> torch.Tensor:
     """The keys of the ``owned`` slots local shard ``s`` owns in a dense
     keyed aggregate: its range of the span, as values (a dictionary
@@ -510,8 +568,7 @@ def sharded_keyed_aggregate(
     span ``srt.spans[key]`` at most :data:`DENSE_SLOTS`, every fn a sum or
     a count): each row's slot is its key less the span's lowest (a
     dictionary key's code); every shard adds its kept rows into every
-    slot of the span (``dist_agg.dense_partials``, one ``index_add_`` an
-    aggregate), shard ``d`` receives the ``d``-th contiguous range of
+    slot of the span, shard ``d`` receives the ``d``-th contiguous range of
     every shard's slots (``exchange_dense``, one all_to_all a payload
     dtype) and sums them (``combine_dense``).  Nothing waits on the host
     until the finish.  **Sorted** (otherwise): the kept rows are compacted
@@ -523,8 +580,17 @@ def sharded_keyed_aggregate(
     overflow it; a smaller one that some shard's groups exceed raises
     :class:`CapacityError` on every process alike; there is no retry.
 
+    The dense partials are one K9 launch a local shard over K1's words
+    (``kernels/keyed_add.py``: the bounds, validity, products and adds in
+    one pass) where :func:`_k9_terms` takes the call, decided once a query
+    from the columns' encodings and the values' ``Expr.node``; else torch's
+    passes (``_kept_mask``'s mask, the values, ``dist_agg.dense_partials``:
+    one ``index_add_`` an aggregate), counted in ``k9.torch_routes``.  Both
+    give the same payloads.
+
     Spans: the root ``strawboat.query`` with ``path="sharded_agg"`` and
-    ``.decode`` (one K1 call a device), ``.filter``, ``.partial``,
+    ``.decode`` (one K1 call a device), ``.filter`` (on K9's route the
+    bounds alone, on the host; else the masks), ``.partial``,
     ``.exchange``, ``.combine`` and ``.finish`` (one MAX all-reduce; for
     ``max_of`` the keys holding the largest value, in one fixed-size
     gather; one fetch).  Counters ``exchange.slots_sent`` (the slots a
@@ -558,16 +624,31 @@ def sharded_keyed_aggregate(
             bound = min(srt.num_rows if span is None else span[1], srt.num_rows)
             cap = 1 << max(bound - 1, 0).bit_length()
         bounds = _bounds(srt, predicates, pcols)
+        specs = [values[n] for n in out_names]
+        terms = _k9_terms(srt, key, names, pcols, bounds, specs) if dense else None
+        if dense and terms is None:
+            obs.count("k9.torch_routes")
         with obs.span("strawboat.query.decode", device=devs[0]):
-            decoded = _decode_shards(srt, names)
+            decoded = _decode_shards(srt, names, validity_words=terms is not None)
         with obs.span("strawboat.query.filter", device=devs[0]):
-            kept = [_kept_mask(srt, s, names, bounds, decoded[s]) for s in range(len(devs))]
+            if terms is not None:  # K9 tests the rows: each shard's bounds, on the host
+                k9_bounds = [[(decoded[s][0][names.index(c)][0], lo, hi) for c, lo, hi in bounds]
+                             for s in range(len(devs))]
+            else:
+                kept = [_kept_mask(srt, s, names, bounds, decoded[s]) for s in range(len(devs))]
             if not dense:
                 idx = [torch.arange(n, device=d[0][0][0].device) if m is None
                        else torch.nonzero(m).squeeze(1) for (n, m), d in zip(kept, decoded)]
         if dense:
-            final, n_valid, need = _dense(srt, key, span, reads, fns, values, out_names,
-                                          decoded, kept, devs, n_parts)
+            if terms is not None:
+                def stage(s, lowest, slots):
+                    return _k9_stages(srt, s, key, lowest, slots, names, terms, k9_bounds[s],
+                                      decoded[s])
+            else:
+                def stage(s, lowest, slots):
+                    return _dense_stages(srt, s, key, lowest, slots, reads, specs,
+                                         decoded[s][0], *kept[s])
+            final, n_valid, need = _dense(srt, key, span, fns, devs, n_parts, stage)
         else:
             final, n_valid, need = _sorted(srt, key, reads, fns, values, out_names, decoded,
                                            idx, cap, devs, n_parts)
@@ -586,17 +667,17 @@ def sharded_keyed_aggregate(
         return result
 
 
-def _dense(srt, key, span, reads, fns, values, out_names, decoded, kept, devs, n_parts):
-    """The dense stages of :func:`sharded_keyed_aggregate`: per local
-    shard ``(keys, aggregates, valid)`` of the slots it owns, its valid
-    partial slots, and no group need (a span cannot overflow)."""
+def _dense(srt, key, span, fns, devs, n_parts, stage):
+    """The dense stages of :func:`sharded_keyed_aggregate`, each local
+    shard's partials from ``stage(s, lowest, slots)`` (``_k9_stages`` or
+    ``_dense_stages``): per local shard ``(keys, aggregates, valid)`` of
+    the slots it owns, its valid partial slots, and no group need (a span
+    cannot overflow)."""
     lowest, width = span
     owned = -(-width // n_parts)
     slots = owned * n_parts
-    specs = [values[n] for n in out_names]
     with obs.span("strawboat.query.partial", device=devs[0]):
-        staged = [_dense_stages(srt, s, key, lowest, slots, reads, specs, decoded[s][0],
-                                n, m) for s, (n, m) in enumerate(kept)]
+        staged = [stage(s, lowest, slots) for s in range(len(devs))]
     with obs.span("strawboat.query.exchange", device=devs[0]):
         obs.count("exchange.slots_sent", slots * len(devs))
         received = exchange_dense(devs, [pays for pays, _w in staged], n_parts)

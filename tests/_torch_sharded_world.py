@@ -8,8 +8,11 @@ module, so it imports only numpy, torch and the port).
 shards of different lengths, a string column one shard lacks a value of,
 an integer column every shard holds dictionary-coded over its own
 dictionary, one that some shards hold plain and others coded, a nullable
-column, and a key whose groups spread over every shard.
-:func:`numpy_q15` is the plain answer they are held to.
+column, and a key whose groups spread over every shard.  Its money
+(``ep``) is dictionary-coded, so Q15's dense stages keep torch's passes;
+with ``narrow`` it is one narrow plain plane, as lineitem's is at scale,
+so they take kernel K9.  :func:`numpy_q15` is the plain answer they are
+held to.
 """
 
 from __future__ import annotations
@@ -25,9 +28,13 @@ KEYS = 300  # the key runs 1 .. KEYS
 QUARTER = (100, 190)  # the ship-date bounds of the queries
 
 
-def make_parts(seed: int = 7, tie: bool = False) -> List[Dict[str, np.ndarray]]:
+def make_parts(seed: int = 7, tie: bool = False,
+               narrow: bool = False) -> List[Dict[str, np.ndarray]]:
     """Every shard's columns.  ``tie``: keys 11 and 12 get the same large
-    revenue, spread over the shards, so that the largest is held twice."""
+    revenue, spread over the shards, so that the largest is held twice.
+    ``narrow``: ``ep`` in [0, 512), too many distinct values a shard for
+    a dictionary to save a bit (else 100 .. 10^7, dictionary-coded, and
+    the tie's totals past 2^31)."""
     rng = np.random.default_rng(seed)
     parts = []
     for s, n in enumerate(LENGTHS):
@@ -37,7 +44,7 @@ def make_parts(seed: int = 7, tie: bool = False) -> List[Dict[str, np.ndarray]]:
         nv = rng.integers(0, 1000, n)
         part = {
             "k": rng.integers(1, KEYS + 1, n),
-            "ep": rng.integers(100, 10**7, n),
+            "ep": rng.integers(0, 512, n) if narrow else rng.integers(100, 10**7, n),
             "disc": rng.integers(0, 11, n),
             "sd": rng.integers(0, 300, n).astype(np.int32),
             "flag": flags[rng.integers(0, len(flags), n)],
@@ -45,7 +52,16 @@ def make_parts(seed: int = 7, tie: bool = False) -> List[Dict[str, np.ndarray]]:
             "mixed": mixed,
             "nv": np.ma.MaskedArray(nv, mask=rng.random(n) < 0.1),
         }
-        if tie:
+        if tie and narrow:
+            # keys 11 and 12 only in the first 40 rows of every shard, 20
+            # each, in the quarter at the most a row is worth: each key's
+            # 80 * 511 * 100 is several times any other key's total
+            part["k"][np.isin(part["k"], (11, 12))] = 13
+            part["k"][:40] = np.tile((11, 12), 20)
+            part["sd"][:40] = QUARTER[0] + 1
+            part["ep"][:40] = 511
+            part["disc"][:40] = 0
+        elif tie:
             # keys 11 and 12 only in rows worth 10**12 more than any other
             # key's total, two rows each on every shard, in the quarter
             part["k"][np.isin(part["k"], (11, 12))] = 13
@@ -141,14 +157,38 @@ def local_parts(mesh, parts):
     return parts[mesh.first_shard : mesh.first_shard + n] if world() else parts
 
 
+def q15_run(srt):
+    """One Q15 query on this process: its answer (``"max"``, and
+    ``"groups"`` as :func:`groups`) and its ``k9.launches`` and
+    ``k9.torch_routes`` (``"k9"``, per rank; a CPU shard takes K9's plain
+    version, which launches nothing)."""
+    from _torch_world import PerRank
+    from strawboat_tpu_torch import parallel as par
+    from strawboat_tpu_torch.util import obs
+
+    names = ("k9.launches", "k9.torch_routes")
+    before = [obs.counter(n) for n in names]
+    res = par.sharded_keyed_aggregate(srt, "k", {"revenue": ("sum", revenue())},
+                                      {"sd": QUARTER}, max_of="revenue")
+    return {"max": res["max"], "groups": groups(res, "revenue"),
+            "k9": PerRank(tuple(obs.counter(n) - b for n, b in zip(names, before)))}
+
+
 def case_loader(_mesh, inp):
     """The loader over this process's parts on a 4-shard mesh (in a world
-    of 2, two shards a process), and every query."""
+    of 2, two shards a process), every query, and a Q15 query's K9
+    counts; with ``inp["narrow"]`` (:func:`make_parts` with ``narrow``),
+    also Q15 over a table loaded from those (``"narrow_q15"``)."""
     from strawboat_tpu_torch import parallel as par
 
     mesh = par.make_mesh(SHARDS, _mesh.axis_devices("shards")[0])
     srt = par.load_sharded_resident(local_parts(mesh, inp["parts"]), mesh, tile=TILE)
-    return {"shard_rows": srt.shard_rows, "spans": srt.spans, **queries(srt)}
+    out = {"shard_rows": srt.shard_rows, "spans": srt.spans, **queries(srt),
+           "q15_k9": q15_run(srt)["k9"]}
+    if "narrow" in inp:
+        narrow = par.load_sharded_resident(local_parts(mesh, inp["narrow"]), mesh, tile=TILE)
+        out["narrow_q15"] = q15_run(narrow)
+    return out
 
 
 def case_capacity(_mesh, inp):

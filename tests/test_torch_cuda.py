@@ -178,6 +178,88 @@ def test_k7_raises_on_what_it_does_not_take_on_card(cuda):
     assert obs.counter("k7.launches") == before
 
 
+def _k9_case(shape, g, device):
+    """K9's arguments for a card test: ``(key, num_rows, slots, terms,
+    lowest, clamp, bounds, nonzero)`` over int32 columns made on
+    ``device`` from generator ``g``."""
+    from strawboat_tpu_torch.kernels.keyed_add import Factor
+
+    def ints(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=g, device=device, dtype=torch.int32)
+
+    if shape.startswith("q15"):
+        # rank 0's share of the four-card Q15: about 150 M rows of
+        # l_suppkey (20 bits), l_extendedprice (24, int64), l_discount (4,
+        # int64) and l_shipdate (12) in 287 tiles of 16,384 x 32 slots, a
+        # quarter's ship dates kept (about 3.6%)
+        n = 287 * 16384 * 32
+        supp, price, disc, ship = ints(1, 1_000_001, n), ints(0, 1 << 24, n), ints(0, 11, n), \
+            ints(0, 2526, n)
+        terms = [[Factor(price, True), Factor(disc, True, "sub", 100)]]
+        if shape == "q15_global":  # the supplier slots, added in device memory
+            return supp, 150_000_000, 1 << 20, terms, 0, False, [(ship, 1000, 1091)], []
+        # the discount as a dictionary code: 11 slots, added in shared memory
+        return disc, 150_000_000, 11, terms, 0, True, [(ship, 1000, 1091)], []
+    cases = []
+    if shape == "ragged":
+        sizes = [(1, 1), (7, 5), (8195, 8192), (1 << 20, (1 << 20) - 1), (1_000_003, 1_000_003)]
+        for n, rows in sizes:
+            cols = [ints(0, 1 << 20, n) for _ in range(4)]
+            cases.append((cols[0] % 4096, rows, 4096, [[Factor(cols[1], True),
+                                                         Factor(cols[2], False, "add", -9)]],
+                          0, False, [(cols[3], 1 << 18, None)], []))
+    elif shape == "off_16_bytes":
+        for off, n in ((1, 100_003), (2, 4096), (3, 77_777)):
+            cols = [ints(0, 1 << 20, n + off)[off:] for _ in range(3)]
+            cases.append((cols[0] % 300, n - 2, 300, [[Factor(cols[1])]], 0, True,
+                          [(cols[2], None, 1 << 19)], []))
+    elif shape == "inputs":  # 1 to 8 inputs, validity words among them
+        n = 300_001
+        for k in range(1, 9):
+            cols = [ints(0, 1 << 20, n) for _ in range(k)]
+            key, rest = cols[0] % 1000, cols[1:]
+            bounds = [(c, 1 << 17, None) for c in rest[: len(rest) // 2]]
+            nonzero = [(c % 5).contiguous() for c in rest[len(rest) // 2 : len(rest) // 2 + 1]]
+            summed = rest[len(rest) // 2 + 1 :] or [key]
+            terms = [[Factor(c, i % 2 == 0, "sub", 7)] for i, c in enumerate(summed[:4])]
+            cases.append((key, n - 3, 1000, terms, 0, False, bounds, nonzero))
+    else:  # wrap: int32 factors whose sums and product wrap
+        n = 2_000_000
+        a, b = ints((1 << 30) - 4096, 1 << 30, n), ints((1 << 30) - 4096, 1 << 30, n)
+        cases.append((ints(-50, 50, n), n, 100, [[Factor(a), Factor(b, False, "add", 1 << 30)],
+                                                 [Factor(a, True), Factor(b, True)]],
+                      -50, False, [], []))
+    return cases
+
+
+@pytest.mark.parametrize("shape", ["q15_global", "q15_shared", "ragged", "off_16_bytes",
+                                   "inputs", "wrap"])
+def test_k9_matches_plain_on_card(cuda, shape):
+    """K9 against its plain version, bit for bit: at the four-card Q15's
+    shape on one card in both ways of adding (2^20 supplier slots in device
+    memory; 11 dictionary slots in shared memory), on row counts that leave
+    a partial step and a tail, from bases off 16 bytes, over 1-8 inputs,
+    and on int32 products and int64 sums that wrap."""
+    from strawboat_tpu_torch.kernels import keyed_add as k9
+
+    g = torch.Generator(device=cuda).manual_seed(len(shape))
+    cases = _k9_case(shape, g, cuda)
+    cases = [cases] if shape.startswith("q15") else cases
+    for key, rows, slots, terms, lowest, clamp, bounds, nonzero in cases:
+        way = k9.plan_adds(slots, len(terms))
+        if shape.startswith("q15"):
+            assert way == shape[4:]
+        before = obs.counter("k9.launches")
+        got = k9.keyed_add(key, rows, slots, terms, lowest, clamp, bounds, nonzero)
+        torch.cuda.synchronize()
+        assert obs.counter("k9.launches") - before == 1
+        want = k9.keyed_add_plain(key, rows, slots, terms, lowest, clamp, bounds, nonzero)
+        assert got.device.type == "cuda" and got.dtype == torch.int64
+        assert got.shape == (len(terms) + 1, slots)
+        assert torch.equal(got, want), (shape, rows, slots, len(terms), way)
+        assert int(got[-1].sum()) > 0
+
+
 @pytest.mark.parametrize("seed", [0, 0xA5A500FF])
 def test_k3_matches_plain_on_card(cuda, seed):
     g = torch.Generator(device=cuda).manual_seed(seed & 0xFFFF)
@@ -819,28 +901,33 @@ def _sharded_agg_same(got, want):
 def test_sharded_keyed_aggregate_on_card(cuda):
     """The per-process loader and the keyed aggregate on a 4-shard mesh on
     one card answer as on the CPU, Q15's answer as numpy's; one K1 launch
-    a keyed aggregate."""
+    a keyed aggregate.  Q15 keeps torch's passes over a dictionary-coded
+    money column and takes one K9 launch a local shard over narrow plain
+    planes."""
     import _torch_sharded_world as sw
     from strawboat_tpu_torch import parallel as par
     from strawboat_tpu_torch.parallel import load_sharded_resident, make_mesh
 
-    parts = sw.make_parts(7, tie=True)
-    srt = load_sharded_resident(parts, make_mesh(sw.SHARDS, cuda), tile=sw.TILE)
-    _sharded_agg_same(sw.queries(srt), _sharded_agg_single_cpu(parts))
-    _, best, holders = sw.numpy_q15(parts)
-    before = obs.counter("k1.launches")
-    res = par.sharded_keyed_aggregate(srt, "k", {"revenue": ("sum", sw.revenue())},
-                                      {"sd": sw.QUARTER}, max_of="revenue")
-    assert obs.counter("k1.launches") == before + 1
-    assert res["max"] == {"value": best, "keys": holders} and len(holders) == 2
+    names = ("k1.launches", "k9.launches", "k9.torch_routes")
+    for narrow, counts in ((False, [1, 0, 1]), (True, [1, sw.SHARDS, 0])):
+        parts = sw.make_parts(7, tie=True, narrow=narrow)
+        srt = load_sharded_resident(parts, make_mesh(sw.SHARDS, cuda), tile=sw.TILE)
+        _sharded_agg_same(sw.queries(srt), _sharded_agg_single_cpu(parts))
+        _, best, holders = sw.numpy_q15(parts)
+        before = [obs.counter(n) for n in names]
+        res = par.sharded_keyed_aggregate(srt, "k", {"revenue": ("sum", sw.revenue())},
+                                          {"sd": sw.QUARTER}, max_of="revenue")
+        assert [obs.counter(n) - b for n, b in zip(names, before)] == counts, narrow
+        assert res["max"] == {"value": best, "keys": holders} and len(holders) == 2
 
 
 def test_nccl_world_of_four_cards_sharded_keyed_aggregate(cuda, tmp_path):
     """Four ranks under NCCL, one card each, a shard a rank: the loader's
     table and the keyed aggregate over the NCCL exchange answer as the
-    single-process mesh on the CPU, Q15's answer as numpy's, and a
-    capacity below the groups raises on every rank.  Needs four cards on
-    one host; skips with fewer."""
+    single-process mesh on the CPU, Q15's answer as numpy's (over narrow
+    plain planes, one K9 launch a rank), and a capacity below the groups
+    raises on every rank.  Needs four cards on one host; skips with
+    fewer."""
     import _torch_sharded_world as sw
     from _torch_world import run_world
 
@@ -848,10 +935,17 @@ def test_nccl_world_of_four_cards_sharded_keyed_aggregate(cuda, tmp_path):
         pytest.skip("needs four cards")
     parts = sw.make_parts(7, tie=True)
     names = ["_torch_sharded_world:case_loader", "_torch_sharded_world:case_capacity"]
-    got = run_world(4, {"parts": parts}, names, str(tmp_path / "world"), device="cuda")
+    narrow = sw.make_parts(7, tie=True, narrow=True)
+    got = run_world(4, {"parts": parts, "narrow": narrow}, names, str(tmp_path / "world"),
+                    device="cuda")
     loader = got[names[0]]
     assert loader["shard_rows"] == sw.LENGTHS
     _sharded_agg_same(loader, _sharded_agg_single_cpu(parts))
     _, best, holders = sw.numpy_q15(parts)
     assert loader["q15"]["max"] == {"value": best, "keys": holders}
+    assert loader["q15_k9"] == [(0, 1)] * 4  # dictionary-coded money: torch's passes
+    by_key, best, holders = sw.numpy_q15(narrow)
+    assert loader["narrow_q15"]["max"] == {"value": best, "keys": holders}
+    assert sw.union(loader["narrow_q15"]["groups"]) == by_key
+    assert loader["narrow_q15"]["k9"] == [(1, 0)] * 4  # one K9 launch a rank's one shard
     assert got[names[1]]["capacity"] == 64 and got[names[1]]["required"] > 64

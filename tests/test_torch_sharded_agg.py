@@ -168,8 +168,8 @@ def test_loader_takes_one_part_a_local_shard(parts):
 def world2(parts, tmp_path_factory):
     """A world of 2 gloo processes running the cases once."""
     names = ["_torch_sharded_world:case_loader", "_torch_sharded_world:case_capacity"]
-    return run_world(2, {"parts": parts}, names, str(tmp_path_factory.mktemp("sharded2")),
-                     limit_s=WORLD_S)
+    return run_world(2, {"parts": parts, "narrow": sw.make_parts(7, tie=True, narrow=True)},
+                     names, str(tmp_path_factory.mktemp("sharded2")), limit_s=WORLD_S)
 
 
 def test_world_of_two_answers_as_one_process(world2, parts):
@@ -181,6 +181,14 @@ def test_world_of_two_answers_as_one_process(world2, parts):
           sw.queries(single))
     _, best, holders = sw.numpy_q15(parts)
     assert got["q15"]["max"] == {"value": best, "keys": holders}
+    # a dictionary-coded money column keeps torch's passes on every rank;
+    # narrow plain planes take K9 (its plain version on the CPU: no launch)
+    assert got["q15_k9"] == [(0, 1), (0, 1)]
+    narrow = sw.make_parts(7, tie=True, narrow=True)
+    by_key, best, holders = sw.numpy_q15(narrow)
+    assert got["narrow_q15"]["max"] == {"value": best, "keys": holders} and len(holders) == 2
+    assert sw.union(got["narrow_q15"]["groups"]) == by_key
+    assert got["narrow_q15"]["k9"] == [(0, 0), (0, 0)]
 
 
 def test_world_of_two_raises_capacity_on_every_process(world2):
